@@ -5,7 +5,13 @@ The port's modules carry flax's auto-names, so the bridge maps parameter
 
 - ``.../Conv_k/kernel``  HWIO  -> ``...Conv_k.weight``  OIHW
 - ``.../Dense_k/kernel`` [in, out] -> ``...Dense_k.weight`` [out, in]
-- ``.../GroupNorm_k/scale`` -> ``...GroupNorm_k.weight`` (``bias`` -> ``bias``)
+- ``.../GroupNorm_k/scale``, ``.../LayerNorm_k/scale`` -> ``....weight``
+  (``bias`` -> ``bias``)
+- ``.../attn/{query,key,value}/kernel`` ``[in, H, hd]`` (``DenseGeneral``)
+  -> ``...attn.query.weight`` ``[H*hd, in]``, bias ``[H, hd]`` -> ``[H*hd]``
+- ``.../attn/out/kernel`` ``[H, hd, out]`` -> ``...attn.out.weight``
+  ``[out, H*hd]``
+- ``.../Embed_k/embedding`` ``[V, E]`` -> ``...Embed_k.weight``
 
 Dense inputs need no row permutation: the port flattens its activations in
 flax's (h, w, c) order. A gradient tree has the parameter tree's layout, so
@@ -39,11 +45,16 @@ def _convert(path: tuple, leaf: np.ndarray):
             return ".".join(mods) + ".weight", leaf.transpose(3, 2, 0, 1)
         if leaf.ndim == 2:  # dense [in, out] -> [out, in]
             return ".".join(mods) + ".weight", leaf.T
+        if leaf.ndim == 3:  # DenseGeneral over heads
+            if mods[-1] == "out":  # [H, hd, out] -> [out, H*hd]
+                return ".".join(mods) + ".weight", leaf.reshape(-1, leaf.shape[-1]).T
+            # [in, H, hd] -> [H*hd, in]
+            return ".".join(mods) + ".weight", leaf.reshape(leaf.shape[0], -1).T
         raise ValueError(f"{'/'.join(path)}: kernel of rank {leaf.ndim}")
-    if name == "scale":
+    if name in ("scale", "embedding"):
         return ".".join(mods) + ".weight", leaf
-    if name == "bias":
-        return ".".join(mods) + ".bias", leaf
+    if name == "bias":  # a DenseGeneral bias [H, hd] flattens to [H*hd]
+        return ".".join(mods) + ".bias", leaf.reshape(-1)
     raise ValueError(f"{'/'.join(path)}: unknown flax parameter {name!r}")
 
 

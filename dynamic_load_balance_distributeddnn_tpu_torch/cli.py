@@ -2,7 +2,8 @@
 
 Parses the JAX package's flags (``config.py``), skips a run whose completion
 sentinel already exists, then trains on the card (``device="cuda"``) unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``: ``-m transformer`` with the language-model
+trainer (``train/lm_engine.py``), every other model with the vision one.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.obs.logging import (
     run_already_done,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
 
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda") -> int:
@@ -25,7 +27,8 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> int:
         print("Had finished this experiment, skipping...")
         print("===========================\n")
         return 0
-    Trainer(cfg, device=device).run()
+    trainer = LMTrainer if cfg.model == "transformer" else Trainer
+    trainer(cfg, device=device).run()
     mark_run_done(cfg)
     return 0
 

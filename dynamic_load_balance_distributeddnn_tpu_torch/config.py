@@ -41,7 +41,7 @@ DATASETS = ["cifar10", "cifar100", "mnist", "wikitext2"]
 # Models this port builds (models/__init__.py build_model).
 PORTED_MODELS = (
     "mnistnet", "densenet", "densenet121", "densenet169", "densenet201",
-    "densenet161",
+    "densenet161", "transformer",
 )
 
 
@@ -199,9 +199,10 @@ class Config:
             raise NotImplementedError(
                 f"-m {self.model}: this port builds {list(PORTED_MODELS)} only"
             )
-        if self.dataset == "wikitext2":
-            raise NotImplementedError(
-                "-ds wikitext2: the language-model path is not ported yet"
+        if self.dataset == "wikitext2" and self.model != "transformer":
+            raise ValueError(
+                f"-m {self.model} -ds wikitext2: wikitext2 is the transformer's "
+                "corpus, the vision models train on image datasets"
             )
         devs = self.device if isinstance(self.device, list) else [self.device]
         if len({d for d in devs if d is not None}) > 1:
@@ -226,10 +227,8 @@ class Config:
             "fault_tolerance": self.fault_tolerance and not self.straggler,
             "precision": self.precision != "float32",
             "remat": self.remat,
-            "grad_clip": self.grad_clip != 0.0,
             "ckpt_dir": bool(self.ckpt_dir),
             "profile_dir": bool(self.profile_dir),
-            "use_flash_attention": self.use_flash_attention,
             "packed": self.packed == "on",
             "superstep": self.superstep == "on",
         }

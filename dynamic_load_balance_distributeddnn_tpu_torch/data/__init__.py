@@ -1,5 +1,10 @@
-"""Dataset readers and the per-epoch data partitioner."""
+"""Dataset readers, the LM corpus and the per-epoch data partitioner."""
 
+from dynamic_load_balance_distributeddnn_tpu_torch.data.corpus import (
+    Corpus,
+    batchify,
+    bptt_windows,
+)
 from dynamic_load_balance_distributeddnn_tpu_torch.data.datasets import (
     DatasetBundle,
     load_dataset,
@@ -13,9 +18,12 @@ from dynamic_load_balance_distributeddnn_tpu_torch.data.partitioner import (
 )
 
 __all__ = [
+    "Corpus",
     "DatasetBundle",
     "EpochPlan",
     "WorkerPlan",
+    "batchify",
+    "bptt_windows",
     "build_epoch_plan",
     "load_dataset",
     "partition_indices",

@@ -85,9 +85,12 @@ def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def init_flax_defaults(model: nn.Module, generator: torch.Generator) -> None:
     """flax's default initializers: conv/dense kernels lecun_normal (a normal
-    truncated at two standard deviations, std sqrt(1/fan_in)/0.8796),
-    biases zero, GroupNorm scale one. Drawn on the CPU from ``generator`` so
-    a seed gives the same weights on every device."""
+    truncated at two standard deviations, std sqrt(1/fan_in)/0.8796, with
+    ``DenseGeneral``'s flattened fan-in, which is a Linear's ``in_features``),
+    biases zero, GroupNorm and LayerNorm scale one and bias zero, and
+    embeddings U[-0.1, 0.1] (the JAX ``TransformerLM``'s ``embed_init``).
+    Drawn on the CPU from ``generator`` in module order, so a seed gives the
+    same weights on every device."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -97,6 +100,10 @@ def init_flax_defaults(model: nn.Module, generator: torch.Generator) -> None:
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, GroupNorm):
+        elif isinstance(m, (GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            w = torch.empty(m.weight.shape, dtype=torch.float32)
+            w.uniform_(-0.1, 0.1, generator=generator)
+            m.weight.copy_(w)

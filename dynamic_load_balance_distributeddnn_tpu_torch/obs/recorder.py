@@ -45,7 +45,13 @@ class MetricsRecorder:
         self.meta: Dict[str, object] = {}
 
     def stamp_data_source(self, src) -> None:
+        """Record where the data came from (a ``DatasetBundle`` or a
+        ``Corpus``): the synthetic stand-in flag and the fallbacks taken
+        (``notes``, e.g. valid.txt standing in for a missing train.txt)."""
         self.meta["synthetic"] = bool(getattr(src, "synthetic", False))
+        notes = list(getattr(src, "notes", []))
+        if notes:
+            self.meta["data_notes"] = notes
 
     def record_epoch(self, **kw) -> None:
         """The nine series are mandatory; extra keyword series are recorded

@@ -29,13 +29,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("groupnorm", "xent")
+SOURCES = ("groupnorm", "xent", "flash_attention")
 
 LAUNCHES: Dict[str, int] = {
     "groupnorm_fwd": 0,
     "groupnorm_bwd": 0,
     "xent_fwd": 0,
     "xent_bwd": 0,
+    "attn_fwd": 0,
+    "attn_bwd_dkv": 0,
+    "attn_bwd_dq": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

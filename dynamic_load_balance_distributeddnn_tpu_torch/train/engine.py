@@ -21,6 +21,10 @@ min over 3 repetitions, scaled by the worker's step count. The combine +
 update is probed separately as ``sync_time`` and never enters the solver's
 vector (PARITY contract 4). A ``timing_model`` replaces the probes with a
 deterministic model, as in the JAX package.
+
+The language-model trainer (``train/lm_engine.py``) subclasses this one and
+overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
+``_setup_model``, ``_build_plan``, ``_worker_epoch`` and ``validate``.
 """
 
 from __future__ import annotations
@@ -99,6 +103,8 @@ def resolve_device(device) -> torch.device:
 class Trainer:
     """Vision-model DBS trainer on one device."""
 
+    SNAP_BATCHES = True  # snap batch sizes to bucket multiples (vision only)
+
     def __init__(
         self,
         cfg: Config,
@@ -135,7 +141,9 @@ class Trainer:
             self.injector = NullInjector(cfg.world_size)
 
         self.recorder = MetricsRecorder()
-        self.recorder.stamp_data_source(self.bundle)
+        self.recorder.stamp_data_source(
+            self.bundle if self.bundle is not None else getattr(self, "corpus", None)
+        )
         self.recorder.meta["wall_excludes_probes"] = True
         self.recorder.meta["device"] = str(self.device)
         if self.device.type == "cuda":
@@ -181,14 +189,19 @@ class Trainer:
         )
         init_flax_defaults(model, torch.Generator().manual_seed(cfg.seed))
         self.model = model.to(self.device, memory_format=torch.channels_last)
-        self.dropout_gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._use_seeded_dropout()
+        self.params: List[torch.nn.Parameter] = list(self.model.parameters())
+        self.optimizer = make_optimizer(self.params, cfg.learning_rate, cfg.momentum)
+        self.grad_clip = cfg.grad_clip
+        self.augment = cfg.dataset in ("cifar10", "cifar100")
+        self.aug_gen = torch.Generator(device=self.device)
+
+    def _use_seeded_dropout(self) -> None:
+        """Point every dropout of the model at the trainer's generator."""
+        self.dropout_gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_gen
-        self.params: List[torch.nn.Parameter] = list(self.model.parameters())
-        self.optimizer = make_optimizer(self.params, cfg.learning_rate, cfg.momentum)
-        self.augment = cfg.dataset in ("cifar10", "cifar100")
-        self.aug_gen = torch.Generator(device=self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -251,7 +264,7 @@ class Trainer:
             self.shares, batch_sizes = rebalance(
                 self.node_times, self.shares, cfg.batch_size, max_share=max_share
             )
-            if cfg.snap_to_bucket:
+            if cfg.snap_to_bucket and self.SNAP_BATCHES:
                 batch_sizes = quantize_batches(batch_sizes, cfg.bucket, cfg.batch_size)
                 self.shares = batch_sizes.astype(np.float64) / batch_sizes.sum()
             self.logger.info(
@@ -260,15 +273,7 @@ class Trainer:
         else:
             batch_sizes = integer_batch_split(self.shares, cfg.batch_size)
 
-        plan = build_epoch_plan(
-            self.n_train,
-            self.shares,
-            batch_sizes,
-            cfg.batch_size,
-            epoch,
-            seed=cfg.seed,
-            bucket=cfg.bucket,
-        )
+        plan = self._build_plan(epoch, batch_sizes)
         self.logger.info(
             f"Epoch {epoch}: batch sizes {plan.batch_sizes.tolist()}, "
             f"steps {plan.num_steps}"
@@ -280,11 +285,25 @@ class Trainer:
         self._probe_this_epoch = cfg.dynamic_batch_size
         return plan, faults
 
+    def _build_plan(self, epoch: int, batch_sizes: np.ndarray):
+        cfg = self.cfg
+        return build_epoch_plan(
+            self.n_train,
+            self.shares,
+            batch_sizes,
+            cfg.batch_size,
+            epoch,
+            seed=cfg.seed,
+            bucket=cfg.bucket,
+        )
+
     # ---------------------------------------------------------- train epoch
 
     def _worker_epoch(self, plan, rank: int):
-        """Worker ``rank``'s whole epoch on the device: ``(idx [steps, b_pad],
-        w [steps, b_pad], real rows per step)``; real rows are a prefix."""
+        """Worker ``rank``'s batch supplier for the epoch: a function of the
+        step returning ``(batch, count)``, ``batch`` an ``(x, y, w)`` on the
+        device or None for a step with no real data, and ``count`` the
+        entries with positive weight (the train loss's denominator)."""
         idx, mask = plan.epoch_indices(rank)
         w = np.stack(
             [
@@ -298,11 +317,18 @@ class Trainer:
                 for s in range(mask.shape[0])
             ]
         )
-        return (
-            torch.from_numpy(idx).to(self.device),
-            torch.from_numpy(w).to(self.device),
-            mask.sum(axis=1).tolist(),
-        )
+        idx = torch.from_numpy(idx).to(self.device)
+        w = torch.from_numpy(w).to(self.device)
+        n_real = mask.sum(axis=1).tolist()  # real rows are a prefix
+
+        def step(s: int):
+            n = n_real[s]
+            if n == 0:
+                return None, 0  # all-padding step: weight 0, skipped
+            rows = idx[s, :n]
+            return (self._prep(self.train_x[rows]), self.train_y[rows], w[s, :n]), n
+
+        return step
 
     def _prep(self, x_u8: torch.Tensor) -> torch.Tensor:
         mean, std = self.bundle.mean, self.bundle.std
@@ -314,24 +340,21 @@ class Trainer:
         cfg = self.cfg
         self.timekeeper.reset()
         self.model.train()
-        self.aug_gen.manual_seed(cfg.seed * 7919 + epoch)
-        per_worker = [self._worker_epoch(plan, r) for r in range(self.world_size)]
+        if self.augment:
+            self.aug_gen.manual_seed(cfg.seed * 7919 + epoch)
+        suppliers = [self._worker_epoch(plan, r) for r in range(self.world_size)]
         loss_sum = torch.zeros((), device=self.device)
         count = 0
         first = None
         for s in range(plan.num_steps):
             batches = []
-            for idx, w, n_real in per_worker:
-                n = n_real[s]
-                if n == 0:
-                    batches.append(None)  # all-padding step: weight 0, skipped
-                    continue
-                rows = idx[s, :n]
-                batches.append((self._prep(self.train_x[rows]), self.train_y[rows], w[s, :n]))
+            for supply in suppliers:
+                b, n = supply(s)
+                batches.append(b)
                 count += n
             if first is None:
                 first = batches  # the probes reuse the epoch's first batches
-            step_loss = elastic_step(self.model, self.optimizer, batches)
+            step_loss = elastic_step(self.model, self.optimizer, batches, self.grad_clip)
             if step_loss is not None:
                 loss_sum += step_loss
         self._sync()
@@ -361,7 +384,7 @@ class Trainer:
         model, params = self.model, self.params
         for b in batches:  # untimed warm pass
             if b is not None:
-                probe_grads(model, params, b)
+                probe_grads(model, params, b, self.grad_clip)
         self._sync()
         # the host's launch + synchronize round trip, which is not device
         # compute; floored at 20% of the raw wall as in the JAX package
@@ -382,7 +405,7 @@ class Trainer:
             for _ in range(reps):
                 self._sync()
                 t0 = time.perf_counter()
-                g = probe_grads(model, params, b)
+                g = probe_grads(model, params, b, self.grad_clip)
                 self._sync()
                 dt = min(dt, time.perf_counter() - t0)
             dt = max(dt - ovh, 0.2 * dt)

@@ -1,12 +1,20 @@
 #!/usr/bin/env python3
-"""Where one DenseNet-121 DBS epoch's time goes on an NVIDIA card.
+"""Where one DBS epoch's time goes on an NVIDIA card.
 
-    python3 scripts/torch_profile.py [--epochs-warm 1] [--out chiprun_out/profile]
+    python3 scripts/torch_profile.py [--recipe densenet|lm] [--epochs-warm 1] [--out DIR]
 
-Builds the port's ``Trainer`` on the canonical recipe (DenseNet-121,
-synthetic CIFAR-10, 4 workers on one card, B=512, 3:1 virtual straggler,
-4096 training examples: 8 steps per epoch) and runs warm-up epochs. Then it
-runs the training steps of one more epoch's plan three times, probes off:
+Recipes:
+
+- ``densenet`` (default): the port's ``Trainer`` on the canonical recipe
+  (DenseNet-121, synthetic CIFAR-10, 4 workers on one card, B=512, 3:1
+  virtual straggler, 4096 training examples: 8 steps per epoch);
+- ``lm``: the port's ``LMTrainer`` on the language-model recipe of
+  ``chip_smoke.py`` (Transformer LM, EMSIZE 200, 2 heads, 2 layers, flash
+  attention, the committed wikitext-2 files, 4 workers, 80 columns, bptt
+  35, clipping at 0.25, 3:1 virtual straggler: 78 steps per epoch).
+
+It builds the trainer and runs warm-up epochs. Then it runs the training
+steps of one more epoch's plan three times, probes off:
 once to warm up that plan's batch shapes, once plain for its host wall, and
 once under ``torch.profiler`` for the device's kernel time. It prints:
 
@@ -15,11 +23,12 @@ once under ``torch.profiler`` for the device's kernel time. It prints:
 - the training wall, the device's summed kernel time and the device's busy
   share (kernel time over the unprofiled wall; the profiler's own host cost
   would otherwise inflate the idle share);
-- device time per kernel family (the port's GroupNorm and cross-entropy
-  kernels, cuDNN convolutions, concatenation, elementwise, optimizer ...);
+- device time per kernel family (the port's kernels, cuDNN convolutions or
+  cuBLAS products, concatenation, elementwise, optimizer ...);
 - the 15 kernels with the most device time.
 
-The full table goes to ``<out>/profile.json``. Needs a CUDA device.
+The full table goes to ``<out>/profile.json`` (default
+``chiprun_out/profile`` or ``chiprun_out/profile_lm``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,6 +43,25 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+RECIPES = {
+    "densenet": "-m densenet -ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 "
+                "--straggler 3,1,1,1 -e 100 --n_train 4096",
+    "lm": "-m transformer -ds wikitext2 -d false -ws 4 -b 80 -gpu 0,0,0,0 --bptt 35 "
+          "--grad_clip 0.25 --straggler 3,1,1,1 --use_flash_attention true -e 100",
+}
+
+LM_FAMILIES = (  # (family, substrings of the kernel name), first match wins
+    ("flash attention (port)", ("attn_fwd_kernel", "attn_bwd_")),
+    ("cross-entropy (port)", ("xent_",)),
+    ("matrix products (cuBLAS)", ("gemm", "sm90", "xmma", "cutlass", "splitk")),
+    ("layer norm", ("layer_norm", "layernorm")),
+    ("embedding", ("embedding",)),
+    ("optimizer / clip (foreach)", ("foreach", "multi_tensor", "norm")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("copy / index", ("copy", "index", "gather", "scatter", "fill")),
+)
+
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("groupnorm (port)", ("gn_fwd_kernel", "gn_bwd_kernel", "gn_param_reduce")),
     ("cross-entropy (port)", ("xent_",)),
@@ -47,9 +75,9 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
 )
 
 
-def family(name: str) -> str:
+def family(name: str, families=FAMILIES) -> str:
     low = name.lower()
-    for fam, keys in FAMILIES:
+    for fam, keys in families:
         if any(k.lower() in low for k in keys):
             return fam
     return "other"
@@ -57,9 +85,12 @@ def family(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--recipe", choices=sorted(RECIPES), default="densenet")
     ap.add_argument("--epochs-warm", type=int, default=1)
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile"))
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.out is None:
+        args.out = os.path.join(ROOT, "chiprun_out", "profile" + ("_lm" if args.recipe == "lm" else ""))
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -69,6 +100,7 @@ def main(argv=None) -> int:
         return 1
     from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
     from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -79,11 +111,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
     cfg = config_from_args(
-        "-m densenet -ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 "
-        "--straggler 3,1,1,1 -e 100 --n_train 4096".split()
+        RECIPES[args.recipe].split()
         + ["--log_dir", os.path.join(args.out, "logs"), "--stat_dir", os.path.join(args.out, "statis")]
     )
-    tr = Trainer(cfg, log_to_file=False)
+    families = LM_FAMILIES if args.recipe == "lm" else FAMILIES
+    tr = (LMTrainer if args.recipe == "lm" else Trainer)(cfg, log_to_file=False)
     for e in range(args.epochs_warm):
         tr.run_epoch(e)
     epoch = args.epochs_warm
@@ -112,14 +144,15 @@ def main(argv=None) -> int:
     dev_total_s = sum(k["us"] for k in kernels.values()) / 1e6
     fams = {}
     for name, k in kernels.items():
-        f = fams.setdefault(family(name), {"us": 0.0, "count": 0})
+        f = fams.setdefault(family(name, families), {"us": 0.0, "count": 0})
         f["us"] += k["us"]
         f["count"] += k["count"]
     print(f"epoch {epoch} training steps ({plan.num_steps} steps x {cfg.world_size} workers, "
           f"batches {plan.batch_sizes.tolist()}): wall {wall:.3f}s (first pass over these "
           f"shapes {wall_first:.3f}s, profiled {wall_profiled:.3f}s), device kernel time "
           f"{dev_total_s:.3f}s, busy share "
-          f"{dev_total_s / wall:.3f}")
+          f"{dev_total_s / wall:.3f}, {tr.n_train / wall:.1f} "
+          f"{'tokens' if args.recipe == 'lm' else 'examples'}/s")
     for fam, f in sorted(fams.items(), key=lambda kv: -kv[1]["us"]):
         print(f"  {fam:24s} {f['us'] / 1e3:10.1f} ms  {100 * f['us'] / 1e6 / dev_total_s:5.1f}%  "
               f"{f['count']} launches")
@@ -128,9 +161,10 @@ def main(argv=None) -> int:
     for name, k in top:
         print(f"  {k['us'] / 1e3:9.1f} ms  x{k['count']:6d}  {name[:110]}")
     with open(os.path.join(args.out, "profile.json"), "w") as f:
-        json.dump({"card": smi, "epoch": epoch, "batch_sizes": plan.batch_sizes.tolist(),
+        json.dump({"card": smi, "recipe": args.recipe, "epoch": epoch, "batch_sizes": plan.batch_sizes.tolist(),
                    "wall_s": wall, "wall_first_pass_s": wall_first,
                    "wall_profiled_s": wall_profiled, "device_kernel_s": dev_total_s,
+                   "per_s": tr.n_train / wall,
                    "families": fams, "kernels": kernels}, f, indent=1)
     return 0
 

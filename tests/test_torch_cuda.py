@@ -9,7 +9,8 @@ Tolerances: f32 GroupNorm forward atol 1e-4 and gradients 5e-4 (f32
 statistics, other reduction order); the parameter gradients are sums over
 B*S terms, held relative to their size (rtol 1e-4); bf16 input and output
 round to 8 significant bits (atol 3e-2 plus rtol 1e-2); cross-entropy atol
-1e-5.
+1e-5; flash attention forward atol 2e-5 and gradients 5e-4 (the JAX
+package's own tolerances for its kernel, ``tests/test_pallas.py``).
 """
 
 import pytest
@@ -18,6 +19,15 @@ import torch
 from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import DenseNet
 from dynamic_load_balance_distributeddnn_tpu_torch.models.common import init_flax_defaults
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
+    attention_ref,
+    attn_bwd_dkv,
+    attn_bwd_dq,
+    attn_bwd_ref,
+    attn_fwd,
+    attn_fwd_ref,
+    flash_attention,
+)
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
     group_norm_bwd,
     group_norm_fwd,
@@ -109,4 +119,67 @@ def test_densenet_on_the_card_matches_the_cpu(cuda):
         outs.append((logits.detach().cpu(), model.Conv_0.weight.grad.cpu()))
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-3, rtol=0)
     torch.testing.assert_close(outs[1][1], outs[0][1], atol=1e-3, rtol=0)
-    assert all(n > 0 for n in runtime.LAUNCHES.values()), runtime.LAUNCHES
+    cnn = ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd")
+    assert all(runtime.LAUNCHES[k] > 0 for k in cnn), runtime.LAUNCHES
+
+
+def _qkv(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k = (0.5 * torch.randn(shape, generator=g) for _ in range(2))
+    v, do = (torch.randn(shape, generator=g) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [
+    (2, 2, 35, 100), (2, 2, 96, 16), (1, 2, 130, 128), (3, 1, 1, 8), (1, 1, 64, 33),
+])
+def test_flash_attention_kernels_match_plain(cuda, shape, causal):
+    """Each K3 kernel against its plain version on the same inputs, and the
+    autograd route against plain softmax attention."""
+    b, h, t, d = shape
+    q, k, v, do = (x.to(cuda) for x in _qkv(shape, 7))
+    flat = [x.reshape(b * h, t, d) for x in (q, k, v, do)]
+    o, lse = attn_fwd(*flat[:3], causal)
+    o_ref, lse_ref = attn_fwd_ref(*flat[:3], causal)
+    torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=0)
+    delta = (flat[3] * o).sum(-1)
+    dk, dv = attn_bwd_dkv(*flat, lse, delta, causal)
+    dq = attn_bwd_dq(*flat, lse, delta, causal)
+    for got, want in zip((dq, dk, dv), attn_bwd_ref(*flat, lse, delta, causal)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
+
+    runtime.reset_launches()
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    out = flash_attention(qr, kr, vr, causal=causal)
+    grads = torch.autograd.grad(out, (qr, kr, vr), do)
+    assert [runtime.LAUNCHES[n] for n in ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq")] == [1, 1, 1]
+    qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
+    ref = attention_ref(qp, kp, vp, causal=causal)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    for got, want in zip(grads, torch.autograd.grad(ref, (qp, kp, vp), do)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_are_the_same_on_every_run(cuda):
+    q, k, v, do = (x.to(cuda).reshape(4, 200, 64) for x in _qkv((2, 2, 200, 64), 8))
+    o, lse = attn_fwd(q, k, v, True)
+    delta = (do * o).sum(-1)
+    first = attn_bwd_dkv(q, k, v, do, lse, delta, True) + (attn_bwd_dq(q, k, v, do, lse, delta, True),)
+    again = attn_bwd_dkv(q, k, v, do, lse, delta, True) + (attn_bwd_dq(q, k, v, do, lse, delta, True),)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(2, 8, 129, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        attn_fwd(q, q, q, True)
+    q = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        attn_fwd(q, q.double(), q, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attn_fwd(q.cpu(), q.cpu(), q.cpu(), True)

@@ -67,7 +67,7 @@ BASE = dict(model="densenet", dataset="cifar10")
     {"elastic": "on"}, {"coordinator": "localhost:1"}, {"trace": "on"},
     {"fault_mode": "compute"}, {"precision": "bfloat16"}, {"remat": True},
     {"ckpt_dir": "ck"}, {"fault_tolerance": True},
-    {"model": "resnet"}, {"model": "transformer", "dataset": "wikitext2"},
+    {"model": "resnet"}, {"seq_parallel": "ring"},
     {"device": [0, 1], "world_size": 2},
 ])
 def test_unported_settings_raise_naming_the_flag(override):
@@ -76,6 +76,23 @@ def test_unported_settings_raise_naming_the_flag(override):
     name = next(iter(override))
     flag = {"device": "-gpu", "model": "-m"}.get(name, f"--{name}")
     assert flag in str(e.value)
+
+
+def test_lm_recipe_parses():
+    cfg = config_from_args(
+        "-m transformer -ds wikitext2 -d false -ws 4 -b 80 -gpu 0,0,0,0 --bptt 35 "
+        "--grad_clip 0.25 --straggler 3,1,1,1 --fault_mode virtual "
+        "--use_flash_attention true -e 3".split()
+    )
+    assert (cfg.model, cfg.grad_clip, cfg.use_flash_attention, cfg.bptt) == (
+        "transformer", 0.25, True, 35)
+    assert cfg.base_filename().startswith("transformer-wikitext2-debug0-n4-bs80")
+    assert Config().model == "transformer"  # the JAX package's defaults parse
+
+
+def test_vision_model_on_the_lm_corpus_is_refused():
+    with pytest.raises(ValueError, match="wikitext2"):
+        Config(model="densenet", dataset="wikitext2")
 
 
 def test_contention_device_map_is_accepted():

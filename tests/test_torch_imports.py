@@ -19,6 +19,7 @@ import dynamic_load_balance_distributeddnn_tpu_torch as port
 from dynamic_load_balance_distributeddnn_tpu_torch import cli
 from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
 from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
 
 PORT_DIR = Path(port.__file__).parent
 REPO = PORT_DIR.parent
@@ -97,3 +98,21 @@ def test_cli_defaults_to_cuda(tmp_path, no_cuda):
 def test_unknown_device_is_refused(tmp_path):
     with pytest.raises(ValueError, match="unsupported device"):
         Trainer(_cfg(tmp_path), device="meta", log_to_file=False)
+
+
+def test_lm_trainer_defaults_to_cuda(tmp_path, no_cuda):
+    cfg = _cfg(tmp_path, model="transformer", dataset="wikitext2", n_train=400, bptt=8,
+               use_flash_attention=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMTrainer(cfg, log_to_file=False)
+    tr = LMTrainer(cfg, device="cpu", log_to_file=False)  # the CPU on request
+    assert tr.grad_clip == 0.25  # the reference's clip when the flag is 0
+
+
+def test_lm_cli_defaults_to_cuda(tmp_path, no_cuda):
+    argv = ["-m", "transformer", "-ds", "wikitext2", "-ws", "2", "-e", "1",
+            "--n_train", "400", "--bptt", "8", "--use_flash_attention", "true",
+            "--log_dir", str(tmp_path / "logs"), "--stat_dir", str(tmp_path / "statis")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert not (tmp_path / "logs").exists()  # refused before touching disk
