@@ -12,12 +12,15 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    (one ``nvcc`` per source, all started together) into ``build/torch_kernels``.
 3. Each kernel against its plain PyTorch version on the card: GroupNorm (K1)
    at DenseNet-121 shapes, f32 and bf16; cross-entropy (K2) at one DenseNet
-   worker's logits and at the language model's largest worker shape; flash
-   attention (K3, forward, dK/dV, dQ) at the language model's shape and at a
-   long-context shape. Then each kernel's device time (the profiler's sum of
-   kernel time, so host launch gaps are not counted) beside its bound, the
-   plain version's and one PyTorch library call's; the CUDA-event wall,
-   which includes the host's launch gaps, is printed beside it.
+   worker's logits, at the language model's worker shapes and the full
+   wikitext-2 vocabulary (33,278), f32 and bf16, with labels out of range
+   and a row slice that starts off a 16-byte boundary; flash attention (K3,
+   forward, dK/dV, dQ) at the language model's shape and at a long-context
+   shape. Then each kernel's device time (the profiler's sum of kernel
+   time, so host launch gaps are not counted) beside its bound, the plain
+   version's and one PyTorch library call's; the CUDA-event wall, which
+   includes the host's launch gaps, is printed beside it. K2 is timed at
+   every row count the language-model path gives it (below).
 4. The vision path: the port's ``cli.main`` trains DenseNet-121 on synthetic
    CIFAR-10 with 4 workers, B=512 and a 3:1 virtual straggler for 3 epochs;
    the launch counters (zeroed just before) show K1 and K2 ran, the
@@ -40,19 +43,20 @@ import json
 import math
 import os
 import shutil
-import statistics
-import subprocess
 import sys
 import time
-import warnings
+
+from dynamic_load_balance_distributeddnn_tpu_torch.obs.kernel_timing import (
+    bound,
+    card,
+    device_ms,
+    timed,
+    xent_inputs,
+    xent_yardsticks,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
-
-# H100 SXM peaks (NVIDIA data sheet): device memory rate and f32 outside the
-# tensor cores, the type these kernels compute in.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 
 MAIN_ARGV = (
     "-m densenet -ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 "
@@ -72,73 +76,24 @@ LM_LAYERS, LM_MIN_STEPS = 2, 70
 # K3 shapes: the language model's (B*H = 2 heads x 40 columns, T = bptt,
 # D = 200 / 2 heads) and the long-context one of scripts/kernel_bench.py
 ATTN_PATH_SHAPE, ATTN_LONG_SHAPE = (40, 2, 35, 100), (4, 4, 2048, 128)
-# K2 at the language model's largest worker: 40 columns x 35 tokens over the
-# 18,328-word vocabulary of the committed wikitext-2 files
-XENT_LM_SHAPE = (40 * 35, 18328)
+# K2 on the language model's path, over the 18,328-word vocabulary of the
+# committed wikitext-2 files: 80 columns x 35 tokens split over 4 workers
+# give 700 rows a worker under the first (uniform) plan; after rebalancing
+# the straggler takes about 105 rows (3 columns) and each other worker about
+# 910; validation runs 1,024-window chunks, 35,840 rows (forward only).
+# XENT_LM_SHAPE, 40 columns (the size of two uniform workers' logits), is the
+# JSON line's shape, kept from the earlier slices' records.
+XENT_LM_V = 18328
+XENT_LM_SHAPE = (40 * 35, XENT_LM_V)
+XENT_PATH_ROWS = (105, 700, 910, 40 * 35)
+XENT_VAL_ROWS = 1024 * 35
+XENT_FULL_V = 33278  # wikitext-2's vocabulary once train.txt is present
 CNN_KERNELS = ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd")
 LM_KERNELS = ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq", "xent_fwd", "xent_bwd")
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median wall of ``fn`` in ms between CUDA events recorded around each
-    call: device time plus any gap where the card waited for the host."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 5) -> float:
-    """Device time of ``fn`` in ms: the CUDA kernel time ``torch.profiler``
-    records over ``reps`` calls (after two warm-up calls), per call. Unlike
-    an event wall it excludes the gaps where the card waits for the host."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = 0.0
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", None)
-            total_us += us if us is not None else getattr(ev, "self_cuda_time_total", 0.0)
-    if total_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total_us / reps / 1e3
-
-
-def timed(fn, reps: int = 5) -> dict:
-    """{"ms": device time, "wall_ms": CUDA-event wall} of ``fn``."""
-    return {"ms": device_ms(fn, reps), "wall_ms": cuda_ms(fn, reps)}
-
-
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def densenet121_gn_shapes(torch, dev, b: int = 128):
@@ -213,37 +168,74 @@ def check_groupnorm(torch, dev, records):
     return err
 
 
+def dlogits_ratio(torch, dx, want, labels, g, rtol: float) -> float:
+    """The largest ratio of |dx - want| to its limit, ``rtol * |want|``
+    plus, on the gold column, where p - 1 cancels, ``2**-21 * g`` (four f32
+    steps of a p near 1): above 1 fails. The limit follows each entry's own
+    size: at V = 18,328 a typical entry is about g * 1e-6, far below any
+    absolute tolerance that the gold column would need."""
+    gold = torch.arange(want.shape[-1], device=want.device) == labels[:, None]
+    lim = rtol * want.abs() + gold * (2.0**-21 * g[:, None])
+    return ((dx.float() - want).abs() / lim.clamp_min(1e-38)).max().item()
+
+
 def check_xent(torch, dev, records):
-    """K2 forward and backward against the plain version at [128, 10] (one
-    DenseNet worker's logits) and [1400, 18328] (the language model's largest
-    worker), f32; atol 1e-5."""
+    """K2 forward and backward against their plain versions (the backward's
+    with the kernel's own lse) on the same inputs: [128, 10] (one DenseNet
+    worker's logits), [1400, 18328] (the language model's), [105, 33278]
+    (the full wikitext-2 vocabulary, rows off 16-byte boundaries), each in
+    f32 and bf16, with two labels out of range in the first; and logits[1:]
+    of a [14, 10] tensor, a base off a 16-byte boundary. Tolerance: loss and
+    lse atol 1e-5 (f32 sums in another order); each gradient entry within
+    rtol 1e-5 of the plain version's in f32 (the same f32 expression; room
+    for an exp a few steps apart), and for bf16 within rtol 2**-8 + 1e-5
+    (the kernel rounds once to bf16's 8 significant bits), the gold column
+    also within 2**-21 * g (see ``dlogits_ratio``)."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import (
-        softmax_xent_ref,
         xent_bwd,
+        xent_bwd_ref,
         xent_fwd,
+        xent_fwd_ref,
     )
 
     gen = torch.Generator().manual_seed(1)
     err = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    for r, v in ((128, 10), XENT_LM_SHAPE):
-        logits = (3 * torch.randn(r, v, generator=gen)).to(dev)
-        labels = torch.randint(0, v, (r,), generator=gen)
-        labels[0], labels[-1] = 0, v - 1
-        labels = labels.to(dev)
-        g = torch.full((r,), 1.0 / 512).to(dev)
-        loss = xent_fwd(logits, labels)
-        dx = xent_bwd(logits, labels, g)
-        lr = logits.clone().requires_grad_()
-        ref = softmax_xent_ref(lr, labels)
-        (gref,) = torch.autograd.grad(ref, lr, g)
-        e_f = (loss - ref.detach()).abs().max().item()
-        e_b = (dx - gref).abs().max().item()
-        log(f"  xent [{r}, {v}]: |loss| {e_f:.2e}  |dlogits| {e_b:.2e}")
-        torch.testing.assert_close(loss, ref.detach(), atol=1e-5, rtol=0)
-        torch.testing.assert_close(dx, gref, atol=1e-5, rtol=0)
-        err["xent_fwd"] = max(err["xent_fwd"], e_f)
-        err["xent_bwd"] = max(err["xent_bwd"], e_b)
-        records.append({"kernel": "xent", "shape": [r, v], "err_loss": e_f, "err_dlogits": e_b})
+    cases = [(128, 10), XENT_LM_SHAPE, (105, XENT_FULL_V)]
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol = 1e-5 if dtype == torch.float32 else 2.0**-8 + 1e-5
+        for i, (r, v) in enumerate(cases + [(14, 10)]):
+            logits = (3 * torch.randn(r, v, generator=gen)).to(dev, dtype)
+            labels = torch.randint(0, v, (r,), generator=gen)
+            labels[0], labels[-1] = 0, v - 1
+            if i == 0:
+                labels[1], labels[2] = -1, v  # out of range: gold 0, no onehot
+            labels = labels.to(dev)
+            g = (torch.rand(r, generator=gen) / 512).to(dev)
+            what = f"[{r}, {v}]"
+            if i == len(cases):  # a row slice: its base is off 16 bytes
+                logits, labels, g = logits[1:], labels[1:], g[1:]
+                assert logits.is_contiguous() and logits.data_ptr() % 16 != 0
+                what = f"[{r}, {v}][1:]"
+            loss, lse = xent_fwd(logits, labels)
+            dx = xent_bwd(logits, labels, g, lse)
+            loss_r, lse_r = xent_fwd_ref(logits, labels)
+            dx_r = xent_bwd_ref(logits.float(), labels, g, lse)
+            torch.cuda.synchronize()
+            e_f = max((loss - loss_r).abs().max().item(), (lse - lse_r).abs().max().item())
+            e_b = (dx.float() - dx_r).abs().max().item()
+            ratio = dlogits_ratio(torch, dx, dx_r, labels, g, rtol)
+            log(f"  xent {str(dtype)[6:]:8s} {what}: |loss, lse| {e_f:.2e}  |dlogits| {e_b:.2e} "
+                f"(at most {ratio:.3f} of its limit, median |dlogits| "
+                f"{dx_r.abs().median().item():.2e})")
+            torch.testing.assert_close(loss, loss_r, atol=1e-5, rtol=0)
+            torch.testing.assert_close(lse, lse_r, atol=1e-5, rtol=0)
+            assert ratio <= 1.0, f"xent {dtype} {what}: dlogits off by {ratio:.3g} of its limit"
+            assert dx.dtype == dtype
+            if dtype == torch.float32:
+                err["xent_fwd"] = max(err["xent_fwd"], e_f)
+                err["xent_bwd"] = max(err["xent_bwd"], e_b)
+            records.append({"kernel": "xent", "dtype": str(dtype), "shape": what,
+                            "err_loss_lse": e_f, "err_dlogits": e_b, "dlogits_ratio": ratio})
     return err
 
 
@@ -324,48 +316,26 @@ def time_groupnorm(torch, dev, shapes):
 
 
 def time_xent(torch, dev):
-    """K2 at one DenseNet worker step's logits, [128, 10] f32, and at the
-    language model's largest worker step, [1400, 18328] f32, with
-    ``F.cross_entropy(reduction="none")`` as the yardstick."""
-    from torch.nn import functional as F
-
-    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import (
-        softmax_xent_ref,
-        xent_bwd,
-        xent_fwd,
-    )
+    """K2 f32 at one DenseNet worker step's logits, [128, 10], and at every
+    row count of the language model's path over its 18,328-word vocabulary
+    (forward and backward; the validation chunk forward only): the kernels
+    beside their plain versions, ``F.cross_entropy(reduction="none")`` (the
+    yardstick; its backward through autograd) and their bounds."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import xent_bwd, xent_fwd
 
     out = {}
-    for r, v in ((128, 10), XENT_LM_SHAPE):
-        gen = torch.Generator(device=dev).manual_seed(3)
-        logits = torch.randn((r, v), device=dev, generator=gen)
-        labels = torch.randint(0, v, (r,), device=dev, generator=gen)
-        g = torch.full((r,), 1.0 / 512, device=dev)
-        lr = logits.clone().requires_grad_()
-        ref = softmax_xent_ref(lr, labels)
-        lib = F.cross_entropy(lr, labels, reduction="none")
-        row = {
-            "xent_fwd": dict(
-                timed(lambda: xent_fwd(logits, labels), reps=50),
-                plain_ms=device_ms(lambda: softmax_xent_ref(logits, labels), reps=50),
-                library_ms=device_ms(
-                    lambda: F.cross_entropy(logits, labels, reduction="none"), reps=50),
-            ),
-            "xent_bwd": dict(
-                timed(lambda: xent_bwd(logits, labels, g), reps=50),
-                plain_ms=device_ms(
-                    lambda: torch.autograd.grad(ref, lr, g, retain_graph=True), reps=50),
-                library_ms=device_ms(
-                    lambda: torch.autograd.grad(lib, lr, g, retain_graph=True), reps=50),
-            ),
-        }
-        row["xent_fwd"]["bound_ms"], row["xent_fwd"]["bound_by"] = bound(
-            r * v * 4 + r * 8 + r * 4, 4 * r * v
-        )
-        row["xent_bwd"]["bound_ms"], row["xent_bwd"]["bound_by"] = bound(
-            2 * r * v * 4 + r * 8 + r * 4, 5 * r * v
-        )
+    shapes = [(128, 10)] + [(r, XENT_LM_V) for r in XENT_PATH_ROWS + (XENT_VAL_ROWS,)]
+    for r, v in shapes:
+        backward = r != XENT_VAL_ROWS  # validation runs no backward
+        reps = 50 if backward else 5
+        logits, labels, g, lse = xent_inputs(r, v, dev)
+        row = xent_yardsticks(logits, labels, g, lse, reps, backward)
+        row["xent_fwd"].update(timed(lambda: xent_fwd(logits, labels), reps))
+        if backward:
+            row["xent_bwd"].update(timed(lambda: xent_bwd(logits, labels, g, lse), reps))
         out[(r, v)] = row
+        del logits, labels, g, lse
+        torch.cuda.empty_cache()
     return out
 
 
@@ -658,10 +628,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     log("[1] card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     log(smi)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")

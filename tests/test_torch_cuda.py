@@ -8,9 +8,14 @@ Without a card every test skips: a CUDA kernel has no CPU mode.
 Tolerances: f32 GroupNorm forward atol 1e-4 and gradients 5e-4 (f32
 statistics, other reduction order); the parameter gradients are sums over
 B*S terms, held relative to their size (rtol 1e-4); bf16 input and output
-round to 8 significant bits (atol 3e-2 plus rtol 1e-2); cross-entropy atol
-1e-5; flash attention forward atol 2e-5 and gradients 5e-4 (the JAX
-package's own tolerances for its kernel, ``tests/test_pallas.py``).
+round to 8 significant bits (atol 3e-2 plus rtol 1e-2); cross-entropy loss
+and lse atol 1e-5 (the JAX package's), and each gradient entry within rtol
+1e-5 of the plain version's in f32, 2**-8 + 1e-5 for bf16 (one rounding to
+its 8 significant bits), the gold column, where p - 1 cancels, also within
+2**-21 * g: a typical entry at V = 18,328 is about g * 1e-6, so a limit set
+by each entry's own size is the one that sees a fault there; flash
+attention forward atol 2e-5 and gradients 5e-4 (the JAX package's own
+tolerances for its kernel, ``tests/test_pallas.py``).
 """
 
 import pytest
@@ -34,10 +39,14 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import 
     group_norm_ref,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import (
+    SMALL_V,
+    SoftmaxXentFunction,
     softmax_xent,
     softmax_xent_ref,
     xent_bwd,
+    xent_bwd_ref,
     xent_fwd,
+    xent_fwd_ref,
 )
 
 
@@ -79,21 +88,120 @@ def test_groupnorm_kernels_match_plain(cuda, shape, groups, relu, dtype, atol, r
     torch.testing.assert_close(db, gb, atol=gatol, rtol=max(rtol, 1e-4))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("v", [10, 1000, 33278])
-def test_xent_kernels_match_plain(cuda, v):
-    g = torch.Generator().manual_seed(6)
-    logits = (3 * torch.randn(13, v, generator=g)).to(cuda)
-    labels = torch.randint(0, v, (13,), generator=g)
+def _xent_inputs(r, v, dtype, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    logits = (3 * torch.randn(r, v, generator=g)).to(dtype)
+    labels = torch.randint(0, v, (r,), generator=g)
     labels[0], labels[-1] = 0, v - 1
-    labels = labels.to(cuda)
-    w = torch.rand(13, generator=g).to(cuda)
-    loss = xent_fwd(logits, labels)
+    return logits, labels, torch.rand(r, generator=g)
+
+
+def _assert_dlogits_close(dx, want, labels, w, rtol, gold_atol=2.0**-21):
+    """Each entry of dx within ``rtol`` of ``want``'s, and on the gold
+    column also within ``gold_atol * w`` of it."""
+    gold = torch.arange(want.shape[-1], device=want.device) == labels[:, None]
+    lim = rtol * want.abs() + gold * (gold_atol * w[:, None])
+    err = (dx.float() - want).abs()
+    worst = (err / lim.clamp_min(1e-38)).max().item()
+    assert (err <= lim).all(), f"dlogits off by {worst:.3g} of the limit (max |err| {err.max().item():.3g})"
+
+
+def _check_xent(logits, labels, w):
+    """The kernel pair against its plain versions on the same inputs (the
+    backward's with the kernel's own lse), and the lse against logsumexp."""
+    loss, lse = xent_fwd(logits, labels)
+    loss_ref, lse_ref = xent_fwd_ref(logits, labels)
+    torch.testing.assert_close(loss, loss_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, torch.logsumexp(logits.float(), -1), atol=1e-5, rtol=0)
+    dx = xent_bwd(logits, labels, w, lse)
+    assert dx.dtype == logits.dtype and dx.shape == logits.shape
+    want = xent_bwd_ref(logits.float(), labels, w, lse)  # f32, rounded nowhere
+    rtol = 1e-5 if logits.dtype == torch.float32 else 2.0**-8 + 1e-5
+    _assert_dlogits_close(dx, want, labels, w, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 13, 105, 1400])
+@pytest.mark.parametrize("v", [10, 100, 1000, 4097, 4099, 18328, 33278])
+def test_xent_kernels_match_plain(cuda, v, r, dtype):
+    logits, labels, w = (t.to(cuda) for t in _xent_inputs(r, v, dtype))
+    _check_xent(logits, labels, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [9, 300])
+@pytest.mark.parametrize("v", [SMALL_V - 1, SMALL_V, SMALL_V + 3])
+def test_xent_kernels_match_plain_on_both_sides_of_the_plan_threshold(cuda, v, r, dtype):
+    """The warp-per-row kernel just below SMALL_V classes, the block-per-row
+    kernel from it up (aligned rows, then rows off 16 bytes)."""
+    logits, labels, w = (t.to(cuda) for t in _xent_inputs(r, v, dtype, seed=7))
+    _check_xent(logits, labels, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [10, 4099, 18328])
+def test_xent_labels_out_of_range_give_gold_zero(cuda, v):
+    logits, labels, w = (t.to(cuda) for t in _xent_inputs(6, v, torch.float32))
+    labels[1], labels[2], labels[3] = -1, v, 2**40
+    _check_xent(logits, labels, w)
+    loss, lse = xent_fwd(logits, labels)
+    torch.testing.assert_close(loss[1:4], lse[1:4], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [10, 4099, 33278])
+def test_xent_row_slice_with_a_misaligned_base(cuda, v, dtype):
+    """``logits[1:]`` starts one row (V * 4 or V * 2 bytes, no multiple of
+    16 for these V) into an aligned buffer, while the gradient the kernel
+    allocates starts on a 16-byte boundary."""
+    logits, labels, w = (t.to(cuda) for t in _xent_inputs(14, v, dtype))
+    sliced = logits[1:]
+    assert sliced.is_contiguous() and sliced.data_ptr() % 16 != 0
+    _check_xent(sliced, labels[1:], w[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,v", [(105, 18328), (1400, 33278), (128, 10)])
+def test_xent_kernels_give_the_same_bits_on_every_run(cuda, r, v):
+    logits, labels, w = (t.to(cuda) for t in _xent_inputs(r, v, torch.float32))
+    first = xent_fwd(logits, labels)
+    again = xent_fwd(logits, labels)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(xent_bwd(logits, labels, w, first[1]), xent_bwd(logits, labels, w, again[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [10, 18328])
+def test_xent_autograd_route_saves_the_forward_lse(cuda, v):
+    """One forward and one backward launch per loss; the backward consumes
+    the lse the forward saved, and the gradient is the plain loss's."""
+    logits, labels, w = (t.to(cuda) for t in _xent_inputs(40, v, torch.float32))
+    runtime.reset_launches()
     lr = logits.clone().requires_grad_()
-    ref = softmax_xent_ref(lr, labels)
-    torch.testing.assert_close(loss, ref.detach(), atol=1e-5, rtol=0)
-    (want,) = torch.autograd.grad(ref, lr, w)
-    torch.testing.assert_close(xent_bwd(logits, labels, w), want, atol=1e-5, rtol=0)
+    loss = SoftmaxXentFunction.apply(lr, labels)
+    saved = loss.grad_fn.saved_tensors
+    assert len(saved) == 3 and saved[2].shape == (40,) and saved[2].dtype == torch.float32
+    torch.testing.assert_close(saved[2], torch.logsumexp(logits, -1), atol=1e-5, rtol=0)
+    (got,) = torch.autograd.grad(loss, lr, w)
+    assert (runtime.LAUNCHES["xent_fwd"], runtime.LAUNCHES["xent_bwd"]) == (1, 1)
+    _assert_dlogits_close(got, xent_bwd_ref(logits, labels, w, saved[2]), labels, w, 1e-5)
+    # the plain loss's autograd has its own lse, a few f32 steps from this one
+    lp = logits.clone().requires_grad_()
+    (want,) = torch.autograd.grad(softmax_xent_ref(lp, labels), lp, w)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    _assert_dlogits_close(got, want, labels, w, 1e-4, gold_atol=1e-5)
+    # the route the engines call, on [B, T, V] logits
+    runtime.reset_launches()
+    l3 = logits.view(4, 10, v).clone().requires_grad_()
+    out = softmax_xent(l3, labels.view(4, 10))
+    (g3,) = torch.autograd.grad(out, l3, w.view(4, 10))
+    assert out.shape == (4, 10)
+    assert (runtime.LAUNCHES["xent_fwd"], runtime.LAUNCHES["xent_bwd"]) == (1, 1)
+    torch.testing.assert_close(g3.view(40, v), got, atol=0, rtol=0)
 
 
 @pytest.mark.cuda

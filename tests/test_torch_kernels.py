@@ -142,7 +142,7 @@ def test_xent_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         xent_fwd(logits, labels)
     with pytest.raises(ValueError, match="CUDA"):
-        xent_bwd(logits, labels, w)
+        xent_bwd(logits, labels, w, w)
 
 
 def test_kernel_library_key_covers_source_and_flags(tmp_path, monkeypatch):
