@@ -14,13 +14,16 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    at DenseNet-121 shapes, f32 and bf16; cross-entropy (K2) at one DenseNet
    worker's logits, at the language model's worker shapes and the full
    wikitext-2 vocabulary (33,278), f32 and bf16, with labels out of range
-   and a row slice that starts off a 16-byte boundary; flash attention (K3,
-   forward, dK/dV, dQ) at the language model's shape and at a long-context
-   shape. Then each kernel's device time (the profiler's sum of kernel
-   time, so host launch gaps are not counted) beside its bound, the plain
-   version's and one PyTorch library call's; the CUDA-event wall, which
-   includes the host's launch gaps, is printed beside it. K2 is timed at
-   every row count the language-model path gives it (below).
+   and a row slice that starts off a 16-byte boundary; flash attention (K3)
+   on its short route (T <= 64: forward and fused backward) at every shape
+   of the language-model path, the validation chunk and T in {1, 17, 35,
+   64}, on the model's strided views and on contiguous tensors, and on its
+   tiled route (forward, dK/dV, dQ) at a long-context shape. Then each
+   kernel's device time (the profiler's sum of kernel time, so host launch
+   gaps are not counted) beside its bound, the plain version's and one
+   PyTorch library call's; the CUDA-event wall, which includes the host's
+   launch gaps, is printed beside it. K2 and K3 are timed at every shape the
+   language-model path gives them (below), K3 beside its tiled route.
 4. The vision path: the port's ``cli.main`` trains DenseNet-121 on synthetic
    CIFAR-10 with 4 workers, B=512 and a 3:1 virtual straggler for 3 epochs;
    the launch counters (zeroed just before) show K1 and K2 ran, the
@@ -29,7 +32,8 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    200, 2 heads, 2 layers) on the committed wikitext-2 files with 4 workers,
    80 columns, bptt 35, per-worker clipping at 0.25, flash attention and a
    3:1 virtual straggler for 3 epochs; the counters (zeroed just before)
-   show K3 and K2 ran, share moved off worker 0, the 9 series were written.
+   show K3's short route and K2 ran (and K3's tiled route did not), share
+   moved off worker 0, the 9 series were written.
 6. DenseNet-121 and the Transformer LM on the card against the same models
    on the CPU (plain versions), same weights and inputs.
 
@@ -47,6 +51,9 @@ import sys
 import time
 
 from dynamic_load_balance_distributeddnn_tpu_torch.obs.kernel_timing import (
+    attn_inputs,
+    attn_work,
+    attn_yardsticks,
     bound,
     card,
     device_ms,
@@ -73,9 +80,16 @@ LM_ARGV = (
 # 217,646 training tokens over 80 columns make 2,720 rows, 78 windows of 35
 # tokens per epoch; 70 leaves room for the rounding of the column split
 LM_LAYERS, LM_MIN_STEPS = 2, 70
-# K3 shapes: the language model's (B*H = 2 heads x 40 columns, T = bptt,
-# D = 200 / 2 heads) and the long-context one of scripts/kernel_bench.py
+# K3 shapes (B, H, T, D): the language model's, T = bptt, D = 200 / 2 heads,
+# B the columns of a worker's step: 3 for the straggler after rebalancing,
+# 20 under the uniform first plan, 26 for the others after it, and 40, the
+# JSON line's shape, kept from the earlier slices' records; the validation
+# chunk of 1,024 windows (forward only); the long-context shape of
+# scripts/kernel_bench.py, which takes the tiled kernels (T > 64)
 ATTN_PATH_SHAPE, ATTN_LONG_SHAPE = (40, 2, 35, 100), (4, 4, 2048, 128)
+ATTN_PATH_SHAPES = ((3, 2, 35, 100), (20, 2, 35, 100), (26, 2, 35, 100), ATTN_PATH_SHAPE)
+ATTN_VAL_SHAPE = (1024, 2, 35, 100)
+ATTN_TILED = ("attn_fwd_tiled", "attn_bwd_dkv", "attn_bwd_dq")
 # K2 on the language model's path, over the 18,328-word vocabulary of the
 # committed wikitext-2 files: 80 columns x 35 tokens split over 4 workers
 # give 700 rows a worker under the first (uniform) plan; after rebalancing
@@ -89,7 +103,7 @@ XENT_PATH_ROWS = (105, 700, 910, 40 * 35)
 XENT_VAL_ROWS = 1024 * 35
 XENT_FULL_V = 33278  # wikitext-2's vocabulary once train.txt is present
 CNN_KERNELS = ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd")
-LM_KERNELS = ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq", "xent_fwd", "xent_bwd")
+LM_KERNELS = ("attn_fwd", "attn_bwd", "xent_fwd", "xent_bwd")
 
 
 def log(*a):
@@ -339,100 +353,121 @@ def time_xent(torch, dev):
     return out
 
 
-def _attn_inputs(torch, dev, shape, seed):
-    """q, k (0.5 randn), v, dO (randn) as [B*H, T, D] f32 on the card."""
-    b, h, t, d = shape
-    gen = torch.Generator().manual_seed(seed)
-    q, k = (0.5 * torch.randn((b * h, t, d), generator=gen) for _ in range(2))
-    v, do = (torch.randn((b * h, t, d), generator=gen) for _ in range(2))
-    return [x.to(dev) for x in (q, k, v, do)]
+def _close(torch, got, want, atol, what):
+    """max |got - want|, after asserting it is within atol."""
+    err = (got - want).abs().max().item()
+    assert err <= atol, f"{what}: |error| {err:.3g} > {atol}"
+    return err
 
 
 def check_flash(torch, dev, records):
-    """K3 forward, dK/dV and dQ against their plain versions (same inputs,
-    the kernel's own lse and delta), f32: at the language model's shape,
-    causal, to the JAX package's tolerances (forward 2e-5, gradients 5e-4),
-    plus the autograd route against plain softmax attention; at the
-    long-context shape, causal and not, forward atol 1e-4 and gradients 1e-3
-    (each output sums 2,048 products, and the kernels sum them in 64-wide
-    tiles in another order than cuBLAS does for the plain version)."""
+    """K3 against the plain versions on the same inputs, f32, to the JAX
+    package's tolerances (forward 2e-5, gradients 5e-4).
+
+    Short route (T <= 64), on the views the model passes ([B, T, H*D]
+    buffers seen as [B, H, T, D]) and on contiguous tensors: the forward and
+    the fused backward (from the kernel's own o and lse) at every language
+    model shape, causal; the forward at the validation chunk; both at
+    T in {1, 17, 35, 64}, causal and not; the backward twice, bit for bit;
+    the autograd route through ``flash_attention`` against plain softmax
+    attention. Tiled route: at the language model's shape and at the
+    long-context shape, causal and not, the long one at forward 1e-4 and
+    gradients 1e-3 (each output sums 2,048 products, in 64-wide tiles in
+    another order than cuBLAS's for the plain version)."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
         attention_ref,
         attn_bwd_dkv,
-        attn_bwd_dkv_ref,
         attn_bwd_dq,
-        attn_bwd_dq_ref,
+        attn_bwd_ref,
+        attn_bwd_short,
+        attn_bwd_short_ref,
         attn_fwd,
         attn_fwd_ref,
+        attn_fwd_short,
         flash_attention,
     )
 
-    err = {}
-    cases = [(ATTN_PATH_SHAPE, True, 2e-5, 5e-4)] + [
+    err = {k: 0.0 for k in ("attn_fwd", "attn_bwd") + ATTN_TILED}
+    short = [(sh, True, True) for sh in ATTN_PATH_SHAPES] + [(ATTN_VAL_SHAPE, True, False)]
+    short += [((4, 2, t, 100), causal, True) for t in (1, 17, 35, 64) for causal in (True, False)]
+    for shape, causal, backward in short:
+        for layout in ("model", "contiguous"):
+            q, k, v, do = attn_inputs(shape, dev, 11, layout)
+            o, lse = attn_fwd_short(q, k, v, causal)
+            o_r, lse_r = attn_fwd_ref(q, k, v, causal)
+            e = {"attn_fwd": max(_close(torch, o, o_r, 2e-5, f"attn_fwd {shape} o"),
+                                 _close(torch, lse, lse_r, 2e-5, f"attn_fwd {shape} lse"))}
+            if backward:
+                got = attn_bwd_short(q, k, v, do, o, lse, causal)
+                want = attn_bwd_short_ref(q, k, v, do, o, lse, causal)
+                e["attn_bwd"] = max(_close(torch, g, w, 5e-4, f"attn_bwd {shape} d{n}")
+                                    for g, w, n in zip(got, want, "qkv"))
+            log(f"  flash attention short {shape} causal={causal} {layout}: |o, lse| "
+                f"{e['attn_fwd']:.2e}" + (f"  |dq, dk, dv| {e['attn_bwd']:.2e}" if backward else ""))
+            for key, val in e.items():
+                err[key] = max(err[key], val)
+            records.append({"kernel": "flash_attention_short", "shape": shape, "causal": causal,
+                            "layout": layout, **e})
+            del q, k, v, do, o, lse, o_r, lse_r
+        torch.cuda.empty_cache()
+
+    # the fused backward twice: identical bits (no float atomics)
+    q, k, v, do = attn_inputs(ATTN_PATH_SHAPES[2], dev, 13)
+    o, lse = attn_fwd_short(q, k, v, True)
+    first, again = (attn_bwd_short(q, k, v, do, o, lse, True) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), "attn_bwd: bits differ between runs"
+    log("  flash attention short backward: identical bits on two calls")
+
+    # the autograd route (what the model calls) against plain attention
+    q, k, v, do = attn_inputs(ATTN_PATH_SHAPE, dev, 14)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    qp, kp, vp = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = flash_attention(qs, ks, vs, causal=True)
+    ref = attention_ref(qp, kp, vp, causal=True)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    for got, want in zip(torch.autograd.grad(out, (qs, ks, vs), do),
+                         torch.autograd.grad(ref, (qp, kp, vp), do)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
+    del q, k, v, do, o, lse, first, again, qs, ks, vs, qp, kp, vp, out, ref
+
+    for shape, causal, tf, tg in [(ATTN_PATH_SHAPE, True, 2e-5, 5e-4)] + [
         (ATTN_LONG_SHAPE, causal, 1e-4, 1e-3) for causal in (True, False)
-    ]
-    for shape, causal, tf, tg in cases:
-        q, k, v, do = _attn_inputs(torch, dev, shape, 11)
+    ]:
+        b, h, t, d = shape
+        q, k, v, do = (x.reshape(b * h, t, d) for x in attn_inputs(shape, dev, 11, "contiguous"))
         o, lse = attn_fwd(q, k, v, causal)
         delta = (do * o).sum(-1)
         dk, dv = attn_bwd_dkv(q, k, v, do, lse, delta, causal)
         dq = attn_bwd_dq(q, k, v, do, lse, delta, causal)
         o_r, lse_r = attn_fwd_ref(q, k, v, causal)
-        dk_r, dv_r = attn_bwd_dkv_ref(q, k, v, do, lse, delta, causal)
-        dq_r = attn_bwd_dq_ref(q, k, v, do, lse, delta, causal)
-        torch.cuda.synchronize()
+        dq_r, dk_r, dv_r = attn_bwd_ref(q, k, v, do, lse, delta, causal)
         e = {
-            "attn_fwd": max((o - o_r).abs().max().item(), (lse - lse_r).abs().max().item()),
-            "attn_bwd_dkv": max((dk - dk_r).abs().max().item(), (dv - dv_r).abs().max().item()),
-            "attn_bwd_dq": (dq - dq_r).abs().max().item(),
+            "attn_fwd_tiled": max(_close(torch, o, o_r, tf, f"attn_fwd_tiled {shape}"),
+                                  _close(torch, lse, lse_r, tf, f"attn_fwd_tiled {shape} lse")),
+            "attn_bwd_dkv": max(_close(torch, dk, dk_r, tg, f"attn_bwd_dkv {shape} dk"),
+                                _close(torch, dv, dv_r, tg, f"attn_bwd_dkv {shape} dv")),
+            "attn_bwd_dq": _close(torch, dq, dq_r, tg, f"attn_bwd_dq {shape}"),
         }
-        log(f"  flash attention {shape} causal={causal}: |o, lse| {e['attn_fwd']:.2e}  "
+        log(f"  flash attention tiled {shape} causal={causal}: |o, lse| {e['attn_fwd_tiled']:.2e}  "
             f"|dk, dv| {e['attn_bwd_dkv']:.2e}  |dq| {e['attn_bwd_dq']:.2e}")
-        torch.testing.assert_close(o, o_r, atol=tf, rtol=0)
-        torch.testing.assert_close(lse, lse_r, atol=tf, rtol=0)
-        for got, want in ((dk, dk_r), (dv, dv_r), (dq, dq_r)):
-            torch.testing.assert_close(got, want, atol=tg, rtol=0)
-        records.append({"kernel": "flash_attention", "shape": shape, "causal": causal, **e})
-        if shape == ATTN_PATH_SHAPE:
-            err = e
-            # the autograd route (what the model calls) against plain attention
-            b, h, t, d = shape
-            qs, ks, vs = (x.view(b, h, t, d).clone().requires_grad_() for x in (q, k, v))
-            qp, kp, vp = (x.detach().clone().requires_grad_() for x in (qs, ks, vs))
-            out = flash_attention(qs, ks, vs, causal=causal)
-            ref = attention_ref(qp, kp, vp, causal=causal)
-            g4 = do.view(b, h, t, d)
-            torch.testing.assert_close(out, ref, atol=tf, rtol=0)
-            for got, want in zip(torch.autograd.grad(out, (qs, ks, vs), g4),
-                                 torch.autograd.grad(ref, (qp, kp, vp), g4)):
-                torch.testing.assert_close(got, want, atol=tg, rtol=0)
+        if shape == ATTN_LONG_SHAPE:  # the JSON line's tiled rows are at their route's shape
+            for key, val in e.items():
+                err[key] = max(err[key], val)
+        records.append({"kernel": "flash_attention_tiled", "shape": shape, "causal": causal, **e})
         del q, k, v, do, o, lse, delta, dk, dv, dq, o_r, lse_r, dk_r, dv_r, dq_r
         torch.cuda.empty_cache()
     return err
 
 
-def attn_work(shape, causal: bool):
-    """{kernel: (bytes, flops)}: each input read once and each output
-    written once; flops of the two (forward), four (dK/dV) or three (dQ)
-    products over the (query, key) pairs the mask leaves visible, 2*D each
-    (the exps and the softmax arithmetic are not counted)."""
-    b, h, t, d = shape
-    bh = b * h
-    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
-    mat, rows = bh * t * d * 4, bh * t * 4
-    return {
-        "attn_fwd": (3 * mat + mat + rows, 2 * 2 * d * pairs),
-        "attn_bwd_dkv": (4 * mat + 2 * rows + 2 * mat, 4 * 2 * d * pairs),
-        "attn_bwd_dq": (4 * mat + 2 * rows + mat, 3 * 2 * d * pairs),
-    }
-
-
 def time_flash(torch, dev):
-    """K3 at the language model's shape and the long-context shape, causal,
-    f32: the kernels, their plain versions, and
-    ``F.scaled_dot_product_attention(is_causal=True)`` with autograd as the
-    yardstick (forward on inputs that require grad; its backward, which
-    computes dq, dk and dv in one call, beside both backward kernels)."""
+    """K3, causal f32. Short route at every language model shape (forward
+    and fused backward) and the validation chunk (forward), on the model's
+    views: the kernels beside their plain versions,
+    ``F.scaled_dot_product_attention`` with autograd (the yardstick; its one
+    backward call computes dq, dk and dv) and the bound, and beside the tiled
+    kernels on contiguous [B*H, T, D] copies of the same inputs (the route
+    these shapes took before; their backward is dK/dV plus dQ from a
+    precomputed delta). Tiled route at the long-context shape, as before."""
     from torch.nn import functional as F
 
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
@@ -440,44 +475,65 @@ def time_flash(torch, dev):
         attn_bwd_dkv_ref,
         attn_bwd_dq,
         attn_bwd_dq_ref,
+        attn_bwd_short,
         attn_fwd,
         attn_fwd_ref,
+        attn_fwd_short,
     )
 
     out = {}
-    for shape in (ATTN_PATH_SHAPE, ATTN_LONG_SHAPE):
+    for shape in ATTN_PATH_SHAPES + (ATTN_VAL_SHAPE,):
         b, h, t, d = shape
-        q, k, v, do = _attn_inputs(torch, dev, shape, 12)
-        o, lse = attn_fwd(q, k, v, True)
-        delta = (do * o).sum(-1)
-        args = (q, k, v, do, lse, delta, True)
-        ql, kl, vl = (x.view(b, h, t, d).clone().requires_grad_() for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        lib_bwd = device_ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), do.view(b, h, t, d), retain_graph=True))
-        row = {
-            "attn_fwd": dict(
-                timed(lambda: attn_fwd(q, k, v, True)),
-                plain_ms=device_ms(lambda: attn_fwd_ref(q, k, v, True)),
-                library_ms=device_ms(
-                    lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)),
-            ),
-            "attn_bwd_dkv": dict(
-                timed(lambda: attn_bwd_dkv(*args)),
-                plain_ms=device_ms(lambda: attn_bwd_dkv_ref(*args)),
-                library_ms=lib_bwd,
-            ),
-            "attn_bwd_dq": dict(
-                timed(lambda: attn_bwd_dq(*args)),
-                plain_ms=device_ms(lambda: attn_bwd_dq_ref(*args)),
-                library_ms=lib_bwd,
-            ),
-        }
-        for name, (nbytes, flops) in attn_work(shape, True).items():
-            row[name]["bound_ms"], row[name]["bound_by"] = bound(nbytes, flops)
+        backward = shape != ATTN_VAL_SHAPE
+        reps = 20 if backward else 5
+        q, k, v, do = attn_inputs(shape, dev, 12)
+        o, lse = attn_fwd_short(q, k, v, True)
+        flat = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v, do)]
+        o_t, lse_t = attn_fwd(*flat[:3], True)
+        delta = (flat[3] * o_t).sum(-1)
+        row = attn_yardsticks(q, k, v, do, True, reps, backward)
+        row["attn_fwd"].update(timed(lambda: attn_fwd_short(q, k, v, True), reps))
+        row["attn_fwd"]["tiled_ms"] = device_ms(lambda: attn_fwd(*flat[:3], True), reps)
+        if backward:
+            row["attn_bwd"].update(timed(lambda: attn_bwd_short(q, k, v, do, o, lse, True), reps))
+            row["attn_bwd"]["tiled_ms"] = device_ms(lambda: (
+                attn_bwd_dkv(*flat, lse_t, delta, True), attn_bwd_dq(*flat, lse_t, delta, True)), reps)
         out[shape] = row
-        del q, k, v, do, o, lse, delta, args, ql, kl, vl, lib_out
+        del q, k, v, do, o, lse, flat, o_t, lse_t, delta
         torch.cuda.empty_cache()
+
+    b, h, t, d = ATTN_LONG_SHAPE
+    q, k, v, do = (x.reshape(b * h, t, d) for x in attn_inputs(ATTN_LONG_SHAPE, dev, 12, "contiguous"))
+    o, lse = attn_fwd(q, k, v, True)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta, True)
+    ql, kl, vl = (x.view(b, h, t, d).clone().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do.view(b, h, t, d), retain_graph=True))
+    row = {
+        "attn_fwd_tiled": dict(
+            timed(lambda: attn_fwd(q, k, v, True)),
+            plain_ms=device_ms(lambda: attn_fwd_ref(q, k, v, True)),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)),
+        ),
+        "attn_bwd_dkv": dict(
+            timed(lambda: attn_bwd_dkv(*args)),
+            plain_ms=device_ms(lambda: attn_bwd_dkv_ref(*args)),
+            library_ms=lib_bwd,
+        ),
+        "attn_bwd_dq": dict(
+            timed(lambda: attn_bwd_dq(*args)),
+            plain_ms=device_ms(lambda: attn_bwd_dq_ref(*args)),
+            library_ms=lib_bwd,
+        ),
+    }
+    for name, (nbytes, flops) in attn_work(ATTN_LONG_SHAPE, True).items():
+        if name in row:
+            row[name]["bound_ms"], row[name]["bound_by"] = bound(nbytes, flops)
+    out[ATTN_LONG_SHAPE] = row
+    del q, k, v, do, o, lse, delta, args, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
     return out
 
 
@@ -545,6 +601,8 @@ def check_lm_path(counts, series):
         # attention runs once per layer of a worker step, the loss once
         need = (LM_LAYERS if k.startswith("attn") else 1) * WORKERS * LM_MIN_STEPS * EPOCHS
         assert counts[k] >= need, f"kernel {k}: {counts[k]} launches on the LM path < {need}"
+    for k in ATTN_TILED:  # T = 35 takes the short route only
+        assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the LM path, want 0"
     log(f"  launches: {counts}")
 
 
@@ -655,13 +713,16 @@ def main() -> int:
     timing = time_groupnorm(torch, dev, shapes)
     xt = time_xent(torch, dev)
     at = time_flash(torch, dev)
-    # the JSON line's K2 and K3 rows are at the language model's shapes
+    # the JSON line's K2 and short-route K3 rows are at the language model's
+    # shapes, the tiled K3 rows at the long-context shape they now serve
     timing.update(xt[XENT_LM_SHAPE])
     timing.update(at[ATTN_PATH_SHAPE])
+    timing.update(at[ATTN_LONG_SHAPE])
     rows = [(f"[{r}, {v}]", k, t) for (r, v), row in xt.items() for k, t in row.items()]
     rows += [(f"{sh} causal", k, t) for sh, row in at.items() for k, t in row.items()]
     for where, k, t in rows:
-        log(f"  {k} {where}: kernel {t['ms']:.4f} ms (event wall {t['wall_ms']:.4f}), "
+        tiled = f", tiled route {t['tiled_ms']:.4f} ms" if "tiled_ms" in t else ""
+        log(f"  {k} {where}: kernel {t['ms']:.4f} ms (event wall {t['wall_ms']:.4f}){tiled}, "
             f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
     for k in ("groupnorm_fwd", "groupnorm_bwd"):
@@ -691,9 +752,14 @@ def main() -> int:
         "groupnorm_bwd": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:110", "DenseNet-121 b=128, 120 calls"),
         "xent_fwd": ("csrc/xent.cu", "ops/pallas/xent.py:30", list(XENT_LM_SHAPE)),
         "xent_bwd": ("csrc/xent.cu", "ops/pallas/xent.py:40", list(XENT_LM_SHAPE)),
+        # the short route (T <= 64): attn_fwd_short_kernel, and attn_bwd_short_kernel,
+        # which also replaces _attn_bwd_dq_kernel (:153)
         "attn_fwd": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:58", list(ATTN_PATH_SHAPE)),
-        "attn_bwd_dkv": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:106", list(ATTN_PATH_SHAPE)),
-        "attn_bwd_dq": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:153", list(ATTN_PATH_SHAPE)),
+        "attn_bwd": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:106", list(ATTN_PATH_SHAPE)),
+        # the tiled route (T > 64)
+        "attn_fwd_tiled": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:58", list(ATTN_LONG_SHAPE)),
+        "attn_bwd_dkv": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:106", list(ATTN_LONG_SHAPE)),
+        "attn_bwd_dq": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:153", list(ATTN_LONG_SHAPE)),
     }
     kernels = []
     for name, (src, tpu, shape) in sources.items():

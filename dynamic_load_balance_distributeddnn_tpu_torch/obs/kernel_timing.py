@@ -1,8 +1,9 @@
 """Kernel timing on an NVIDIA card: device time, event wall and bounds.
 
-``chip_smoke.py`` and ``scripts/xent_bench.py`` time the port's kernels
-with these helpers, so both read one measuring stick. Everything here needs
-a CUDA device except :func:`bound` and :func:`xent_work`.
+``chip_smoke.py``, ``scripts/xent_bench.py`` and ``scripts/flash_bench.py``
+time the port's kernels with these helpers, so all read one measuring
+stick. Everything here needs a CUDA device except :func:`bound`,
+:func:`xent_work` and :func:`attn_work`.
 """
 
 from __future__ import annotations
@@ -150,6 +151,79 @@ def xent_yardsticks(logits, labels, g, lse, reps: int, backward: bool = True) ->
         }
         del lr, lib
     for name, (nbytes, ops) in xent_work(*logits.shape).items():
+        if name in out:
+            out[name]["bound_ms"], out[name]["bound_by"] = bound(nbytes, ops)
+    return out
+
+
+def attn_work(shape, causal: bool) -> Dict[str, Tuple[int, int]]:
+    """{kernel: (bytes, operations)} of K3 on ``(B, H, T, D)`` f32: each input
+    read once and each output written once; the flops of the two (forward),
+    five (fused backward: S, dP, dV, dK, dQ), four (dK/dV) or three (dQ)
+    products over the (query, key) pairs the mask leaves visible, 2*D each,
+    and the fused backward's 2*D per row for delta = rowsum(dO * O) (the exps
+    and the softmax arithmetic are not counted). The fused backward reads o
+    and writes no delta; the tiled ones read the caller's delta."""
+    b, h, t, d = shape
+    bh = b * h
+    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+    mat, rows = bh * t * d * 4, bh * t * 4
+    fwd = (3 * mat + mat + rows, 2 * 2 * d * pairs)
+    return {
+        "attn_fwd": fwd,
+        "attn_bwd": (5 * mat + rows + 3 * mat, 5 * 2 * d * pairs + 2 * d * bh * t),
+        "attn_fwd_tiled": fwd,
+        "attn_bwd_dkv": (4 * mat + 2 * rows + 2 * mat, 4 * 2 * d * pairs),
+        "attn_bwd_dq": (4 * mat + 2 * rows + mat, 3 * 2 * d * pairs),
+    }
+
+
+def attn_inputs(shape, dev: torch.device, seed: int = 11, layout: str = "model"):
+    """K3's inputs q, k (0.5 randn), v and dO (randn) as ``[B, H, T, D]`` f32
+    on the card, seeded: ``layout="model"`` gives views of ``[B, T, H*D]``
+    buffers, as the language model's projections (and autograd's dO) give
+    them; ``"contiguous"`` gives contiguous tensors."""
+    b, h, t, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for scale in (0.5, 0.5, 1.0, 1.0):
+        if layout == "model":
+            x = torch.randn((b, t, h * d), device=dev, generator=gen).view(b, t, h, d).transpose(1, 2)
+        else:
+            x = torch.randn((b, h, t, d), device=dev, generator=gen)
+        out.append(x.mul_(scale))
+    return out
+
+
+def attn_yardsticks(q, k, v, do, causal: bool, reps: int, backward: bool = True) -> Dict[str, dict]:
+    """{kernel: {"plain_ms", "library_ms", "bound_ms", "bound_by"}} for the
+    short route's forward (and fused backward) on these ``[B, H, T, D]``
+    inputs: the plain versions, and ``F.scaled_dot_product_attention`` on the
+    same views as the library yardstick (forward on inputs that require
+    grad; its backward, one call for dq, dk and dv, through autograd)."""
+    from torch.nn import functional as F
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
+        attn_bwd_short_ref,
+        attn_fwd_ref,
+    )
+
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    out = {"attn_fwd": {
+        "plain_ms": device_ms(lambda: attn_fwd_ref(q, k, v, causal), reps),
+        "library_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal), reps),
+    }}
+    if backward:
+        o, lse = attn_fwd_ref(q, k, v, causal)
+        lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        out["attn_bwd"] = {
+            "plain_ms": device_ms(lambda: attn_bwd_short_ref(q, k, v, do, o, lse, causal), reps),
+            "library_ms": device_ms(
+                lambda: torch.autograd.grad(lib, (ql, kl, vl), do, retain_graph=True), reps),
+        }
+        del o, lse, lib
+    for name, (nbytes, ops) in attn_work(tuple(q.shape), causal).items():
         if name in out:
             out[name]["bound_ms"], out[name]["bound_by"] = bound(nbytes, ops)
     return out

@@ -36,7 +36,9 @@ LAUNCHES: Dict[str, int] = {
     "groupnorm_bwd": 0,
     "xent_fwd": 0,
     "xent_bwd": 0,
-    "attn_fwd": 0,
+    "attn_fwd": 0,  # the short forward (T <= 64)
+    "attn_bwd": 0,  # the fused short backward
+    "attn_fwd_tiled": 0,  # the tiled kernels (T > 64)
     "attn_bwd_dkv": 0,
     "attn_bwd_dq": 0,
 }

@@ -51,7 +51,7 @@ RECIPES = {
 }
 
 LM_FAMILIES = (  # (family, substrings of the kernel name), first match wins
-    ("flash attention (port)", ("attn_fwd_kernel", "attn_bwd_")),
+    ("flash attention (port)", ("attn_fwd", "attn_bwd_")),
     ("cross-entropy (port)", ("xent_",)),
     ("matrix products (cuBLAS)", ("gemm", "sm90", "xmma", "cutlass", "splitk")),
     ("layer norm", ("layer_norm", "layernorm")),

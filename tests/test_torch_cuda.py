@@ -25,12 +25,16 @@ from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import DenseN
 from dynamic_load_balance_distributeddnn_tpu_torch.models.common import init_flax_defaults
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
+    SHORT_T,
     attention_ref,
     attn_bwd_dkv,
     attn_bwd_dq,
     attn_bwd_ref,
+    attn_bwd_short,
+    attn_bwd_short_ref,
     attn_fwd,
     attn_fwd_ref,
+    attn_fwd_short,
     flash_attention,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
@@ -263,7 +267,10 @@ def test_flash_attention_kernels_match_plain(cuda, shape, causal):
     qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
     out = flash_attention(qr, kr, vr, causal=causal)
     grads = torch.autograd.grad(out, (qr, kr, vr), do)
-    assert [runtime.LAUNCHES[n] for n in ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq")] == [1, 1, 1]
+    # T <= 64 takes the short kernels, T > 64 the tiled ones
+    short = int(t <= SHORT_T)
+    names = ("attn_fwd", "attn_bwd", "attn_fwd_tiled", "attn_bwd_dkv", "attn_bwd_dq")
+    assert [runtime.LAUNCHES[n] for n in names] == [short, short] + [1 - short] * 3
     qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
     ref = attention_ref(qp, kp, vp, causal=causal)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
@@ -291,3 +298,119 @@ def test_flash_attention_kernels_refuse_what_they_do_not_take(cuda):
         attn_fwd(q, q.double(), q, True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         attn_fwd(q.cpu(), q.cpu(), q.cpu(), True)
+
+
+def _views(shape, seed, layout, dev):
+    """q, k, v, dO as [B, H, T, D] on the card: "contiguous"; "model", views
+    of [B, T, H*D] buffers, as the model's projections give them (and dO as
+    autograd hands it back); "offset", the same views one float into their
+    buffers, so no row is 16-byte aligned."""
+    b, h, t, d = shape
+    out = []
+    for x in _qkv(shape, seed):
+        if layout == "contiguous":
+            out.append(x.to(dev))
+            continue
+        pad = int(layout == "offset")
+        buf = torch.zeros(b, t, h * d + pad, device=dev)
+        buf[..., pad:] = x.transpose(1, 2).reshape(b, t, h * d).to(dev)
+        out.append(buf[..., pad:].unflatten(-1, (h, d)).transpose(1, 2))
+    return out
+
+
+LM_SHAPES = [(3, 2, 35, 100), (20, 2, 35, 100), (26, 2, 35, 100), (40, 2, 35, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["model", "contiguous", "offset"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", LM_SHAPES + [
+    (2, 2, 35, 128), (2, 2, 35, 33), (3, 1, 1, 8), (2, 2, 17, 100), (1, 2, 64, 100),
+    (1, 2, 64, 128), (2, 3, 13, 13), (600, 1, 35, 100),
+])
+def test_flash_attention_short_kernels_match_plain(cuda, shape, causal, layout):
+    """The short forward and the fused backward against their plain versions
+    on the same strided inputs (the backward from the kernel's own o and
+    lse), the output in the [B, T, H, D] layout and each gradient in its
+    operand's layout."""
+    b, h, t, d = shape
+    q, k, v, do = _views(shape, 9, layout, cuda)
+    o, lse = attn_fwd_short(q, k, v, causal)
+    o_ref, lse_ref = attn_fwd_ref(q, k, v, causal)
+    torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=0)
+    assert o.stride() == (t * h * d, d, h * d, 1)
+    grads = attn_bwd_short(q, k, v, do, o, lse, causal)
+    for got, want, x in zip(grads, attn_bwd_short_ref(q, k, v, do, o, lse, causal), (q, k, v)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
+        if layout != "offset":  # a dense operand's gradient takes its strides
+            assert got.stride() == x.stride()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rows", [4, 8, 12, 16, 36])
+@pytest.mark.parametrize("threads", [32, 64, 128, 256, 288, 384])
+def test_flash_attention_short_kernels_match_plain_under_every_plan(cuda, threads, rows, causal):
+    q, k, v, do = _views((5, 2, 35, 100), 10, "model", cuda)
+    o, lse = attn_fwd_short(q, k, v, causal, launch=(rows, threads))
+    o_ref, lse_ref = attn_fwd_ref(q, k, v, causal)
+    torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=0)
+    want = attn_bwd_short_ref(q, k, v, do, o, lse, causal)
+    for parts in (1, 2):
+        got = attn_bwd_short(q, k, v, do, o, lse, causal, launch=(threads, parts))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [1, 2])
+def test_flash_attention_short_backward_gives_the_same_bits_on_every_run(cuda, parts):
+    q, k, v, do = _views((26, 2, 35, 100), 11, "model", cuda)
+    o, lse = attn_fwd_short(q, k, v, True)
+    first = attn_bwd_short(q, k, v, do, o, lse, True, launch=(256, parts))
+    again = attn_bwd_short(q, k, v, do, o, lse, True, launch=(256, parts))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_short_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 8, 129, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        attn_fwd_short(q, q, q, True)
+    q = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        attn_fwd_short(q, q.double(), q, True)
+    strided = torch.zeros(1, 2, 16, 8, device=cuda).transpose(2, 3)  # q's shape, stride(-1) 8
+    with pytest.raises(ValueError, match="last dimension"):
+        attn_fwd_short(q, strided, q, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attn_fwd_short(q.cpu(), q.cpu(), q.cpu(), True)
+    with pytest.raises(ValueError, match="T = 65"):
+        attn_fwd_short(*(torch.zeros(1, 2, 65, 16, device=cuda),) * 3, True)
+    o, lse = attn_fwd_short(q, q, q, True)
+    with pytest.raises(ValueError, match="lse"):
+        attn_bwd_short(q, q, q, q, o, lse.double(), True)
+    with pytest.raises(ValueError, match="last dimension"):
+        attn_bwd_short(q, q, q, strided, o, lse, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [35, 64, 65, 96])
+def test_flash_attention_routes_by_sequence_length(cuda, t):
+    """Through autograd on the model's views: the short kernels once each at
+    T <= 64 (no tiled launch), the tiled kernels once each above it."""
+    q, k, v, do = _views((2, 2, t, 100), 12, "model", cuda)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    runtime.reset_launches()
+    out = flash_attention(qr, kr, vr, causal=True)
+    grads = torch.autograd.grad(out, (qr, kr, vr), do)
+    short = int(t <= SHORT_T)
+    names = ("attn_fwd", "attn_bwd", "attn_fwd_tiled", "attn_bwd_dkv", "attn_bwd_dq")
+    assert [runtime.LAUNCHES[n] for n in names] == [short, short] + [1 - short] * 3
+    qp, kp, vp = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    ref = attention_ref(qp, kp, vp, causal=True)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    for got, want in zip(grads, torch.autograd.grad(ref, (qp, kp, vp), do)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
