@@ -11,7 +11,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
 2. Build every CUDA kernel from ``dynamic_load_balance_distributeddnn_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) into ``build/torch_kernels``.
 3. Each kernel against its plain PyTorch version on the card: GroupNorm (K1)
-   at DenseNet-121 shapes, f32 and bf16; cross-entropy (K2) at one DenseNet
+   at DenseNet-121 shapes at b = 32, 128 and 160 and on each of its routes
+   (tiled with and without a cluster, general), f32 and bf16, the backward's
+   bits repeating; cross-entropy (K2) at one DenseNet
    worker's logits, at the language model's worker shapes and the full
    wikitext-2 vocabulary (33,278), f32 and bf16, with labels out of range
    and a row slice that starts off a 16-byte boundary; flash attention (K3)
@@ -22,12 +24,15 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    kernel's device time (the profiler's sum of kernel time, so host launch
    gaps are not counted) beside its bound, the plain version's and one
    PyTorch library call's; the CUDA-event wall, which includes the host's
-   launch gaps, is printed beside it. K2 and K3 are timed at every shape the
-   language-model path gives them (below), K3 beside its tiled route.
+   launch gaps, is printed beside it. K1 is timed over one DenseNet-121
+   worker pass at b = 32, 128 and 160 beside its general route (the first
+   port's kernels); K2 and K3 at every shape the language-model path gives
+   them (below), K3 beside its tiled route.
 4. The vision path: the port's ``cli.main`` trains DenseNet-121 on synthetic
    CIFAR-10 with 4 workers, B=512 and a 3:1 virtual straggler for 3 epochs;
-   the launch counters (zeroed just before) show K1 and K2 ran, the
-   rebalancer moved share off worker 0 and the 9 series were written.
+   the launch counters (zeroed just before) show K1 (on its tiled route
+   only) and K2 ran, the rebalancer moved share off worker 0 and the 9
+   series were written.
 5. The language-model path: ``cli.main`` trains the Transformer LM (EMSIZE
    200, 2 heads, 2 layers) on the committed wikitext-2 files with 4 workers,
    80 columns, bptt 35, per-worker clipping at 0.25, flash attention and a
@@ -57,6 +62,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.obs.kernel_timing import (
     bound,
     card,
     device_ms,
+    gn_work,
     timed,
     xent_inputs,
     xent_yardsticks,
@@ -103,6 +109,12 @@ XENT_PATH_ROWS = (105, 700, 910, 40 * 35)
 XENT_VAL_ROWS = 1024 * 35
 XENT_FULL_V = 33278  # wikitext-2's vocabulary once train.txt is present
 CNN_KERNELS = ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd")
+GN_GENERAL = ("groupnorm_fwd_general", "groupnorm_bwd_general")
+# K1 is timed over one DenseNet-121 worker pass at each batch of the vision
+# path's plans: 128 under the uniform first plan (512 / 4 workers), 32 for
+# the straggler and 160 for the others after rebalancing; the JSON line's
+# rows are at 128, the batch of the earlier slices' records
+GN_BATCHES, GN_LINE_BATCH = (32, 128, 160), 128
 LM_KERNELS = ("attn_fwd", "attn_bwd", "xent_fwd", "xent_bwd")
 
 
@@ -114,7 +126,7 @@ def densenet121_gn_shapes(torch, dev, b: int = 128):
     """The [B, S, C] of every GroupNorm call in one DenseNet-121 forward at
     batch ``b``, read off the model with forward hooks."""
     from dynamic_load_balance_distributeddnn_tpu_torch.models.common import GroupNorm
-    from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import DenseNet121
+    from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import DenseNet121, gn_shapes
 
     model = DenseNet121().to(dev, memory_format=torch.channels_last)
     shapes = []
@@ -129,56 +141,96 @@ def densenet121_gn_shapes(torch, dev, b: int = 128):
     for h in handles:
         h.remove()
     assert len(shapes) == GN_PER_FORWARD, len(shapes)
+    assert shapes == gn_shapes(b, (6, 12, 24, 16), 32), "models/densenet.py gn_shapes is off"
     return shapes
 
 
 def check_groupnorm(torch, dev, records):
-    """K1 forward and backward against the plain version: the ISSUE's five
-    DenseNet-121 shapes at b=128, f32 and bf16, relu on (the main path) and
-    off."""
+    """K1 forward and backward against their plain versions on the same
+    inputs, f32 and bf16: DenseNet-121 shapes at b = 32, 128 and 160 (each
+    stage; relu on, the main path, and once off) on the route ``plan``
+    picks, the tiled one, with a cluster and without; then the general
+    route, forced on a DenseNet shape, and as ``plan`` picks it for C = 18
+    (C % 4 != 0). The forward's y against ``group_norm_ref`` and its saved
+    mean and rstd against ``group_norm_stats_ref``; the backward against
+    ``group_norm_bwd_ref`` from the kernel's own saved statistics (autograd
+    through ``group_norm_ref`` would take the relu mask from its own
+    statistics, which differ in the last bits, and at these sizes some
+    pre-activation lies within that rounding of zero: at (32, 1024, 64)
+    bf16 one is -3.7e-8); twice, identical bits. Returns the largest f32
+    errors of the tiled route (``groupnorm_fwd``/``_bwd``) and of the
+    general one."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
+        general_plan,
         group_norm_bwd,
+        group_norm_bwd_ref,
         group_norm_fwd,
         group_norm_ref,
+        group_norm_stats_ref,
+        plan,
     )
 
     gen = torch.Generator().manual_seed(0)
-    cases = [(128, 1024, 64), (128, 1024, 224), (128, 256, 480), (128, 64, 992), (128, 16, 1024)]
+    # (shape, groups, forced onto the general route); the tiled plans of
+    # the DenseNet shapes split S over a cluster at S = 1,024 (and the
+    # backward's at S = 256, C = 480), and not at S = 16 or 64
+    cases = [((128, 1024, 64), 32, False), ((128, 1024, 224), 32, False),
+             ((128, 256, 480), 32, False), ((128, 64, 992), 32, False), ((128, 16, 1024), 32, False),
+             ((32, 1024, 64), 32, False), ((32, 256, 128), 32, False), ((32, 64, 992), 32, False),
+             ((32, 16, 544), 32, False),
+             ((160, 1024, 96), 32, False), ((160, 256, 320), 32, False), ((160, 64, 512), 32, False),
+             ((160, 16, 1024), 32, False),
+             ((32, 1024, 64), 32, True), ((8, 256, 18), 6, False)]
     # tolerances: f32 forward 1e-4 and dx 5e-4 (f32 statistics, another
     # reduction order); dscale/dbias are sums over B*S terms, so their error
     # is held relative to their size (1e-4); bf16 rounds inputs and outputs
-    # to 8 significant bits (2e-2 plus 1e-2 relative)
+    # to 8 significant bits (2e-2 plus 1e-2 relative); the statistics are f32
+    # sums of the same values in another order (1e-5 plus 1e-5 relative)
     tol = {torch.float32: (1e-4, 5e-4, 0.0), torch.bfloat16: (2e-2, 2e-2, 1e-2)}
-    err = {"groupnorm_fwd": 0.0, "groupnorm_bwd": 0.0}
+    err = {k: 0.0 for k in ("groupnorm_fwd", "groupnorm_bwd") + GN_GENERAL}
     for dtype in (torch.float32, torch.bfloat16):
         ty, tg, rt = tol[dtype]
-        for shape in cases:
-            for relu in ((True, False) if shape == cases[0] else (True,)):
-                c = shape[-1]
+        for n, (shape, groups, general) in enumerate(cases):
+            bsz, s, c = shape
+            launch = [general_plan(s, c // groups, back) if general
+                      else plan(bsz, s, c, groups, dtype, back) for back in (False, True)]
+            route = launch[0].route
+            assert launch[1].route == route
+            what = f"{route}" + (f", cluster {launch[0].cluster}/{launch[1].cluster}" if route == "tiled" else "")
+            for relu in ((True, False) if n == 0 else (True,)):
                 x = torch.randn(shape, generator=gen).to(dev, dtype)
                 dy = torch.randn(shape, generator=gen).to(dev, dtype)
                 w = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
                 b = (0.1 * torch.randn(c, generator=gen)).to(dev)
-                y, mean, rstd = group_norm_fwd(x, w, b, 32, 1e-6, relu)
-                dx, dw, db = group_norm_bwd(x, dy, w, b, mean, rstd, 32, relu)
-                xr, wr, br = (t.detach().float().clone().requires_grad_() for t in (x, w, b))
-                yr = group_norm_ref(xr, wr, br, 32, 1e-6, relu)
-                gx, gw, gb = torch.autograd.grad(yr, (xr, wr, br), dy.float())
+                y, mean, rstd = group_norm_fwd(x, w, b, groups, 1e-6, relu, launch=launch[0])
+                dx, dw, db = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=launch[1])
+                again = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=launch[1])
+                assert all(torch.equal(u, v) for u, v in zip((dx, dw, db), again)), \
+                    f"groupnorm {shape} {what}: backward bits differ between runs"
+                yr = group_norm_ref(x.float(), w, b, groups, 1e-6, relu)
+                mean_r, rstd_r = group_norm_stats_ref(x, groups, 1e-6)
+                gx, gw, gb = group_norm_bwd_ref(x.float(), dy.float(), w, b, mean, rstd, groups, relu)
                 torch.cuda.synchronize()
                 e_y = (y.float() - yr).abs().max().item()
                 e_x = (dx.float() - gx).abs().max().item()
                 e_p = max((dw - gw).abs().max().item(), (db - gb).abs().max().item())
-                log(f"  groupnorm {str(dtype)[6:]:8s} {shape} relu={relu}: "
+                log(f"  groupnorm {str(dtype)[6:]:8s} {shape} G={groups} relu={relu} ({what}): "
                     f"|dy| {e_y:.2e}  |dx| {e_x:.2e}  |dscale,dbias| {e_p:.2e}")
-                torch.testing.assert_close(y.float(), yr.detach(), atol=ty, rtol=rt)
+                torch.testing.assert_close(y.float(), yr, atol=ty, rtol=rt)
+                torch.testing.assert_close(mean, mean_r, atol=1e-5, rtol=1e-5)
+                torch.testing.assert_close(rstd, rstd_r, atol=1e-5, rtol=1e-5)
                 torch.testing.assert_close(dx.float(), gx, atol=tg, rtol=rt)
                 torch.testing.assert_close(dw, gw, atol=tg, rtol=max(rt, 1e-4))
                 torch.testing.assert_close(db, gb, atol=tg, rtol=max(rt, 1e-4))
                 if dtype == torch.float32:
-                    err["groupnorm_fwd"] = max(err["groupnorm_fwd"], e_y)
-                    err["groupnorm_bwd"] = max(err["groupnorm_bwd"], e_x, e_p)
+                    keys = GN_GENERAL if route == "general" else ("groupnorm_fwd", "groupnorm_bwd")
+                    err[keys[0]] = max(err[keys[0]], e_y)
+                    err[keys[1]] = max(err[keys[1]], e_x, e_p)
                 records.append({"kernel": "groupnorm", "dtype": str(dtype), "shape": shape,
-                                "relu": relu, "err_y": e_y, "err_dx": e_x, "err_params": e_p})
+                                "groups": groups, "relu": relu, "plan": [list(p) for p in launch],
+                                "err_y": e_y, "err_dx": e_x, "err_params": e_p})
+                del x, dy, y, dx, again, yr, gx
+        torch.cuda.empty_cache()
     return err
 
 
@@ -253,65 +305,68 @@ def check_xent(torch, dev, records):
     return err
 
 
-def time_groupnorm(torch, dev, shapes):
+def time_groupnorm(torch, dev, b: int):
     """K1 over the 120 GroupNorm calls of one DenseNet-121 worker forward
-    (and backward) at b=128, f32, relu on: the kernel, the plain version and
-    ``relu(F.group_norm)`` (cuDNN/ATen, the yardstick only)."""
+    (and backward) at batch ``b``, f32, relu on: the kernels on the route
+    ``plan`` picks (the tiled one), the general route (the first port's
+    kernels, "was") on the same inputs, the plain version and
+    ``relu(F.group_norm)`` (cuDNN/ATen, the yardstick only), and the bound."""
     from torch.nn import functional as F
 
+    from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import gn_shapes
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
+        general_plan,
         group_norm_bwd,
         group_norm_fwd,
         group_norm_ref,
     )
 
+    shapes = gn_shapes(b, (6, 12, 24, 16), 32)
     gen = torch.Generator(device=dev).manual_seed(2)
     calls = []
-    for b, s, c in shapes:
-        x = torch.randn((b, s, c), device=dev, generator=gen)
-        dy = torch.randn((b, s, c), device=dev, generator=gen)
+    for bb, s, c in shapes:
+        x = torch.randn((bb, s, c), device=dev, generator=gen)
+        dy = torch.randn((bb, s, c), device=dev, generator=gen)
         w = torch.ones(c, device=dev)
         bias = torch.zeros(c, device=dev)
-        calls.append([x, dy, w, bias, None, None])
+        general = (general_plan(s, c // 32, False), general_plan(s, c // 32, True))
+        calls.append([x, dy, w, bias, None, None, general])
     for call in calls:
-        x, _, w, bias, _, _ = call
+        x, _, w, bias, _, _, _ = call
         _, call[4], call[5] = group_norm_fwd(x, w, bias, 32, 1e-6, True)
 
-    def k_fwd():
-        for x, _, w, bias, _, _ in calls:
-            group_norm_fwd(x, w, bias, 32, 1e-6, True)
+    def k_fwd(route=None):
+        for x, _, w, bias, _, _, general in calls:
+            group_norm_fwd(x, w, bias, 32, 1e-6, True, launch=route and general[0])
 
-    def k_bwd():
-        for x, dy, w, bias, mean, rstd in calls:
-            group_norm_bwd(x, dy, w, bias, mean, rstd, 32, True)
+    def k_bwd(route=None):
+        for x, dy, w, bias, mean, rstd, general in calls:
+            group_norm_bwd(x, dy, w, bias, mean, rstd, 32, True, launch=route and general[1])
 
     def p_fwd():
-        for x, _, w, bias, _, _ in calls:
+        for x, _, w, bias, _, _, _ in calls:
             group_norm_ref(x, w, bias, 32, 1e-6, True)
 
     def lib_view(x):  # [B, S, C] -> NCHW view in channels-last memory
-        b, s, c = x.shape
+        bb, s, c = x.shape
         h = int(round(s ** 0.5))
-        return x.view(b, h, h, c).permute(0, 3, 1, 2)
+        return x.view(bb, h, h, c).permute(0, 3, 1, 2)
 
     def l_fwd():
-        for x, _, w, bias, _, _ in calls:
+        for x, _, w, bias, _, _, _ in calls:
             F.relu(F.group_norm(lib_view(x), 32, w, bias, 1e-6))
 
     out = {"groupnorm_fwd": timed(k_fwd)}
+    out["groupnorm_fwd_general"] = timed(lambda: k_fwd("general"))
     out["groupnorm_fwd"]["plain_ms"] = device_ms(p_fwd)
     out["groupnorm_fwd"]["library_ms"] = device_ms(l_fwd)
-    n_el = sum(b * s * c for b, s, c in shapes)
-    small = sum(2 * c * 4 + 2 * b * 32 * 4 for b, s, c in shapes)
-    out["groupnorm_fwd"]["bound_ms"], out["groupnorm_fwd"]["bound_by"] = bound(
-        2 * n_el * 4 + small, 6 * n_el
-    )
     out["groupnorm_bwd"] = timed(k_bwd)
+    out["groupnorm_bwd_general"] = timed(lambda: k_bwd("general"))
     # backward yardsticks: autograd through graphs built outside the timing
     for key, fwd in (("plain_ms", lambda x, w, bias: group_norm_ref(x, w, bias, 32, 1e-6, True)),
                      ("library_ms", lambda x, w, bias: F.relu(F.group_norm(lib_view(x), 32, w, bias, 1e-6)))):
         graphs = []
-        for x, dy, w, bias, _, _ in calls:
+        for x, dy, w, bias, _, _, _ in calls:
             xr, wr, br = (t.detach().requires_grad_() for t in (x, w, bias))
             y = fwd(xr, wr, br)
             graphs.append((y, (xr, wr, br), dy.view(y.shape) if y.dim() == 3 else lib_view(dy)))
@@ -323,9 +378,14 @@ def time_groupnorm(torch, dev, shapes):
         out["groupnorm_bwd"][key] = device_ms(bwd)
         del graphs
         torch.cuda.empty_cache()
-    out["groupnorm_bwd"]["bound_ms"], out["groupnorm_bwd"]["bound_by"] = bound(
-        3 * n_el * 4 + small + sum(2 * c * 4 for b, s, c in shapes), 16 * n_el
-    )
+    for k, (nbytes, flops) in gn_work(shapes).items():
+        out[k]["bound_ms"], out[k]["bound_by"] = bound(nbytes, flops)
+        general = out[k + "_general"]
+        general.update(plain_ms=out[k]["plain_ms"], library_ms=out[k]["library_ms"],
+                       bound_ms=out[k]["bound_ms"], bound_by=out[k]["bound_by"])
+        out[k]["was_ms"] = general["ms"]
+    del calls
+    torch.cuda.empty_cache()
     return out
 
 
@@ -591,6 +651,8 @@ def check_main_path(counts, series):
     assert gn >= need, f"GroupNorm launches {gn} < {need}"
     for k in CNN_KERNELS:
         assert counts[k] > 0, f"kernel {k} never launched on the vision path"
+    for k in GN_GENERAL:  # every DenseNet-121 shape takes the tiled route
+        assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the vision path, want 0"
     log(f"  launches: {counts}")
 
 
@@ -709,8 +771,9 @@ def main() -> int:
     err = check_groupnorm(torch, dev, records)
     err.update(check_xent(torch, dev, records))
     err.update(check_flash(torch, dev, records))
-    shapes = densenet121_gn_shapes(torch, dev)
-    timing = time_groupnorm(torch, dev, shapes)
+    shapes = densenet121_gn_shapes(torch, dev, GN_LINE_BATCH)
+    gt = {b: time_groupnorm(torch, dev, b) for b in GN_BATCHES}
+    timing = dict(gt[GN_LINE_BATCH])
     xt = time_xent(torch, dev)
     at = time_flash(torch, dev)
     # the JSON line's K2 and short-route K3 rows are at the language model's
@@ -725,12 +788,14 @@ def main() -> int:
         log(f"  {k} {where}: kernel {t['ms']:.4f} ms (event wall {t['wall_ms']:.4f}){tiled}, "
             f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
-    for k in ("groupnorm_fwd", "groupnorm_bwd"):
-        t = timing[k]
-        log(f"  {k} x{len(shapes)} (one DenseNet-121 worker pass, b=128): kernel {t['ms']:.3f} ms "
-            f"(event wall {t['wall_ms']:.3f}), plain {t['plain_ms']:.3f} ms, "
-            f"library {t['library_ms']:.3f} ms, "
-            f"bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
+    for b, row in gt.items():
+        for k in ("groupnorm_fwd", "groupnorm_bwd"):
+            t = row[k]
+            log(f"  {k} x{len(shapes)} (one DenseNet-121 worker pass, b={b}): kernel {t['ms']:.3f} ms "
+                f"(event wall {t['wall_ms']:.3f}; {100 * t['bound_ms'] / t['ms']:.0f}% of bound), "
+                f"general route (was) {t['was_ms']:.3f} ms (event wall "
+                f"{row[k + '_general']['wall_ms']:.3f}), plain {t['plain_ms']:.3f} ms, "
+                f"library {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
     torch.cuda.empty_cache()
 
     log("[4] vision path")
@@ -748,8 +813,11 @@ def main() -> int:
     check_lm_against_cpu(torch, dev)
 
     sources = {
+        # the tiled route (every DenseNet-121 call), then the general one
         "groupnorm_fwd": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:32", "DenseNet-121 b=128, 120 calls"),
         "groupnorm_bwd": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:110", "DenseNet-121 b=128, 120 calls"),
+        "groupnorm_fwd_general": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:32", "DenseNet-121 b=128, 120 calls"),
+        "groupnorm_bwd_general": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:110", "DenseNet-121 b=128, 120 calls"),
         "xent_fwd": ("csrc/xent.cu", "ops/pallas/xent.py:30", list(XENT_LM_SHAPE)),
         "xent_bwd": ("csrc/xent.cu", "ops/pallas/xent.py:40", list(XENT_LM_SHAPE)),
         # the short route (T <= 64): attn_fwd_short_kernel, and attn_bwd_short_kernel,
@@ -781,6 +849,7 @@ def main() -> int:
         })
     with open(os.path.join(OUT, "kernels.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "checks": records,
+                   "groupnorm_timing": gt,
                    "xent_timing": {str(k): v for k, v in xt.items()},
                    "attn_timing": {str(k): v for k, v in at.items()},
                    "launches": {"vision": counts_cnn, "lm": counts_lm},

@@ -16,7 +16,7 @@ an NCHW view whose memory is channels-last (no copy).
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -100,6 +100,24 @@ class DenseNet(nn.Module):
                 x = getattr(self, trans)(x)
         x = nn.functional.avg_pool2d(self.GroupNorm_0(x), 4)
         return self.Dense_0(flatten_nhwc(x))
+
+
+def gn_shapes(b: int, nblocks: Sequence[int], growth_rate: int = 12, reduction: float = 0.5,
+              image_size: int = 32) -> List[Tuple[int, int, int]]:
+    """The ``[B, S, C]`` of every GroupNorm call of one :class:`DenseNet`
+    forward at batch ``b``, in call order, from the architecture alone:
+    each bottleneck's two (its input's C, then 4 * growth_rate), each
+    transition's, and the final one."""
+    g, planes, side = growth_rate, 2 * growth_rate, image_size
+    shapes = []
+    for bi, nblock in enumerate(nblocks):
+        for _ in range(nblock):
+            shapes += [(b, side * side, planes), (b, side * side, 4 * g)]
+            planes += g
+        if bi != len(nblocks) - 1:
+            shapes.append((b, side * side, planes))
+            planes, side = int(math.floor(planes * reduction)), side // 2
+    return shapes + [(b, side * side, planes)]
 
 
 def DenseNet121(num_classes=10, **kw):

@@ -1,9 +1,9 @@
 """Kernel timing on an NVIDIA card: device time, event wall and bounds.
 
-``chip_smoke.py``, ``scripts/xent_bench.py`` and ``scripts/flash_bench.py``
-time the port's kernels with these helpers, so all read one measuring
-stick. Everything here needs a CUDA device except :func:`bound`,
-:func:`xent_work` and :func:`attn_work`.
+``chip_smoke.py``, ``scripts/gn_bench.py``, ``scripts/xent_bench.py`` and
+``scripts/flash_bench.py`` time the port's kernels with these helpers, so
+all read one measuring stick. Everything here needs a CUDA device except
+:func:`bound`, :func:`gn_work`, :func:`xent_work` and :func:`attn_work`.
 """
 
 from __future__ import annotations
@@ -99,6 +99,22 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def gn_work(shapes, groups: int = 32, elem: int = 4) -> Dict[str, Tuple[int, int]]:
+    """{kernel: (bytes, operations)} of K1 over a set of ``[b, s, c]`` calls
+    in ``groups`` groups, ``elem`` bytes an activation: the forward reads x,
+    scale and bias once and writes y, mean and rstd; the backward reads x,
+    dy, scale, bias, mean and rstd once and writes dx, dscale and dbias.
+    Operations: 6 an element forward (sum, square, normalise, affine, relu),
+    16 backward."""
+    n = sum(b * s * c for b, s, c in shapes)
+    params = sum(2 * c * 4 for _, _, c in shapes)
+    stats = sum(2 * b * groups * 4 for b, _, _ in shapes)
+    return {
+        "groupnorm_fwd": (2 * n * elem + params + stats, 6 * n),
+        "groupnorm_bwd": (3 * n * elem + params + stats + params, 16 * n),
+    }
 
 
 def xent_work(r: int, v: int) -> Dict[str, Tuple[int, int]]:

@@ -9,6 +9,9 @@ here runs at import time: the CPU tests import every module.
 
 ``LAUNCHES`` counts, per kernel wrapper, the launches that reached the card:
 a wrapper adds one right after its C call returns success, and nowhere else.
+GroupNorm's ``groupnorm_fwd``/``groupnorm_bwd`` count both of its routes;
+``groupnorm_fwd_general``/``groupnorm_bwd_general`` the general route's
+share of them.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ SOURCES = ("groupnorm", "xent", "flash_attention")
 LAUNCHES: Dict[str, int] = {
     "groupnorm_fwd": 0,
     "groupnorm_bwd": 0,
+    "groupnorm_fwd_general": 0,  # of which the general route (K1's first kernels)
+    "groupnorm_bwd_general": 0,
     "xent_fwd": 0,
     "xent_bwd": 0,
     "attn_fwd": 0,  # the short forward (T <= 64)

@@ -63,7 +63,7 @@ LM_FAMILIES = (  # (family, substrings of the kernel name), first match wins
 )
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
-    ("groupnorm (port)", ("gn_fwd_kernel", "gn_bwd_kernel", "gn_param_reduce")),
+    ("groupnorm (port)", ("gn_fwd_", "gn_bwd_", "gn_param_")),
     ("cross-entropy (port)", ("xent_",)),
     ("layout transposes (cuDNN)", ("nhwcToNchw", "nchwToNhwc")),
     ("convolution (cuDNN)", ("conv", "xmma", "fft", "region_transform", "implicit", "winograd", "cudnn", "sm90", "gemm", "dgrad", "wgrad")),

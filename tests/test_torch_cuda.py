@@ -38,9 +38,15 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention i
     flash_attention,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
+    general_plan,
+    group_norm,
     group_norm_bwd,
+    group_norm_bwd_ref,
     group_norm_fwd,
     group_norm_ref,
+    group_norm_stats_ref,
+    plan,
+    tiled_plan,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import (
     SMALL_V,
@@ -90,6 +96,136 @@ def test_groupnorm_kernels_match_plain(cuda, shape, groups, relu, dtype, atol, r
     torch.testing.assert_close(dx.float(), gx, atol=gatol, rtol=rtol)
     torch.testing.assert_close(dw, gw, atol=gatol, rtol=max(rtol, 1e-4))
     torch.testing.assert_close(db, gb, atol=gatol, rtol=max(rtol, 1e-4))
+
+
+# K1's routes, forced through ``launch``: (shape, groups, route, the tile,
+# cluster or block size forced in place of ``plan``'s, whether the tiled
+# launch splits S over a cluster). The shapes
+# hold cg = 2, 3, 4, 5, 16, 31 and 32 channels a group, S = 1, 16, 32, 64
+# and 1,024, and S = 999 and 1,000, which the cluster's ranks split
+# unevenly or evenly; blocks of 32 to 512 threads, and tile rows of 8 to
+# 128 vectors (a row spanning up to four warps).
+GN_ROUTES = [
+    ((2, 1024, 64), 32, "tiled", {}, True),
+    ((2, 1000, 96), 32, "tiled", {}, True),
+    ((2, 999, 160), 32, "tiled", {}, True),
+    ((3, 16, 128), 32, "tiled", {"cluster": 8}, True),
+    ((3, 16, 128), 32, "tiled", {}, False),
+    ((2, 1, 1024), 32, "tiled", {}, False),
+    ((4, 64, 992), 32, "tiled", {}, False),
+    ((2, 32, 512), 32, "tiled", {"tile": 512, "cluster": 1}, False),
+    ((300, 16, 1024), 32, "tiled", {}, False),
+    ((16, 64, 512), 32, "tiled", {"threads": 512}, False),
+    ((2, 1024, 64), 32, "general", {}, False),
+    ((3, 16, 128), 32, "general", {}, False),
+    ((2, 1, 1024), 32, "general", {}, False),
+]
+
+
+def _gn_launch(shape, groups, dtype, backward, route, force):
+    b, s, c = shape
+    if route == "general":
+        return general_plan(s, c // groups, backward)
+    p = plan(b, s, c, groups, dtype, backward)
+    f = {"tile": p.tile, "cluster": p.cluster, "threads": p.threads, **force}
+    return tiled_plan(s, f["tile"], c // groups, f["cluster"], f["threads"], dtype, backward)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 1e-4, 0.0),
+    (torch.bfloat16, 3e-2, 1e-2),
+])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape,groups,route,force,clustered", GN_ROUTES)
+def test_groupnorm_every_route_matches_plain(cuda, shape, groups, route, force, clustered,
+                                             relu, dtype, atol, rtol):
+    """K1 on each route (tiled without and with a cluster, general), forced
+    through ``launch``, against the plain version at the tolerances of
+    ``test_groupnorm_kernels_match_plain``: y and the gradients against
+    autograd through ``group_norm_ref``, the saved statistics against
+    ``group_norm_stats_ref``, and the backward against
+    ``group_norm_bwd_ref`` from the kernel's own statistics."""
+    fwd, bwd = (_gn_launch(shape, groups, dtype, back, route, force) for back in (False, True))
+    assert fwd.route == bwd.route == route
+    if route == "tiled":
+        assert (fwd.cluster > 1) == clustered, fwd
+    x, w, b, dy = (t.to(cuda) for t in _gn_inputs(shape, 5))
+    x, dy = x.to(dtype), dy.to(dtype)
+    runtime.reset_launches()
+    y, mean, rstd = group_norm_fwd(x, w, b, groups, 1e-6, relu, launch=fwd)
+    dx, dw, db = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=bwd)
+    general = int(route == "general")
+    assert [runtime.LAUNCHES[k] for k in ("groupnorm_fwd", "groupnorm_bwd", "groupnorm_fwd_general",
+                                          "groupnorm_bwd_general")] == [1, 1, general, general]
+    xr, wr, br = (t.detach().clone().float().requires_grad_() for t in (x, w, b))
+    yr = group_norm_ref(xr, wr, br, groups, 1e-6, relu)
+    gx, gw, gb = torch.autograd.grad(yr, (xr, wr, br), dy.float())
+    assert y.dtype == dx.dtype == dtype
+    torch.testing.assert_close(y.float(), yr.detach(), atol=atol, rtol=rtol)
+    gatol = 5e-4 if dtype == torch.float32 else atol
+    torch.testing.assert_close(dx.float(), gx, atol=gatol, rtol=rtol)
+    torch.testing.assert_close(dw, gw, atol=gatol, rtol=max(rtol, 1e-4))
+    torch.testing.assert_close(db, gb, atol=gatol, rtol=max(rtol, 1e-4))
+    for got, want in zip((mean, rstd), group_norm_stats_ref(x, groups, 1e-6)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    px, pw, pb = group_norm_bwd_ref(x.float(), dy.float(), w, b, mean, rstd, groups, relu)
+    torch.testing.assert_close(dx.float(), px, atol=gatol, rtol=rtol)
+    torch.testing.assert_close(dw, pw, atol=gatol, rtol=max(rtol, 1e-4))
+    torch.testing.assert_close(db, pb, atol=gatol, rtol=max(rtol, 1e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 1024, 64), (8, 64, 992), (32, 16, 1024), (300, 16, 1024)])
+def test_groupnorm_backward_gives_the_same_bits_on_every_run(cuda, shape, dtype):
+    """No float atomics: dx, dscale and dbias repeat bit for bit (the first
+    shape runs as a cluster, the others without)."""
+    x, w, b, dy = (t.to(cuda) for t in _gn_inputs(shape, 6))
+    x, dy = x.to(dtype), dy.to(dtype)
+    _, mean, rstd = group_norm_fwd(x, w, b, 32, 1e-6, True)
+    first, again = (group_norm_bwd(x, dy, w, b, mean, rstd, 32, True) for _ in range(2))
+    assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_groupnorm_misaligned_operands_take_the_general_route(cuda):
+    """A contiguous view whose base is off 16 bytes runs on the general route
+    (the tiled one copies 16-byte vectors); a forced tiled plan refuses it."""
+    shape = (2, 64, 128)
+    x, w, b, dy = (t.to(cuda) for t in _gn_inputs(shape, 7))
+    n = x.numel()
+    xs = torch.empty(n + 1, device=cuda)[1:].view(shape).copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16
+    runtime.reset_launches()
+    y, mean, rstd = group_norm_fwd(xs, w, b, 32, 1e-6, True)
+    assert runtime.LAUNCHES["groupnorm_fwd_general"] == 1
+    torch.testing.assert_close(y, group_norm_ref(x, w, b, 32, 1e-6, True), atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="aligned"):
+        group_norm_fwd(xs, w, b, 32, 1e-6, True, launch=plan(*shape, 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 256, 128), (3, 10, 18)])
+def test_groupnorm_autograd_route_takes_the_planned_route(cuda, shape):
+    """``group_norm`` on a CUDA tensor launches the route ``plan`` picks:
+    tiled for C % 4 == 0, general otherwise; gradients match the plain
+    version."""
+    groups = 32 if shape[2] % 32 == 0 else 6
+    x, w, b, dy = (t.to(cuda) for t in _gn_inputs(shape, 8))
+    runtime.reset_launches()
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    out = group_norm(xr, wr, br, groups, relu=True)
+    grads = torch.autograd.grad(out, (xr, wr, br), dy)
+    general = int(plan(*shape, groups).route == "general")
+    assert general == int(shape[2] % 4 != 0)
+    assert [runtime.LAUNCHES[k] for k in ("groupnorm_fwd", "groupnorm_bwd", "groupnorm_fwd_general",
+                                          "groupnorm_bwd_general")] == [1, 1, general, general]
+    xp, wp, bp = (t.clone().requires_grad_() for t in (x, w, b))
+    ref = group_norm_ref(xp, wp, bp, groups, 1e-6, True)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    for got, want in zip(grads, torch.autograd.grad(ref, (xp, wp, bp), dy)):
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-4)
 
 
 def _xent_inputs(r, v, dtype, seed=6):
