@@ -13,37 +13,62 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
 3. Each kernel against its plain PyTorch version on the card: GroupNorm (K1)
    at DenseNet-121 shapes at b = 32, 128 and 160 and on each of its routes
    (tiled with and without a cluster, general), f32 and bf16, the backward's
-   bits repeating; cross-entropy (K2) at one DenseNet
-   worker's logits, at the language model's worker shapes and the full
-   wikitext-2 vocabulary (33,278), f32 and bf16, with labels out of range
-   and a row slice that starts off a 16-byte boundary; flash attention (K3)
-   on its short route (T <= 64: forward and fused backward) at every shape
-   of the language-model path, the validation chunk and T in {1, 17, 35,
-   64}, on the model's strided views and on contiguous tensors, and on its
-   tiled route (forward, dK/dV, dQ) at a long-context shape. Then each
-   kernel's device time (the profiler's sum of kernel time, so host launch
-   gaps are not counted) beside its bound, the plain version's and one
-   PyTorch library call's; the CUDA-event wall, which includes the host's
-   launch gaps, is printed beside it. K1 is timed over one DenseNet-121
-   worker pass at b = 32, 128 and 160 beside its general route (the first
-   port's kernels); K2 and K3 at every shape the language-model path gives
-   them (below), K3 beside its tiled route.
-4. The vision path: the port's ``cli.main`` trains DenseNet-121 on synthetic
-   CIFAR-10 with 4 workers, B=512 and a 3:1 virtual straggler for 3 epochs;
-   the launch counters (zeroed just before) show K1 (on its tiled route
-   only) and K2 ran, the rebalancer moved share off worker 0 and the 9
-   series were written.
+   bits repeating; cross-entropy (K2) at one DenseNet worker's logits and a
+   packed step's ([512, 10]), at the language model's worker shapes and the
+   full wikitext-2 vocabulary (33,278), f32 and bf16, with labels out of
+   range and a row slice that starts off a 16-byte boundary; flash attention
+   (K3) on its short route (T <= 64: forward and fused backward) at every
+   shape of the language-model path, the validation chunk and T in {1, 17,
+   35, 64}, on the model's strided views and on contiguous tensors, and on
+   its tiled route (forward, dK/dV, dQ) at a long-context shape. K1 also
+   at every distinct GroupNorm shape of DenseNet-121, ResNet-101, GoogLeNet
+   and RegNetY-400MF at a packed step's b = 512, f32 and bf16, on the route
+   and cluster ``plan`` picks; its route for every GroupNorm call of those
+   models at b = 128 and 512. Then each kernel's device time (the
+   profiler's sum of kernel time, so host launch gaps are not counted)
+   beside its bound, the plain version's and one PyTorch library call's;
+   the CUDA-event wall, which includes the host's launch gaps, is printed
+   beside it. K1 is timed over one DenseNet-121 worker pass at b = 32, 128
+   and 160 beside its general route (the first port's kernels), and over
+   one packed step's pass (b = 512) of DenseNet-121 and of ResNet-101; K2
+   and K3 at every shape the language-model path gives them (below), K3
+   beside its tiled route.
+3b. The compute-mode straggler's synthetic load (``ops/faultload.py``): its
+   kernel (``csrc/faultload.cu``, the whole chain in one cooperative
+   launch) against the plain chain, its calibrated cost an iteration, its
+   device time and bound, and the card's busy share over a 1,000-iteration
+   call (at least 90%).
+4. The vision path through the defaults: the port's ``cli.main`` trains
+   DenseNet-121 on synthetic CIFAR-10 with 4 workers, B=512 and a 3:1
+   virtual straggler for 3 epochs, on packed epochs with adaptive probes:
+   every epoch packed, epoch 2 on modeled node times with no probe wall; the
+   launch counters (zeroed just before) show K1 (on its tiled route only)
+   and K2 ran, the rebalancer moved share off worker 0 and the 9 series
+   were written; the peak device memory is printed.
+4b. The same recipe with ``--packed off --fault_mode compute``: the elastic
+   path, the calibrated cost of a synthetic-load iteration inside a step,
+   the straggler's probed time an example at least twice a clean worker's,
+   the synthetic-load kernel launched.
+4c. The reference's random faults, ``-ft true -ftc 0.5 --fault_mode
+   compute`` without ``--straggler``, 3 epochs at seed 213 (worker 0 is hit
+   from epoch 1): share moves off worker 0, the synthetic-load kernel
+   launched.
+4d. ``-m resnet`` (ResNet-101), ``-m googlenet``, ``-m regnet``
+   (RegNetY-400MF): 4 workers, B=512, 2,048 examples, 2 epochs each; K1 and
+   K2 launched and the 9 series written.
 5. The language-model path: ``cli.main`` trains the Transformer LM (EMSIZE
    200, 2 heads, 2 layers) on the committed wikitext-2 files with 4 workers,
    80 columns, bptt 35, per-worker clipping at 0.25, flash attention and a
    3:1 virtual straggler for 3 epochs; the counters (zeroed just before)
    show K3's short route and K2 ran (and K3's tiled route did not), share
-   moved off worker 0, the 9 series were written.
-6. DenseNet-121 and the Transformer LM on the card against the same models
-   on the CPU (plain versions), same weights and inputs.
+   moved off worker 0, the 9 series were written. Each path's wall.
+6. DenseNet-121, ResNet-18, RegNetY-400MF and the Transformer LM on the
+   card against the same models on the CPU (plain versions), same weights
+   and inputs; the CNNs' first-conv gradient against the CPU's f64 run, at
+   three weight seeds.
 
-The last two lines are the kernels' JSON record and the result line. Full
-tables go to ``chiprun_out/chip_smoke/``.
+The last two lines are the kernels' JSON record (launches summed over every
+path) and the result line. Full tables go to ``chiprun_out/chip_smoke/``.
 """
 
 from __future__ import annotations
@@ -61,6 +86,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.obs.kernel_timing import (
     attn_yardsticks,
     bound,
     card,
+    cuda_ms,
     device_ms,
     gn_work,
     timed,
@@ -77,6 +103,23 @@ MAIN_ARGV = (
     "--n_train 4096"
 ).split()
 EPOCHS, WORKERS, GN_PER_FORWARD, MIN_STEPS = 3, 4, 120, 8
+# [4b]: the same recipe on the elastic path with a compute-mode straggler
+COMPUTE_ARGV = MAIN_ARGV[: MAIN_ARGV.index("--fault_mode")] + (
+    "--fault_mode compute -e 3 --n_train 4096 --packed off").split()
+# [4c]: the reference's random faults in compute mode, no straggler profile.
+# Seed 213 (found with faults.LuckyFaultInjector on the CPU): no worker is
+# hit in epoch 0, so the in-step iteration cost is calibrated there; worker
+# 0 is hit in epoch 1 for 5 s an epoch until epoch 20; no other worker in
+# epochs 0-2.
+FT_SEED, FT_WORKER = 213, 0
+FT_ARGV = (
+    "-m densenet -ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 -ft true -ftc 0.5 "
+    f"--fault_mode compute -e 3 --n_train 4096 --seed {FT_SEED}"
+).split()
+# [4d]: one path a family at published widths, the reference's -m names
+FAMILIES = ("resnet", "googlenet", "regnet")
+FAMILY_EPOCHS = 2
+FAMILY_ARGV = "-ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 -e 2 --n_train 2048".split()
 
 LM_ARGV = (
     "-m transformer -ds wikitext2 -d false -ws 4 -b 80 -gpu 0,0,0,0 --bptt 35 "
@@ -109,12 +152,23 @@ XENT_PATH_ROWS = (105, 700, 910, 40 * 35)
 XENT_VAL_ROWS = 1024 * 35
 XENT_FULL_V = 33278  # wikitext-2's vocabulary once train.txt is present
 CNN_KERNELS = ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd")
+SYNTH_ITERS = 1000  # the synthetic load's timed call
 GN_GENERAL = ("groupnorm_fwd_general", "groupnorm_bwd_general")
 # K1 is timed over one DenseNet-121 worker pass at each batch of the vision
 # path's plans: 128 under the uniform first plan (512 / 4 workers), 32 for
 # the straggler and 160 for the others after rebalancing; the JSON line's
 # rows are at 128, the batch of the earlier slices' records
 GN_BATCHES, GN_LINE_BATCH = (32, 128, 160), 128
+# and over one packed step's pass, b = 512: DenseNet-121's and ResNet-101's
+GN_PACKED_B = 512
+# [6]: weight seeds of the card-vs-CPU comparison, and its bound on the first
+# conv's gradient against the CPU's f64 run, for every model. Readings on an
+# H100 over these seeds: the card 4.3e-5 to 8.4e-5 from f64 on DenseNet-121,
+# 1.7e-6 to 6.1e-5 on ResNet-18, 9.4e-4 to 1.73e-3 on RegNetY-400MF, whose
+# gradient is ill-conditioned in f32 (the CPU's own f32 run is 1.1e-3 to
+# 2.8e-3 from f64 there)
+CARD_VS_CPU_SEEDS = (0, 1, 2)
+GRAD_ATOL_F64 = 2e-3
 LM_KERNELS = ("attn_fwd", "attn_bwd", "xent_fwd", "xent_bwd")
 
 
@@ -122,51 +176,113 @@ def log(*a):
     print(*a, flush=True)
 
 
-def densenet121_gn_shapes(torch, dev, b: int = 128):
-    """The [B, S, C] of every GroupNorm call in one DenseNet-121 forward at
-    batch ``b``, read off the model with forward hooks."""
+def model_gn_shapes(torch, dev, name: str, b: int, with_relu: bool = False):
+    """The ``(B, S, C, groups)`` of every GroupNorm call in one forward of
+    ``-m name`` at batch ``b`` (``with_relu``: ``(B, S, C, groups, relu)``),
+    read off the model with forward hooks, and how many of them ``plan``
+    sends to the general route (forward and backward). DenseNet-121's are
+    checked against ``gn_shapes``."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
     from dynamic_load_balance_distributeddnn_tpu_torch.models.common import GroupNorm
-    from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import DenseNet121, gn_shapes
+    from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import gn_shapes
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import plan
 
-    model = DenseNet121().to(dev, memory_format=torch.channels_last)
+    model = build_model(name).to(dev, memory_format=torch.channels_last)
     shapes = []
 
     def hook(m, inp, out):
         n, c, h, w = inp[0].shape
-        shapes.append((n, h * w, c))
+        shapes.append((n, h * w, c, m.num_groups) + ((m.relu,) if with_relu else ()))
 
     handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, GroupNorm)]
     with torch.no_grad():
         model(torch.zeros(b, 32, 32, 3, device=dev))
     for h in handles:
         h.remove()
-    assert len(shapes) == GN_PER_FORWARD, len(shapes)
-    assert shapes == gn_shapes(b, (6, 12, 24, 16), 32), "models/densenet.py gn_shapes is off"
-    return shapes
+    del model
+    torch.cuda.empty_cache()
+    if name == "densenet":
+        assert len(shapes) == GN_PER_FORWARD, len(shapes)
+        assert [sh[:3] for sh in shapes] == gn_shapes(b, (6, 12, 24, 16), 32), \
+            "models/densenet.py gn_shapes is off"
+    general = sum(plan(bb, ss, c, g, torch.float32, back).route == "general"
+                  for bb, ss, c, g, *_ in shapes for back in (False, True))
+    return shapes, general
 
 
-def check_groupnorm(torch, dev, records):
-    """K1 forward and backward against their plain versions on the same
-    inputs, f32 and bf16: DenseNet-121 shapes at b = 32, 128 and 160 (each
-    stage; relu on, the main path, and once off) on the route ``plan``
-    picks, the tiled one, with a cluster and without; then the general
-    route, forced on a DenseNet shape, and as ``plan`` picks it for C = 18
-    (C % 4 != 0). The forward's y against ``group_norm_ref`` and its saved
-    mean and rstd against ``group_norm_stats_ref``; the backward against
-    ``group_norm_bwd_ref`` from the kernel's own saved statistics (autograd
-    through ``group_norm_ref`` would take the relu mask from its own
-    statistics, which differ in the last bits, and at these sizes some
-    pre-activation lies within that rounding of zero: at (32, 1024, 64)
-    bf16 one is -3.7e-8); twice, identical bits. Returns the largest f32
-    errors of the tiled route (``groupnorm_fwd``/``_bwd``) and of the
-    general one."""
+# K1's tolerances by dtype: (y, dx and dscale/dbias absolute, relative).
+# f32: forward 1e-4 and dx 5e-4 (f32 statistics, another reduction order);
+# dscale/dbias are sums over B*S terms, so their error is also held relative
+# to their size (1e-4); bf16 rounds inputs and outputs to 8 significant bits
+# (2e-2 plus 1e-2 relative); the saved statistics are f32 sums of the same
+# values in another order (1e-5 plus 1e-5 relative) in both
+GN_TOL = {"torch.float32": (1e-4, 5e-4, 0.0), "torch.bfloat16": (2e-2, 2e-2, 1e-2)}
+
+
+def gn_case(torch, rand, shape, groups, relu, dtype, launch, what, records):
+    """One K1 check on the inputs ``rand`` draws: the forward under
+    ``launch[0]`` against ``group_norm_ref`` (y) and ``group_norm_stats_ref``
+    (its saved mean and rstd), the backward under ``launch[1]`` twice,
+    identical bits, against ``group_norm_bwd_ref`` from the kernel's own
+    saved statistics (autograd through ``group_norm_ref`` would take the relu
+    mask from its own statistics, which differ in the last bits, and at
+    these sizes some pre-activation lies within that rounding of zero: at
+    (32, 1024, 64) bf16 one is -3.7e-8). Returns the largest errors of y,
+    dx and dscale/dbias."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
-        general_plan,
         group_norm_bwd,
         group_norm_bwd_ref,
         group_norm_fwd,
         group_norm_ref,
         group_norm_stats_ref,
+    )
+
+    ty, tg, rt = GN_TOL[str(dtype)]
+    c = shape[-1]
+    x = rand(shape).to(dtype)
+    dy = rand(shape).to(dtype)
+    w = 1 + 0.1 * rand((c,))
+    b = 0.1 * rand((c,))
+    y, mean, rstd = group_norm_fwd(x, w, b, groups, 1e-6, relu, launch=launch[0])
+    dx, dw, db = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=launch[1])
+    again = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=launch[1])
+    assert all(torch.equal(u, v) for u, v in zip((dx, dw, db), again)), \
+        f"groupnorm {shape} {what}: backward bits differ between runs"
+    del again
+    yr = group_norm_ref(x.float(), w, b, groups, 1e-6, relu)
+    e_y = (y.float() - yr).abs().max().item()
+    torch.testing.assert_close(y.float(), yr, atol=ty, rtol=rt)
+    del y, yr
+    mean_r, rstd_r = group_norm_stats_ref(x, groups, 1e-6)
+    torch.testing.assert_close(mean, mean_r, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, atol=1e-5, rtol=1e-5)
+    gx, gw, gb = group_norm_bwd_ref(x.float(), dy.float(), w, b, mean, rstd, groups, relu)
+    e_x = (dx.float() - gx).abs().max().item()
+    e_p = max((dw - gw).abs().max().item(), (db - gb).abs().max().item())
+    log(f"  groupnorm {str(dtype)[6:]:8s} {shape} G={groups} relu={relu} ({what}): "
+        f"|dy| {e_y:.2e}  |dx| {e_x:.2e}  |dscale,dbias| {e_p:.2e}")
+    torch.testing.assert_close(dx.float(), gx, atol=tg, rtol=rt)
+    torch.testing.assert_close(dw, gw, atol=tg, rtol=max(rt, 1e-4))
+    torch.testing.assert_close(db, gb, atol=tg, rtol=max(rt, 1e-4))
+    records.append({"kernel": "groupnorm", "dtype": str(dtype), "shape": shape,
+                    "groups": groups, "relu": relu, "plan": [list(p) for p in launch],
+                    "err_y": e_y, "err_dx": e_x, "err_params": e_p})
+    return e_y, e_x, e_p
+
+
+def check_groupnorm(torch, dev, records):
+    """K1 forward and backward against their plain versions on the same
+    inputs (``gn_case``), f32 and bf16: DenseNet-121 shapes at b = 32, 128
+    and 160 (each stage; relu on, the main path, and once off) on the route
+    ``plan`` picks, the tiled one, with a cluster and without; the general
+    route, forced on a DenseNet shape, and as ``plan`` picks it for C = 18
+    (C % 4 != 0); then every distinct (S, C, groups, relu) of a GroupNorm
+    call in DenseNet-121, ResNet-101, GoogLeNet and RegNetY-400MF (read off
+    the models by ``model_gn_shapes``) at a packed step's b = 512, on the
+    route and cluster ``plan`` picks. Returns the largest f32 errors of the
+    tiled route (``groupnorm_fwd``/``_bwd``) and of the general one."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
+        general_plan,
         plan,
     )
 
@@ -181,56 +297,35 @@ def check_groupnorm(torch, dev, records):
              ((160, 1024, 96), 32, False), ((160, 256, 320), 32, False), ((160, 64, 512), 32, False),
              ((160, 16, 1024), 32, False),
              ((32, 1024, 64), 32, True), ((8, 256, 18), 6, False)]
-    # tolerances: f32 forward 1e-4 and dx 5e-4 (f32 statistics, another
-    # reduction order); dscale/dbias are sums over B*S terms, so their error
-    # is held relative to their size (1e-4); bf16 rounds inputs and outputs
-    # to 8 significant bits (2e-2 plus 1e-2 relative); the statistics are f32
-    # sums of the same values in another order (1e-5 plus 1e-5 relative)
-    tol = {torch.float32: (1e-4, 5e-4, 0.0), torch.bfloat16: (2e-2, 2e-2, 1e-2)}
+    cases = [(shape, groups, general, relu) for n, (shape, groups, general) in enumerate(cases)
+             for relu in ((True, False) if n == 0 else (True,))]
+    packed = set()
+    for name in ("densenet",) + FAMILIES:
+        packed.update(model_gn_shapes(torch, dev, name, GN_PACKED_B, with_relu=True)[0])
+    packed = sorted(packed)
+    log(f"  K1 at a packed step's b = {GN_PACKED_B}: {len(packed)} distinct (S, C, groups, relu) "
+        f"of DenseNet-121, ResNet-101, GoogLeNet and RegNetY-400MF")
+    cases += [((bb, s, c), g, False, relu) for bb, s, c, g, relu in packed]
     err = {k: 0.0 for k in ("groupnorm_fwd", "groupnorm_bwd") + GN_GENERAL}
     for dtype in (torch.float32, torch.bfloat16):
-        ty, tg, rt = tol[dtype]
-        for n, (shape, groups, general) in enumerate(cases):
+        on_card = torch.Generator(device=dev).manual_seed(3)
+        for shape, groups, general, relu in cases:
             bsz, s, c = shape
+            if bsz == GN_PACKED_B:  # drawn on the card: these inputs reach 2**27 elements
+                rand = lambda shp: torch.randn(shp, generator=on_card, device=dev)  # noqa: E731
+            else:
+                rand = lambda shp: torch.randn(shp, generator=gen).to(dev)  # noqa: E731
             launch = [general_plan(s, c // groups, back) if general
                       else plan(bsz, s, c, groups, dtype, back) for back in (False, True)]
             route = launch[0].route
             assert launch[1].route == route
             what = f"{route}" + (f", cluster {launch[0].cluster}/{launch[1].cluster}" if route == "tiled" else "")
-            for relu in ((True, False) if n == 0 else (True,)):
-                x = torch.randn(shape, generator=gen).to(dev, dtype)
-                dy = torch.randn(shape, generator=gen).to(dev, dtype)
-                w = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
-                b = (0.1 * torch.randn(c, generator=gen)).to(dev)
-                y, mean, rstd = group_norm_fwd(x, w, b, groups, 1e-6, relu, launch=launch[0])
-                dx, dw, db = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=launch[1])
-                again = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=launch[1])
-                assert all(torch.equal(u, v) for u, v in zip((dx, dw, db), again)), \
-                    f"groupnorm {shape} {what}: backward bits differ between runs"
-                yr = group_norm_ref(x.float(), w, b, groups, 1e-6, relu)
-                mean_r, rstd_r = group_norm_stats_ref(x, groups, 1e-6)
-                gx, gw, gb = group_norm_bwd_ref(x.float(), dy.float(), w, b, mean, rstd, groups, relu)
-                torch.cuda.synchronize()
-                e_y = (y.float() - yr).abs().max().item()
-                e_x = (dx.float() - gx).abs().max().item()
-                e_p = max((dw - gw).abs().max().item(), (db - gb).abs().max().item())
-                log(f"  groupnorm {str(dtype)[6:]:8s} {shape} G={groups} relu={relu} ({what}): "
-                    f"|dy| {e_y:.2e}  |dx| {e_x:.2e}  |dscale,dbias| {e_p:.2e}")
-                torch.testing.assert_close(y.float(), yr, atol=ty, rtol=rt)
-                torch.testing.assert_close(mean, mean_r, atol=1e-5, rtol=1e-5)
-                torch.testing.assert_close(rstd, rstd_r, atol=1e-5, rtol=1e-5)
-                torch.testing.assert_close(dx.float(), gx, atol=tg, rtol=rt)
-                torch.testing.assert_close(dw, gw, atol=tg, rtol=max(rt, 1e-4))
-                torch.testing.assert_close(db, gb, atol=tg, rtol=max(rt, 1e-4))
-                if dtype == torch.float32:
-                    keys = GN_GENERAL if route == "general" else ("groupnorm_fwd", "groupnorm_bwd")
-                    err[keys[0]] = max(err[keys[0]], e_y)
-                    err[keys[1]] = max(err[keys[1]], e_x, e_p)
-                records.append({"kernel": "groupnorm", "dtype": str(dtype), "shape": shape,
-                                "groups": groups, "relu": relu, "plan": [list(p) for p in launch],
-                                "err_y": e_y, "err_dx": e_x, "err_params": e_p})
-                del x, dy, y, dx, again, yr, gx
-        torch.cuda.empty_cache()
+            e_y, e_x, e_p = gn_case(torch, rand, shape, groups, relu, dtype, launch, what, records)
+            if dtype == torch.float32:
+                keys = GN_GENERAL if route == "general" else ("groupnorm_fwd", "groupnorm_bwd")
+                err[keys[0]] = max(err[keys[0]], e_y)
+                err[keys[1]] = max(err[keys[1]], e_x, e_p)
+            torch.cuda.empty_cache()
     return err
 
 
@@ -248,7 +343,7 @@ def dlogits_ratio(torch, dx, want, labels, g, rtol: float) -> float:
 def check_xent(torch, dev, records):
     """K2 forward and backward against their plain versions (the backward's
     with the kernel's own lse) on the same inputs: [128, 10] (one DenseNet
-    worker's logits), [1400, 18328] (the language model's), [105, 33278]
+    worker's logits), [512, 10] (a packed step's), [1400, 18328] (the language model's), [105, 33278]
     (the full wikitext-2 vocabulary, rows off 16-byte boundaries), each in
     f32 and bf16, with two labels out of range in the first; and logits[1:]
     of a [14, 10] tensor, a base off a 16-byte boundary. Tolerance: loss and
@@ -266,7 +361,7 @@ def check_xent(torch, dev, records):
 
     gen = torch.Generator().manual_seed(1)
     err = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    cases = [(128, 10), XENT_LM_SHAPE, (105, XENT_FULL_V)]
+    cases = [(128, 10), (512, 10), XENT_LM_SHAPE, (105, XENT_FULL_V)]
     for dtype in (torch.float32, torch.bfloat16):
         rtol = 1e-5 if dtype == torch.float32 else 2.0**-8 + 1e-5
         for i, (r, v) in enumerate(cases + [(14, 10)]):
@@ -305,15 +400,17 @@ def check_xent(torch, dev, records):
     return err
 
 
-def time_groupnorm(torch, dev, b: int):
-    """K1 over the 120 GroupNorm calls of one DenseNet-121 worker forward
-    (and backward) at batch ``b``, f32, relu on: the kernels on the route
-    ``plan`` picks (the tiled one), the general route (the first port's
-    kernels, "was") on the same inputs, the plain version and
-    ``relu(F.group_norm)`` (cuDNN/ATen, the yardstick only), and the bound."""
+def time_groupnorm(torch, dev, shapes, general: bool = True):
+    """K1 over a pass of GroupNorm calls, ``shapes`` their ``(b, s, c,
+    groups)``, forward and backward, f32, relu on: the kernels on the route
+    ``plan`` picks (the tiled one), with ``general`` the general route (the
+    first port's kernels, "was") on the same inputs, the plain version and
+    ``relu(F.group_norm)`` (cuDNN/ATen, the yardstick only), and the bound.
+    The backward yardsticks run 12 calls' autograd graphs at a time (their
+    saved tensors at b = 512 would not fit at once), their device times
+    summed."""
     from torch.nn import functional as F
 
-    from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import gn_shapes
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
         general_plan,
         group_norm_bwd,
@@ -321,31 +418,30 @@ def time_groupnorm(torch, dev, b: int):
         group_norm_ref,
     )
 
-    shapes = gn_shapes(b, (6, 12, 24, 16), 32)
     gen = torch.Generator(device=dev).manual_seed(2)
     calls = []
-    for bb, s, c in shapes:
+    for bb, s, c, g in shapes:
         x = torch.randn((bb, s, c), device=dev, generator=gen)
         dy = torch.randn((bb, s, c), device=dev, generator=gen)
         w = torch.ones(c, device=dev)
         bias = torch.zeros(c, device=dev)
-        general = (general_plan(s, c // 32, False), general_plan(s, c // 32, True))
-        calls.append([x, dy, w, bias, None, None, general])
+        launch = (general_plan(s, c // g, False), general_plan(s, c // g, True))
+        calls.append([x, dy, w, bias, g, None, None, launch])
     for call in calls:
-        x, _, w, bias, _, _, _ = call
-        _, call[4], call[5] = group_norm_fwd(x, w, bias, 32, 1e-6, True)
+        x, _, w, bias, g = call[:5]
+        _, call[5], call[6] = group_norm_fwd(x, w, bias, g, 1e-6, True)
 
     def k_fwd(route=None):
-        for x, _, w, bias, _, _, general in calls:
-            group_norm_fwd(x, w, bias, 32, 1e-6, True, launch=route and general[0])
+        for x, _, w, bias, g, _, _, launch in calls:
+            group_norm_fwd(x, w, bias, g, 1e-6, True, launch=route and launch[0])
 
     def k_bwd(route=None):
-        for x, dy, w, bias, mean, rstd, general in calls:
-            group_norm_bwd(x, dy, w, bias, mean, rstd, 32, True, launch=route and general[1])
+        for x, dy, w, bias, g, mean, rstd, launch in calls:
+            group_norm_bwd(x, dy, w, bias, mean, rstd, g, True, launch=route and launch[1])
 
     def p_fwd():
-        for x, _, w, bias, _, _, _ in calls:
-            group_norm_ref(x, w, bias, 32, 1e-6, True)
+        for x, _, w, bias, g, _, _, _ in calls:
+            group_norm_ref(x, w, bias, g, 1e-6, True)
 
     def lib_view(x):  # [B, S, C] -> NCHW view in channels-last memory
         bb, s, c = x.shape
@@ -353,44 +449,94 @@ def time_groupnorm(torch, dev, b: int):
         return x.view(bb, h, h, c).permute(0, 3, 1, 2)
 
     def l_fwd():
-        for x, _, w, bias, _, _, _ in calls:
-            F.relu(F.group_norm(lib_view(x), 32, w, bias, 1e-6))
+        for x, _, w, bias, g, _, _, _ in calls:
+            F.relu(F.group_norm(lib_view(x), g, w, bias, 1e-6))
 
     out = {"groupnorm_fwd": timed(k_fwd)}
-    out["groupnorm_fwd_general"] = timed(lambda: k_fwd("general"))
     out["groupnorm_fwd"]["plain_ms"] = device_ms(p_fwd)
     out["groupnorm_fwd"]["library_ms"] = device_ms(l_fwd)
     out["groupnorm_bwd"] = timed(k_bwd)
-    out["groupnorm_bwd_general"] = timed(lambda: k_bwd("general"))
+    if general:
+        out["groupnorm_fwd_general"] = timed(lambda: k_fwd("general"))
+        out["groupnorm_bwd_general"] = timed(lambda: k_bwd("general"))
     # backward yardsticks: autograd through graphs built outside the timing
-    for key, fwd in (("plain_ms", lambda x, w, bias: group_norm_ref(x, w, bias, 32, 1e-6, True)),
-                     ("library_ms", lambda x, w, bias: F.relu(F.group_norm(lib_view(x), 32, w, bias, 1e-6)))):
-        graphs = []
-        for x, dy, w, bias, _, _, _ in calls:
-            xr, wr, br = (t.detach().requires_grad_() for t in (x, w, bias))
-            y = fwd(xr, wr, br)
-            graphs.append((y, (xr, wr, br), dy.view(y.shape) if y.dim() == 3 else lib_view(dy)))
+    for key, fwd in (("plain_ms", lambda x, w, bias, g: group_norm_ref(x, w, bias, g, 1e-6, True)),
+                     ("library_ms", lambda x, w, bias, g: F.relu(F.group_norm(lib_view(x), g, w, bias, 1e-6)))):
+        total = 0.0
+        for lo in range(0, len(calls), 12):
+            graphs = []
+            for x, dy, w, bias, g, _, _, _ in calls[lo:lo + 12]:
+                xr, wr, br = (t.detach().requires_grad_() for t in (x, w, bias))
+                y = fwd(xr, wr, br, g)
+                graphs.append((y, (xr, wr, br), dy.view(y.shape) if y.dim() == 3 else lib_view(dy)))
 
-        def bwd(graphs=graphs):
-            for y, ins, g in graphs:
-                torch.autograd.grad(y, ins, g, retain_graph=True)
+            def bwd(graphs=graphs):
+                for y, ins, grad in graphs:
+                    torch.autograd.grad(y, ins, grad, retain_graph=True)
 
-        out["groupnorm_bwd"][key] = device_ms(bwd)
-        del graphs
-        torch.cuda.empty_cache()
+            total += device_ms(bwd)
+            del graphs
+            torch.cuda.empty_cache()
+        out["groupnorm_bwd"][key] = total
     for k, (nbytes, flops) in gn_work(shapes).items():
         out[k]["bound_ms"], out[k]["bound_by"] = bound(nbytes, flops)
-        general = out[k + "_general"]
-        general.update(plain_ms=out[k]["plain_ms"], library_ms=out[k]["library_ms"],
+        if general:
+            was = out[k + "_general"]
+            was.update(plain_ms=out[k]["plain_ms"], library_ms=out[k]["library_ms"],
                        bound_ms=out[k]["bound_ms"], bound_by=out[k]["bound_by"])
-        out[k]["was_ms"] = general["ms"]
+            out[k]["was_ms"] = was["ms"]
     del calls
     torch.cuda.empty_cache()
     return out
 
 
+def check_synthetic_load(torch, dev):
+    """The compute-mode straggler's load (``ops/faultload.py``, the kernel
+    in ``csrc/faultload.cu``): the kernel against the plain chain on the
+    card at 0, 1, 3 and 300 iterations (atol 1e-6 and rtol 1e-5: the same
+    f32 products, their sums in another order), its result repeating bit
+    for bit; its calibrated cost an iteration; and, over a call of
+    ``SYNTH_ITERS`` iterations, its device time (the JSON line's numbers)
+    and the card's busy share, the profiler's kernel time over the
+    CUDA-event wall (at least 90%), beside the plain chain's (one launch
+    sequence an iteration from Python). Returns (max |error|, the
+    readings)."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.faultload import SyntheticLoad, synthetic_load
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.faultload import SIZE, synthetic_load_cuda
+
+    seed = torch.tensor(1.7, device=dev)
+    err = 0.0
+    for n in (0, 1, 3, 300):
+        got, want = synthetic_load_cuda(n, seed), synthetic_load(n, seed)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+        assert torch.equal(got, synthetic_load_cuda(n, seed)), f"synthetic load x{n}: bits differ on a rerun"
+        err = max(err, (got - want).abs().item())
+    log(f"  synthetic load kernel vs plain chain at 0, 1, 3, 300 iterations: |error| {err:.3g}")
+    us = SyntheticLoad().calibrate_iter_cost(dev) * 1e6
+    out = {"us_per_iter": us}
+    for name, fn in (("kernel", lambda: synthetic_load_cuda(SYNTH_ITERS, seed)),
+                     ("plain", lambda: synthetic_load(SYNTH_ITERS, seed))):
+        kernel, wall = device_ms(fn, reps=5), cuda_ms(fn, reps=5)
+        out[name] = {"ms": kernel, "wall_ms": wall, "busy": kernel / wall}
+        log(f"  synthetic load x{SYNTH_ITERS} ({name}): kernel {kernel:.3f} ms, event wall {wall:.3f} ms, "
+            f"busy {100 * kernel / wall:.1f}%")
+    log(f"  synthetic load: {us:.3f} us/iteration (calibrated, CUDA events)")
+    # an iteration: a SIZE^3 product (two operations a multiply-add), then
+    # tanh, scale and shift an element; the seed's fill and the final sum
+    # once. Bytes: the seed read and the scalar written.
+    flops = SYNTH_ITERS * (2 * SIZE**3 + 3 * SIZE**2) + 3 * SIZE**2
+    b_ms, b_by = bound(8, flops)
+    timing = {"ms": out["kernel"]["ms"], "wall_ms": out["kernel"]["wall_ms"],
+              "plain_ms": out["plain"]["ms"], "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": None}  # no one PyTorch call computes the chain
+    log(f"  synthetic load x{SYNTH_ITERS}: bound {b_ms:.4f} ms ({b_by})")
+    assert out["kernel"]["busy"] >= 0.9, f"the card is busy {out['kernel']['busy']:.2f} of the load's wall"
+    return err, {**out, "timing": timing}
+
+
 def time_xent(torch, dev):
-    """K2 f32 at one DenseNet worker step's logits, [128, 10], and at every
+    """K2 f32 at one DenseNet worker step's logits, [128, 10], a packed
+    step's, [512, 10], and at every
     row count of the language model's path over its 18,328-word vocabulary
     (forward and backward; the validation chunk forward only): the kernels
     beside their plain versions, ``F.cross_entropy(reduction="none")`` (the
@@ -398,7 +544,7 @@ def time_xent(torch, dev):
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import xent_bwd, xent_fwd
 
     out = {}
-    shapes = [(128, 10)] + [(r, XENT_LM_V) for r in XENT_PATH_ROWS + (XENT_VAL_ROWS,)]
+    shapes = [(128, 10), (512, 10)] + [(r, XENT_LM_V) for r in XENT_PATH_ROWS + (XENT_VAL_ROWS,)]
     for r, v in shapes:
         backward = r != XENT_VAL_ROWS  # validation runs no backward
         reps = 50 if backward else 5
@@ -599,7 +745,8 @@ def time_flash(torch, dev):
 
 def run_path(torch, argv, tag):
     """The port's cli on one recipe, launch counts zeroed just before and
-    read just after; returns (launch counts, series, cli wall)."""
+    read just after; returns (launch counts, series with their "_meta",
+    cli wall, peak device memory in bytes)."""
     from dynamic_load_balance_distributeddnn_tpu_torch import cli
     from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
@@ -609,51 +756,104 @@ def run_path(torch, argv, tag):
     full = argv + ["--log_dir", os.path.join(run_dir, "logs"),
                    "--stat_dir", os.path.join(run_dir, "statis")]
     log("  python -m dynamic_load_balance_distributeddnn_tpu_torch.cli " + " ".join(argv))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     runtime.reset_launches()
     t0 = time.perf_counter()
     assert cli.main(full) == 0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(runtime.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     cfg = config_from_args(full)
     with open(os.path.join(cfg.stat_dir, cfg.base_filename().format(0) + ".json")) as f:
         series = json.load(f)
-    log(f"  cli.main wall {wall:.1f}s (data, model build and validation included)")
-    return counts, series, wall
+    log(f"  cli.main wall {wall:.1f}s (data, model build and validation included), "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    return counts, series, wall, peak
 
 
-def check_series(series, rate: str):
-    """The 9 series, finite losses, share moved off the straggler."""
+def check_series(series, rate: str, epochs: int = EPOCHS, moved_off: int = 0):
+    """The 9 series, finite losses, and (``moved_off`` not None) share moved
+    off that worker."""
     from dynamic_load_balance_distributeddnn_tpu_torch.obs import SERIES
 
     for k in SERIES:
-        assert len(series[k]) == EPOCHS, (k, series[k])
+        assert len(series[k]) == epochs, (k, series[k])
     loss = series["train_loss"]
     assert all(math.isfinite(v) for v in loss), loss
     assert all(math.isfinite(v) for v in series["val_loss"]), series["val_loss"]
-    share0 = [p[0] for p in series["partition"]]
-    assert share0[-1] < 0.25, f"worker 0 share did not drop: {share0}"
+    if moved_off is not None:
+        share = [p[moved_off] for p in series["partition"]]
+        assert share[-1] < 0.25, f"worker {moved_off} share did not drop: {share}"
     walls = [series["wallclock_time"][0]] + [
         b - a for a, b in zip(series["wallclock_time"], series["wallclock_time"][1:])
     ]
-    for e in range(EPOCHS):
-        log(f"  epoch {e}: wall {walls[e]:.3f}s  {rate}/s {series['examples_per_s'][e]:.1f}  "
+    meta = series["_meta"]
+    for e in range(epochs):
+        log(f"  epoch {e} ({meta['paths'][e]}, node times {meta['node_time_source'][e]}): "
+            f"wall {walls[e]:.3f}s  {rate}/s {series['examples_per_s'][e]:.1f}  "
             f"train_loss {loss[e]:.4f}  val_loss {series['val_loss'][e]:.4f}  "
             f"accuracy {series['accuracy'][e]:.4f}  partition "
             f"{[round(p, 4) for p in series['partition'][e]]}  sync_time "
             f"{series['sync_time'][e]:.4f}s  probe_time {series['probe_time'][e]:.3f}s")
 
 
+def check_cnn_path(counts, series, what, path="packed", epochs=EPOCHS, moved_off=0):
+    """A vision path: the series (``check_series``), every epoch on
+    ``path``, K1 and K2 launched; logs the launches and returns ``_meta``."""
+    check_series(series, "examples", epochs, moved_off)
+    meta = series["_meta"]
+    assert meta["paths"] == [path] * epochs, meta["paths"]
+    for k in CNN_KERNELS:
+        assert counts[k] > 0, f"kernel {k} never launched on the {what} path"
+    log(f"  launches: {counts}")
+    return meta
+
+
+def log_probes(meta):
+    """The calibrated in-step load and epoch 1's probed seconds an example."""
+    per_ex = meta["probe_per_example_s"]["1"]
+    log(f"  calibrated in-step synthetic load {meta['iter_cost_s'] * 1e6:.3f} us/iteration; "
+        f"epoch 1 probed s/example {[f'{v:.3e}' for v in per_ex]}; realized profile "
+        f"{meta.get('realized_injection_profile')}")
+    return per_ex
+
+
 def check_main_path(counts, series):
-    check_series(series, "examples")
-    need = GN_PER_FORWARD * 2 * WORKERS * MIN_STEPS * EPOCHS
+    """[4]: the defaults take the packed path and adaptive probes: every
+    epoch packed, epochs 0-1 probed, epoch 2 on modeled node times with no
+    probe wall. K1 runs once a packed step (not once a worker step), plus
+    the probes; every DenseNet-121 call on the tiled route."""
+    meta = check_cnn_path(counts, series, "vision")
+    assert meta["node_time_source"] == ["probed", "probed", "modeled"], meta["node_time_source"]
+    assert series["probe_time"][2] == 0.0 and min(series["probe_time"][:2]) > 0
+    need = GN_PER_FORWARD * 2 * MIN_STEPS * EPOCHS
     gn = counts["groupnorm_fwd"] + counts["groupnorm_bwd"]
     assert gn >= need, f"GroupNorm launches {gn} < {need}"
-    for k in CNN_KERNELS:
-        assert counts[k] > 0, f"kernel {k} never launched on the vision path"
     for k in GN_GENERAL:  # every DenseNet-121 shape takes the tiled route
         assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the vision path, want 0"
-    log(f"  launches: {counts}")
+
+
+def check_compute_path(counts, series):
+    """[4b]: ``--packed off --fault_mode compute``: the elastic path, the
+    in-step iteration cost calibrated on epoch 0, the straggler's probed
+    time an example at least twice a clean worker's from epoch 1 (its
+    factor is 3), share moved off it."""
+    per_ex = log_probes(check_cnn_path(counts, series, "compute-mode", path="elastic"))
+    assert counts["synthetic_load"] > 0, "the synthetic-load kernel never launched on the compute path"
+    ratio = per_ex[0] / min(per_ex[1:])
+    log(f"  the straggler probed {ratio:.2f}x a clean worker an example")
+    assert ratio >= 2.0, f"the compute straggler probed {ratio:.2f}x a clean worker, want >= 2"
+
+
+def check_ft_path(counts, series):
+    """[4c]: ``-ft true -ftc 0.5 --fault_mode compute`` at seed 213: the
+    packed path; worker 0, hit from epoch 1, probes slower an example than
+    every clean worker there, and its share falls."""
+    per_ex = log_probes(check_cnn_path(counts, series, "-ft", moved_off=FT_WORKER))
+    assert counts["synthetic_load"] > 0, "the synthetic-load kernel never launched on the -ft path"
+    assert per_ex[FT_WORKER] > max(v for r, v in enumerate(per_ex) if r != FT_WORKER)
 
 
 def check_lm_path(counts, series):
@@ -668,34 +868,54 @@ def check_lm_path(counts, series):
     log(f"  launches: {counts}")
 
 
-def check_against_cpu(torch, dev):
-    """DenseNet-121 through the kernels on the card vs the plain versions on
-    the CPU, same seeded weights and 8 inputs: logits and the first conv's
-    loss gradient within atol 2e-3 (121 layers of differently ordered f32
-    sums; TF32 off)."""
+def check_against_cpu(torch, dev, name: str):
+    """``-m name`` (DenseNet-121, ResNet-18, RegNetY-400MF) through the
+    kernels on the card against the plain versions on the CPU, same seeded
+    weights and 8 inputs, for each seed of ``CARD_VS_CPU_SEEDS``: logits
+    within atol 2e-3 of the CPU's f32 run (up to 121 layers of differently
+    ordered f32 sums; TF32 off), and the first conv's loss gradient within
+    ``GRAD_ATOL_F64`` of the CPU's f64 run, the same rule for every model.
+    DenseNet-121's gradient is also held, as before, within 2e-3 of the
+    CPU's f32 run. Every seed is logged before any is asserted: the card's
+    distance from f64 beside the CPU's own f32 distance from it."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
     from dynamic_load_balance_distributeddnn_tpu_torch.models.common import init_flax_defaults
-    from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import DenseNet121
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import softmax_xent
 
-    cpu = DenseNet121()
-    init_flax_defaults(cpu, torch.Generator().manual_seed(0))
-    gpu = DenseNet121()
-    gpu.load_state_dict(cpu.state_dict())
-    gpu = gpu.to(dev, memory_format=torch.channels_last)
-    x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(1))
-    y = torch.randint(0, 10, (8,), generator=torch.Generator().manual_seed(2))
-    res = []
-    for model, d in ((cpu, "cpu"), (gpu, dev)):
-        logits = model(x.to(d))
-        softmax_xent(logits, y.to(d)).mean().backward()
-        res.append((logits.detach().cpu(), model.Conv_0.weight.grad.cpu()))
-    e_l = (res[1][0] - res[0][0]).abs().max().item()
-    e_g = (res[1][1] - res[0][1]).abs().max().item()
-    log(f"  DenseNet-121 card vs CPU: |logits| {e_l:.2e} (max |logit| "
-        f"{res[0][0].abs().max().item():.2f}), |dConv_0| {e_g:.2e}")
-    assert res[1][0].shape == (8, 10) and torch.isfinite(res[1][0]).all()
-    torch.testing.assert_close(res[1][0], res[0][0], atol=2e-3, rtol=0)
-    torch.testing.assert_close(res[1][1], res[0][1], atol=2e-3, rtol=0)
+    out = []
+    for seed in CARD_VS_CPU_SEEDS:
+        cpu = build_model(name).to(memory_format=torch.channels_last)
+        init_flax_defaults(cpu, torch.Generator().manual_seed(seed))
+        x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(1 + 10 * seed))
+        y = torch.randint(0, 10, (8,), generator=torch.Generator().manual_seed(2 + 10 * seed))
+        res = []
+        for model, d, dtype in ((cpu, "cpu", torch.float32), (build_model(name), dev, torch.float32),
+                                (build_model(name), "cpu", torch.float64)):
+            model.load_state_dict(cpu.state_dict())
+            model = model.to(d, dtype, memory_format=torch.channels_last)
+            logits = model(x.to(d, dtype))
+            softmax_xent(logits, y.to(d)).mean().backward()
+            res.append((logits.detach().cpu(), model.Conv_0.weight.grad.cpu()))
+        (l32, g32), (lc, gc), (_, g64) = res
+        row = {"seed": seed, "logits": (lc - l32).abs().max().item(),
+               "dconv0_vs_f64": (gc.double() - g64).abs().max().item(),
+               "dconv0_cpu_f32_vs_f64": (g32.double() - g64).abs().max().item(),
+               "dconv0_vs_cpu_f32": (gc - g32).abs().max().item(),
+               "finite": lc.shape == (8, 10) and bool(torch.isfinite(lc).all())}
+        log(f"  {name} seed {seed} card vs CPU: |logits| {row['logits']:.2e} (max |logit| "
+            f"{l32.abs().max().item():.2f}); |dConv_0| card vs f64 {row['dconv0_vs_f64']:.2e}, "
+            f"CPU f32 vs f64 {row['dconv0_cpu_f32_vs_f64']:.2e}, card vs CPU f32 "
+            f"{row['dconv0_vs_cpu_f32']:.2e} (max |dConv_0| {g64.abs().max().item():.2e})")
+        out.append(row)
+    for row in out:
+        assert row["finite"], f"{name} seed {row['seed']}: logits not finite or misshapen"
+        assert row["logits"] <= 2e-3, f"{name} seed {row['seed']}: |logits| {row['logits']:.3g} > 2e-3"
+        assert row["dconv0_vs_f64"] <= GRAD_ATOL_F64, \
+            f"{name} seed {row['seed']}: |dConv_0 - f64| {row['dconv0_vs_f64']:.3g} > {GRAD_ATOL_F64}"
+        if name == "densenet":  # the earlier slices' check, kept
+            assert row["dconv0_vs_cpu_f32"] <= 2e-3, \
+                f"densenet seed {row['seed']}: |dConv_0| {row['dconv0_vs_cpu_f32']:.3g} > 2e-3"
+    return out
 
 
 def check_lm_against_cpu(torch, dev):
@@ -744,10 +964,14 @@ def main() -> int:
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
 
     t_start = time.perf_counter()
+
+    def phase(title):  # each phase's header, with the script's clock
+        log(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
+
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda", 0)
 
-    log("[1] card")
+    phase("[1] card")
     smi = card()
     log(smi)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -757,7 +981,7 @@ def main() -> int:
     log(f"  torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
     log(f"  torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
 
-    log("[2] build")
+    phase("[2] build")
     t0 = time.perf_counter()
     runtime.build()
     log(f"  built {list(runtime.SOURCES)} in {time.perf_counter() - t0:.1f}s into {runtime.BUILD_DIR}")
@@ -766,13 +990,24 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3] kernels against their plain versions")
+    phase("[3] kernels against their plain versions")
     records = []
     err = check_groupnorm(torch, dev, records)
     err.update(check_xent(torch, dev, records))
     err.update(check_flash(torch, dev, records))
-    shapes = densenet121_gn_shapes(torch, dev, GN_LINE_BATCH)
-    gt = {b: time_groupnorm(torch, dev, b) for b in GN_BATCHES}
+    gn_routes = {}
+    for name in ("densenet",) + FAMILIES:
+        for b in (GN_LINE_BATCH, GN_PACKED_B):
+            calls, general = model_gn_shapes(torch, dev, name, b)
+            gn_routes[f"{name} b={b}"] = {"calls": len(calls), "general": general}
+            log(f"  K1 routes, {name} b={b}: {len(calls)} GroupNorm calls a forward, "
+                f"{general} of {2 * len(calls)} forward + backward launches on the general route")
+    shapes = model_gn_shapes(torch, dev, "densenet", GN_LINE_BATCH)[0]
+    gt = {b: time_groupnorm(torch, dev, [(b,) + sh[1:] for sh in shapes]) for b in GN_BATCHES}
+    # one packed step's pass at b = 512: DenseNet-121's and ResNet-101's
+    gp = {name: time_groupnorm(torch, dev, model_gn_shapes(torch, dev, name, GN_PACKED_B)[0],
+                               general=False)
+          for name in ("densenet", "resnet")}
     timing = dict(gt[GN_LINE_BATCH])
     xt = time_xent(torch, dev)
     at = time_flash(torch, dev)
@@ -796,20 +1031,47 @@ def main() -> int:
                 f"general route (was) {t['was_ms']:.3f} ms (event wall "
                 f"{row[k + '_general']['wall_ms']:.3f}), plain {t['plain_ms']:.3f} ms, "
                 f"library {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
+    for name, row in gp.items():
+        for k in ("groupnorm_fwd", "groupnorm_bwd"):
+            t = row[k]
+            log(f"  {k} ({name} packed pass, b={GN_PACKED_B}): kernel {t['ms']:.3f} ms "
+                f"(event wall {t['wall_ms']:.3f}; {100 * t['bound_ms'] / t['ms']:.0f}% of bound), "
+                f"plain {t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
+                f"bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
     torch.cuda.empty_cache()
 
-    log("[4] vision path")
-    counts_cnn, series_cnn, _ = run_path(torch, MAIN_ARGV, "run")
-    check_main_path(counts_cnn, series_cnn)
-    torch.cuda.empty_cache()
+    phase("[3b] synthetic load (compute-mode stragglers)")
+    err["synthetic_load"], load = check_synthetic_load(torch, dev)
+    timing["synthetic_load"] = load["timing"]
 
-    log("[5] language-model path")
-    counts_lm, series_lm, _ = run_path(torch, LM_ARGV, "run_lm")
-    check_lm_path(counts_lm, series_lm)
-    torch.cuda.empty_cache()
+    paths = {}  # tag: (launch counts, series, wall, peak bytes)
+    phase("[4] vision path: the defaults (packed epochs, adaptive probes)")
+    paths["vision"] = run_path(torch, MAIN_ARGV, "run")
+    check_main_path(*paths["vision"][:2])
 
-    log("[6] end-to-end numerics")
-    check_against_cpu(torch, dev)
+    phase("[4b] vision path, elastic, compute-mode straggler")
+    paths["vision_compute"] = run_path(torch, COMPUTE_ARGV, "run_compute")
+    check_compute_path(*paths["vision_compute"][:2])
+
+    phase(f"[4c] vision path, the reference's random faults (-ft), compute mode, seed {FT_SEED}")
+    paths["vision_ft"] = run_path(torch, FT_ARGV, "run_ft")
+    check_ft_path(*paths["vision_ft"][:2])
+
+    for name in FAMILIES:
+        phase(f"[4d] -m {name}")
+        paths[name] = run_path(torch, ["-m", name] + FAMILY_ARGV, f"run_{name}")
+        check_cnn_path(*paths[name][:2], name, epochs=FAMILY_EPOCHS, moved_off=None)
+
+    phase("[5] language-model path")
+    paths["lm"] = run_path(torch, LM_ARGV, "run_lm")
+    check_lm_path(*paths["lm"][:2])
+    torch.cuda.empty_cache()
+    for tag, (_, _, wall, peak) in paths.items():
+        log(f"  path {tag}: cli wall {wall:.1f}s, peak device memory {peak / 2**30:.2f} GiB")
+
+    phase("[6] end-to-end numerics")
+    card_vs_cpu = {name: check_against_cpu(torch, dev, name)
+                   for name in ("densenet", "resnet18", "regnet")}
     check_lm_against_cpu(torch, dev)
 
     sources = {
@@ -828,6 +1090,8 @@ def main() -> int:
         "attn_fwd_tiled": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:58", list(ATTN_LONG_SHAPE)),
         "attn_bwd_dkv": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:106", list(ATTN_LONG_SHAPE)),
         "attn_bwd_dq": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:153", list(ATTN_LONG_SHAPE)),
+        # not a Pallas kernel: the JAX package's chain is an XLA loop
+        "synthetic_load": ("csrc/faultload.cu", "ops/faultload.py:27", [SYNTH_ITERS, 256, 256]),
     }
     kernels = []
     for name, (src, tpu, shape) in sources.items():
@@ -837,8 +1101,8 @@ def main() -> int:
             "route": "cuda",
             "source": "dynamic_load_balance_distributeddnn_tpu_torch/" + src,
             "replaces": "dynamic_load_balance_distributeddnn_tpu/" + tpu,
-            # each path counted from zero; a kernel on both paths adds both
-            "launches": counts_cnn[name] + counts_lm[name],
+            # each path counted from zero; a kernel on several adds them
+            "launches": sum(counts[name] for counts, _, _, _ in paths.values()),
             "max_abs_err": err[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -849,11 +1113,16 @@ def main() -> int:
         })
     with open(os.path.join(OUT, "kernels.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "checks": records,
-                   "groupnorm_timing": gt,
+                   "groupnorm_timing": gt, "groupnorm_packed_timing": gp,
+                   "groupnorm_routes": gn_routes,
                    "xent_timing": {str(k): v for k, v in xt.items()},
                    "attn_timing": {str(k): v for k, v in at.items()},
-                   "launches": {"vision": counts_cnn, "lm": counts_lm},
-                   "groupnorm_shapes": shapes, "series": series_cnn, "series_lm": series_lm,
+                   "synthetic_load": load, "card_vs_cpu": card_vs_cpu,
+                   "launches": {tag: p[0] for tag, p in paths.items()},
+                   "walls": {tag: p[2] for tag, p in paths.items()},
+                   "peak_bytes": {tag: p[3] for tag, p in paths.items()},
+                   "series": {tag: p[1] for tag, p in paths.items()},
+                   "groupnorm_shapes": shapes,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,9 @@
 The port's modules carry flax's auto-names, so the bridge maps parameter
 *paths*, not positions:
 
-- ``.../Conv_k/kernel``  HWIO  -> ``...Conv_k.weight``  OIHW
+- ``.../Conv_k/kernel``  HWIO  -> ``...Conv_k.weight``  OIHW; the same
+  rule carries RegNet's ``.../GroupedConv_k/kernel`` ``(3, 3, in/g, out)``
+  to its ``nn.Conv2d(groups=g)``'s ``(out, in/g, 3, 3)``
 - ``.../Dense_k/kernel`` [in, out] -> ``...Dense_k.weight`` [out, in]
 - ``.../GroupNorm_k/scale``, ``.../LayerNorm_k/scale`` -> ``....weight``
   (``bias`` -> ``bias``)

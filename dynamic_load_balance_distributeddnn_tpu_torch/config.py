@@ -5,13 +5,10 @@ Same flags, short flags, defaults and coercers as the reference
 ``base_filename``), so a command line written for the JAX trainer parses
 here unchanged and artifacts land under the same config-encoded names.
 
-Two defaults differ, both because this port has no use for the other value:
-
-- ``probe_mode`` is ``"always"``: the adaptive probe schedule is not ported
-  yet, so ``adaptive`` is rejected.
-- ``use_pallas`` is ``True``: on the card the kernels always run; an
-  explicit ``--use_pallas false`` with a CUDA device is rejected by the
-  trainer, so the card never quietly runs the plain path.
+One default differs, because this port has no use for the other value:
+``use_pallas`` is ``True``: on the card the kernels always run; an explicit
+``--use_pallas false`` with a CUDA device is rejected by the trainer, so the
+card never quietly runs the plain path.
 
 A flag whose feature this port does not implement yet raises
 ``NotImplementedError`` naming the flag when it is set to a non-default
@@ -37,12 +34,6 @@ MODELS = [
     "transformer",
 ]
 DATASETS = ["cifar10", "cifar100", "mnist", "wikitext2"]
-
-# Models this port builds (models/__init__.py build_model).
-PORTED_MODELS = (
-    "mnistnet", "densenet", "densenet121", "densenet169", "densenet201",
-    "densenet161", "transformer",
-)
 
 
 def str2bool(v) -> bool:
@@ -107,7 +98,7 @@ class Config:
     snap_to_bucket: bool = True
     time_smoothing: float = 0.0
     probe_overhead_correction: bool = True
-    probe_mode: str = "always"         # JAX default is "adaptive" (not ported)
+    probe_mode: str = "adaptive"
     probe_every: int = 5
     probe_wall_tol: float = 0.25
     fault_mode: str = "virtual"
@@ -195,10 +186,6 @@ class Config:
     def _reject_unported(self) -> None:
         """Features of the JAX package that this port does not have yet:
         each raises, naming its flag, instead of being silently ignored."""
-        if self.model not in PORTED_MODELS:
-            raise NotImplementedError(
-                f"-m {self.model}: this port builds {list(PORTED_MODELS)} only"
-            )
         if self.dataset == "wikitext2" and self.model != "transformer":
             raise ValueError(
                 f"-m {self.model} -ds wikitext2: wikitext2 is the transformer's "
@@ -211,7 +198,6 @@ class Config:
                 "card; name a single device (e.g. 0,0,0,0)"
             )
         unported = {
-            "probe_mode": self.probe_mode == "adaptive",
             "fused_dbs": self.fused_dbs,
             "shard_update": self.shard_update,
             "grad_comm": self.grad_comm != "flat",
@@ -222,14 +208,11 @@ class Config:
             "coordinator": bool(self.coordinator),
             "trace": self.trace != "off",
             "seq_parallel": bool(self.seq_parallel),
-            "fault_mode": self.fault_mode != "virtual",
             "fault_schedule": self.fault_schedule != "none",
-            "fault_tolerance": self.fault_tolerance and not self.straggler,
             "precision": self.precision != "float32",
             "remat": self.remat,
             "ckpt_dir": bool(self.ckpt_dir),
             "profile_dir": bool(self.profile_dir),
-            "packed": self.packed == "on",
             "superstep": self.superstep == "on",
         }
         for flag, set_ in unported.items():

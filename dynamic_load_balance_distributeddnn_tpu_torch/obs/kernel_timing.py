@@ -103,14 +103,14 @@ def card() -> str:
 
 def gn_work(shapes, groups: int = 32, elem: int = 4) -> Dict[str, Tuple[int, int]]:
     """{kernel: (bytes, operations)} of K1 over a set of ``[b, s, c]`` calls
-    in ``groups`` groups, ``elem`` bytes an activation: the forward reads x,
-    scale and bias once and writes y, mean and rstd; the backward reads x,
-    dy, scale, bias, mean and rstd once and writes dx, dscale and dbias.
-    Operations: 6 an element forward (sum, square, normalise, affine, relu),
-    16 backward."""
-    n = sum(b * s * c for b, s, c in shapes)
-    params = sum(2 * c * 4 for _, _, c in shapes)
-    stats = sum(2 * b * groups * 4 for b, _, _ in shapes)
+    in ``groups`` groups (or ``[b, s, c, groups]`` calls, each with its
+    own), ``elem`` bytes an activation: the forward reads x, scale and bias
+    once and writes y, mean and rstd; the backward reads x, dy, scale, bias,
+    mean and rstd once and writes dx, dscale and dbias. Operations: 6 an
+    element forward (sum, square, normalise, affine, relu), 16 backward."""
+    n = sum(sh[0] * sh[1] * sh[2] for sh in shapes)
+    params = sum(2 * sh[2] * 4 for sh in shapes)
+    stats = sum(2 * sh[0] * (sh[3] if len(sh) > 3 else groups) * 4 for sh in shapes)
     return {
         "groupnorm_fwd": (2 * n * elem + params + stats, 6 * n),
         "groupnorm_bwd": (3 * n * elem + params + stats + params, 16 * n),

@@ -154,12 +154,14 @@ def group_norm_ref(
 ) -> torch.Tensor:
     """Plain PyTorch GroupNorm over the trailing channel axis of ``[B, S, C]``
     with the TPU kernel's arithmetic. Reference for the kernel, and the path
-    CPU tensors take."""
+    CPU tensors take. Computes in f32, or f64 for an f64 input (flax's
+    GroupNorm promotes to at least f32 the same way)."""
     b, s, c = x.shape
-    xf = x.float().reshape(b, s, groups, c // groups)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(dt).reshape(b, s, groups, c // groups)
     mean, rstd = _stats(xf, eps)
     xhat = ((xf - mean) * rstd).reshape(b, s, c)
-    y = xhat * weight.float() + bias.float()
+    y = xhat * weight.to(dt) + bias.to(dt)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)

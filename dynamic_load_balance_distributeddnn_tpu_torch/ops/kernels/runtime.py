@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("groupnorm", "xent", "flash_attention")
+SOURCES = ("groupnorm", "xent", "flash_attention", "faultload")
 
 LAUNCHES: Dict[str, int] = {
     "groupnorm_fwd": 0,
@@ -46,6 +46,7 @@ LAUNCHES: Dict[str, int] = {
     "attn_fwd_tiled": 0,  # the tiled kernels (T > 64)
     "attn_bwd_dkv": 0,
     "attn_bwd_dq": 0,
+    "synthetic_load": 0,  # the compute-mode straggler's chain
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

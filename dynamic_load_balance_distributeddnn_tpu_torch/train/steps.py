@@ -27,6 +27,17 @@ rescaled. That needs each worker's gradient apart from the others', so this
 path takes it with ``torch.autograd.grad`` and adds it into ``.grad``; with
 ``grad_clip == 0`` the step accumulates through ``backward()`` as before.
 
+``packed_step`` is the single-device packed path's step (the JAX
+``_train_epoch_fused(..., packed=True)``): the workers' true-width batches,
+concatenated into one batch with the same per-example weights, go through
+one forward and one backward, then the update. The sum over examples is the
+sum over workers, so it is the elastic step's math in one launch sequence.
+
+Compute-mode straggler injection (``--fault_mode compute``): after a
+worker's backward, ``load(slow_iters, wloss)`` runs that many synthetic-load
+iterations (``ops/faultload.py``) seeded off the worker's weighted loss, as
+the JAX ``local_grads`` does; the packed step runs the workers' sum.
+
 The probe twins time a worker's forward/backward (``probe_grads``: returns
 gradients, clipped as in training, without touching ``.grad``) and the
 combine + update (``combine_probe``: computes the updated parameters without
@@ -35,13 +46,14 @@ writing them), so probing never changes the training state.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import softmax_xent
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, y, w)
+Load = Callable[[int, torch.Tensor], torch.Tensor]  # (iterations, seed) -> scalar
 
 
 def weighted_loss(model: torch.nn.Module, x, y, w) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,13 +72,20 @@ def clip_worker_grads(grads: Sequence[torch.Tensor], w: torch.Tensor, grad_clip:
     return grads
 
 
-def worker_grads(model, params: List[torch.Tensor], batch: Batch, grad_clip: float):
-    """One worker's (clipped) weighted gradient and its loss sum; ``.grad``
-    untouched."""
+def _inject(load: Optional[Load], slow_iters: int, wloss: torch.Tensor) -> None:
+    if slow_iters > 0:
+        load(slow_iters, wloss.detach())
+
+
+def worker_grads(model, params: List[torch.Tensor], batch: Batch, grad_clip: float,
+                 load: Optional[Load] = None, slow_iters: int = 0):
+    """One worker's (clipped) weighted gradient and its loss sum, then its
+    injected load; ``.grad`` untouched."""
     wloss, loss_sum = weighted_loss(model, *batch)
     grads = list(torch.autograd.grad(wloss, params))
     if grad_clip > 0:
         clip_worker_grads(grads, batch[2], grad_clip)
+    _inject(load, slow_iters, wloss)
     return grads, loss_sum
 
 
@@ -75,18 +94,22 @@ def elastic_step(
     optimizer: torch.optim.Optimizer,
     batches: Sequence[Optional[Batch]],
     grad_clip: float = 0.0,
+    load: Optional[Load] = None,
+    slow_iters: Sequence[int] = (),
 ) -> Optional[torch.Tensor]:
     """One DBS step over every worker's batch (``None`` for a worker with no
-    real data this step). Returns the sum of the losses of the entries with
-    positive weight, or None if no worker had data."""
+    real data this step), worker r followed by ``slow_iters[r]`` iterations
+    of ``load``. Returns the sum of the losses of the entries with positive
+    weight, or None if no worker had data."""
     optimizer.zero_grad(set_to_none=True)
     params = [p for g in optimizer.param_groups for p in g["params"]]
     loss_sum, total = None, None
-    for b in batches:
+    for r, b in enumerate(batches):
         if b is None:
             continue
+        n_slow = int(slow_iters[r]) if len(slow_iters) else 0
         if grad_clip > 0:
-            grads, s = worker_grads(model, params, b, grad_clip)
+            grads, s = worker_grads(model, params, b, grad_clip, load, n_slow)
             if total is None:
                 total = grads
             else:
@@ -94,6 +117,7 @@ def elastic_step(
         else:
             wloss, s = weighted_loss(model, *b)
             wloss.backward()  # adds this worker's weighted gradient into .grad
+            _inject(load, n_slow, wloss)
         loss_sum = s if loss_sum is None else loss_sum + s
     if total is not None:
         for p, g in zip(params, total):
@@ -102,12 +126,32 @@ def elastic_step(
     return loss_sum
 
 
+def packed_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    batch: Batch,
+    load: Optional[Load] = None,
+    slow_iters: int = 0,
+) -> torch.Tensor:
+    """One DBS step over the workers' concatenated batch (per-example
+    weights as the elastic step's), then ``slow_iters`` iterations of
+    ``load`` (the workers' sum). Returns the sum of the losses of the
+    entries with positive weight."""
+    optimizer.zero_grad(set_to_none=True)
+    wloss, loss_sum = weighted_loss(model, *batch)
+    wloss.backward()
+    _inject(load, int(slow_iters), wloss)
+    optimizer.step()
+    return loss_sum
+
+
 def probe_grads(
-    model: torch.nn.Module, params: List[torch.Tensor], batch: Batch, grad_clip: float = 0.0
+    model: torch.nn.Module, params: List[torch.Tensor], batch: Batch, grad_clip: float = 0.0,
+    load: Optional[Load] = None, slow_iters: int = 0,
 ):
-    """One worker's forward/backward (and clip), gradients returned,
-    ``.grad`` untouched."""
-    return worker_grads(model, params, batch, grad_clip)[0]
+    """One worker's forward/backward (and clip) and its injected load,
+    gradients returned, ``.grad`` untouched."""
+    return worker_grads(model, params, batch, grad_clip, load, slow_iters)[0]
 
 
 @torch.no_grad()

@@ -3,6 +3,8 @@
 
     python3 scripts/gn_bench.py [--batches 32,128,160] [--rounds N] [--dtype f32|bf16] [--out DIR]
 
+(``--batches 512``: one packed step's pass, the packed path's batch.)
+
 Times the forward and backward kernels of ``csrc/groupnorm.cu`` over the 120
 GroupNorm calls of one DenseNet-121 forward (relu on, the shapes of
 ``models/densenet.py`` ``gn_shapes``) at each batch of the vision path's
@@ -214,6 +216,14 @@ def main(argv=None) -> int:
                 return [groupnorm.plan(b, s, c, GROUPS, dtype, backward) for s, c, *_ in calls]
 
         plans = {name: (launches(kw, False), launches(kw, True)) for name, kw in CANDIDATES}
+        for k, backward in (("fwd", False), ("bwd", True)):
+            per_stage = {}
+            for (s, *_), p in zip(calls, plans["plan"][backward]):
+                key = (s, p.route, p.cluster)
+                per_stage[key] = per_stage.get(key, 0) + 1
+            print(f"b = {b} {k}, plan's routes (S, route, cluster: calls): "
+                  + ", ".join(f"{s} {r} {cl}: {n}" for (s, r, cl), n in sorted(per_stage.items(), reverse=True)),
+                  flush=True)
 
         def runner(name, stage, backward):
             todo = [(call, p) for call, p in zip(calls, plans[name][backward]) if call[0] == stage]

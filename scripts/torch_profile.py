@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where one DBS epoch's time goes on an NVIDIA card.
 
-    python3 scripts/torch_profile.py [--recipe densenet|lm] [--epochs-warm 1] [--out DIR]
+    python3 scripts/torch_profile.py [--recipe densenet|lm] [--arms auto|packed,elastic,...]
+                                     [--epochs-warm 1] [--out DIR]
 
 Recipes:
 
@@ -13,10 +14,14 @@ Recipes:
   attention, the committed wikitext-2 files, 4 workers, 80 columns, bptt
   35, clipping at 0.25, 3:1 virtual straggler: 78 steps per epoch).
 
-It builds the trainer and runs warm-up epochs. Then it runs the training
-steps of one more epoch's plan three times, probes off:
-once to warm up that plan's batch shapes, once plain for its host wall, and
-once under ``torch.profiler`` for the device's kernel time. It prints:
+It builds the trainer and runs warm-up epochs. Then, for each arm of
+``--arms`` in turn (``packed``: one step over the workers' concatenated
+batches; ``elastic``: a step a worker; ``auto``, the default: the path the
+trainer picks), it runs the training steps of one more epoch's plan three
+times, probes off: once to warm up that plan's batch shapes, once plain for
+its host wall, and once under ``torch.profiler`` for the device's kernel
+time. Arms listed in turn (``packed,elastic,elastic,packed``) alternate on
+one card and one plan. It prints, for each arm:
 
 - the first pass's wall (new batch shapes pay cuDNN's and the driver's
   first-use costs) beside the steady one;
@@ -86,6 +91,7 @@ def family(name: str, families=FAMILIES) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--recipe", choices=sorted(RECIPES), default="densenet")
+    ap.add_argument("--arms", default="auto")
     ap.add_argument("--epochs-warm", type=int, default=1)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -121,18 +127,36 @@ def main(argv=None) -> int:
     epoch = args.epochs_warm
     plan, faults = tr._plan_epoch(epoch)
 
-    def train_steps():
-        tr._probe_this_epoch = False  # the training steps alone
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr._train_epoch_elastic(plan, faults, epoch)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
+    arms = [("packed" if tr._can_use_packed(plan) else "elastic") if arm == "auto" else arm
+            for arm in args.arms.split(",")]
+    results = []
+    for arm in arms:
+        train = {"packed": tr._train_epoch_packed, "elastic": tr._train_epoch_elastic}[arm]
 
-    wall_first = train_steps()  # first pass over this plan's batch shapes
-    wall = train_steps()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_profiled = train_steps()
+        def train_steps():
+            tr._probe_this_epoch = False  # the training steps alone
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(plan, faults, epoch)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        wall_first = train_steps()  # first pass over this plan's batch shapes
+        wall = train_steps()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_profiled = train_steps()
+        results.append(report(tr, cfg, plan, epoch, arm, families, prof,
+                              wall, wall_first, wall_profiled, args.recipe))
+    with open(os.path.join(args.out, "profile.json"), "w") as f:
+        json.dump({"card": smi, "recipe": args.recipe, "epoch": epoch,
+                   "batch_sizes": plan.batch_sizes.tolist(), "arms": results}, f, indent=1)
+    return 0
+
+
+def report(tr, cfg, plan, epoch, arm, families, prof, wall, wall_first, wall_profiled, recipe):
+    """Print one arm's wall, device kernel time, busy share, kernel families
+    and top kernels; return them."""
+    import torch
 
     kernels = {}
     for ev in prof.key_averages():
@@ -147,12 +171,12 @@ def main(argv=None) -> int:
         f = fams.setdefault(family(name, families), {"us": 0.0, "count": 0})
         f["us"] += k["us"]
         f["count"] += k["count"]
-    print(f"epoch {epoch} training steps ({plan.num_steps} steps x {cfg.world_size} workers, "
+    print(f"[{arm}] epoch {epoch} training steps ({plan.num_steps} steps x {cfg.world_size} workers, "
           f"batches {plan.batch_sizes.tolist()}): wall {wall:.3f}s (first pass over these "
           f"shapes {wall_first:.3f}s, profiled {wall_profiled:.3f}s), device kernel time "
           f"{dev_total_s:.3f}s, busy share "
           f"{dev_total_s / wall:.3f}, {tr.n_train / wall:.1f} "
-          f"{'tokens' if args.recipe == 'lm' else 'examples'}/s")
+          f"{'tokens' if recipe == 'lm' else 'examples'}/s", flush=True)
     for fam, f in sorted(fams.items(), key=lambda kv: -kv[1]["us"]):
         print(f"  {fam:24s} {f['us'] / 1e3:10.1f} ms  {100 * f['us'] / 1e6 / dev_total_s:5.1f}%  "
               f"{f['count']} launches")
@@ -160,13 +184,10 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:15]
     for name, k in top:
         print(f"  {k['us'] / 1e3:9.1f} ms  x{k['count']:6d}  {name[:110]}")
-    with open(os.path.join(args.out, "profile.json"), "w") as f:
-        json.dump({"card": smi, "recipe": args.recipe, "epoch": epoch, "batch_sizes": plan.batch_sizes.tolist(),
-                   "wall_s": wall, "wall_first_pass_s": wall_first,
-                   "wall_profiled_s": wall_profiled, "device_kernel_s": dev_total_s,
-                   "per_s": tr.n_train / wall,
-                   "families": fams, "kernels": kernels}, f, indent=1)
-    return 0
+    return {"arm": arm, "wall_s": wall, "wall_first_pass_s": wall_first,
+            "wall_profiled_s": wall_profiled, "device_kernel_s": dev_total_s,
+            "busy": dev_total_s / wall, "per_s": tr.n_train / wall,
+            "families": fams, "kernels": kernels}
 
 
 if __name__ == "__main__":

@@ -21,8 +21,10 @@ tolerances for its kernel, ``tests/test_pallas.py``).
 import pytest
 import torch
 
+from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
+from dynamic_load_balance_distributeddnn_tpu_torch.models.common import GroupNorm, init_flax_defaults
 from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import DenseNet
-from dynamic_load_balance_distributeddnn_tpu_torch.models.common import init_flax_defaults
+from dynamic_load_balance_distributeddnn_tpu_torch.ops.faultload import SyntheticLoad, synthetic_load
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
     SHORT_T,
@@ -58,6 +60,8 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import (
     xent_fwd,
     xent_fwd_ref,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.train.state import make_optimizer
+from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import elastic_step, packed_step
 
 
 @pytest.fixture
@@ -550,3 +554,141 @@ def test_flash_attention_routes_by_sequence_length(cuda, t):
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
     for got, want in zip(grads, torch.autograd.grad(ref, (qp, kp, vp), do)):
         torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 255, 256, 700])
+def test_synthetic_load_graph_replays_equal_the_plain_chain(cuda, n):
+    """The compute-mode straggler's load: ``SyntheticLoad`` on the card runs
+    the whole chain in one launch of the cooperative kernel
+    (``csrc/faultload.cu``), the same f32 products as the plain chain
+    (atol 1e-6, rtol 1e-5: the sums in another order), the same bits on a
+    rerun."""
+    load = SyntheticLoad()
+    seed = torch.tensor(2.5, device=cuda)
+    runtime.reset_launches()
+    got = load(n, seed)
+    assert runtime.LAUNCHES["synthetic_load"] == 1
+    torch.testing.assert_close(got, synthetic_load(n, seed), atol=1e-6, rtol=1e-5)
+    assert torch.equal(got, load(n, seed))
+    assert load.calibrate_iter_cost(cuda) > 0
+
+
+@pytest.mark.cuda
+def test_packed_step_on_the_card_equals_elastic_steps(cuda):
+    """K1 and K2 under one backward over the workers' concatenated batches
+    against per-worker backwards summed: parameters after 3 steps within
+    atol 1e-4 (the kernels' f32 sums in another order, and TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    models = []
+    for _ in range(2):
+        m = DenseNet((2, 2), growth_rate=8, image_size=16)
+        init_flax_defaults(m, torch.Generator().manual_seed(0))
+        models.append(m.to(cuda, memory_format=torch.channels_last))
+    opts = [make_optimizer(list(m.parameters()), 0.05, 0.9) for m in models]
+    g = torch.Generator().manual_seed(4)
+    sizes = (5, 11, 16, 8)
+    for _ in range(3):
+        batches = [(torch.randn(b, 16, 16, 3, generator=g).to(cuda),
+                    torch.randint(0, 10, (b,), generator=g).to(cuda),
+                    torch.full((b,), 1.0 / sum(sizes), device=cuda)) for b in sizes]
+        runtime.reset_launches()
+        elastic_step(models[0], opts[0], batches)
+        packed_step(models[1], opts[1], tuple(torch.cat(p) for p in zip(*batches)))
+        n_gn = sum(isinstance(m, GroupNorm) for m in models[0].modules())
+        assert runtime.LAUNCHES["groupnorm_fwd"] == 5 * n_gn  # 4 worker forwards + 1 packed
+        assert runtime.LAUNCHES["xent_fwd"] == 5
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+def _zoo_gn_calls(name):
+    """The distinct ``(S, C, groups, relu)`` of ``-m name``'s GroupNorm calls
+    on a 32x32 input, read off the model (CPU) with forward hooks."""
+    model = build_model(name).to(memory_format=torch.channels_last)
+    calls = set()
+
+    def hook(m, inp, out):
+        _, c, h, w = inp[0].shape
+        calls.add((h * w, c, m.num_groups, m.relu))
+
+    for m in model.modules():
+        if isinstance(m, GroupNorm):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros(1, 32, 32, 3))
+    return sorted(calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 1e-4, 0.0),
+    (torch.bfloat16, 2e-2, 1e-2),
+])
+@pytest.mark.parametrize("name", ["densenet", "resnet", "googlenet", "regnet"])
+def test_groupnorm_at_every_zoo_shape(cuda, name, dtype, atol, rtol):
+    """K1 at every distinct GroupNorm call of DenseNet-121, ResNet-101,
+    GoogLeNet and RegNetY-400MF (batch 3), on the route and cluster ``plan``
+    picks: y against ``group_norm_ref`` (atol/rtol as
+    ``test_groupnorm_kernels_match_plain``, bf16 2e-2: its inputs and outputs
+    rounded to 8 significant bits), the saved statistics against
+    ``group_norm_stats_ref`` (1e-5), the backward twice, bit for bit, against
+    ``group_norm_bwd_ref`` from the kernel's own statistics (dx 5e-4 in f32;
+    dscale/dbias also rtol 1e-4, sums over B*S terms)."""
+    gatol = 5e-4 if dtype == torch.float32 else atol
+    for n, (s, c, groups, relu) in enumerate(_zoo_gn_calls(name)):
+        shape = (3, s, c)
+        fwd, bwd = (plan(3, s, c, groups, dtype, back) for back in (False, True))
+        assert fwd.route == bwd.route == "tiled", (shape, groups)
+        x, w, b, dy = (t.to(cuda) for t in _gn_inputs(shape, 100 + n))
+        x, dy = x.to(dtype), dy.to(dtype)
+        y, mean, rstd = group_norm_fwd(x, w, b, groups, 1e-6, relu, launch=fwd)
+        got = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=bwd)
+        again = group_norm_bwd(x, dy, w, b, mean, rstd, groups, relu, launch=bwd)
+        assert all(torch.equal(u, v) for u, v in zip(got, again)), (shape, groups)
+        torch.testing.assert_close(y.float(), group_norm_ref(x.float(), w, b, groups, 1e-6, relu),
+                                   atol=atol, rtol=rtol)
+        for have, want in zip((mean, rstd), group_norm_stats_ref(x, groups, 1e-6)):
+            torch.testing.assert_close(have, want, atol=1e-5, rtol=1e-5)
+        dx, dw, db = got
+        px, pw, pb = group_norm_bwd_ref(x.float(), dy.float(), w, b, mean, rstd, groups, relu)
+        torch.testing.assert_close(dx.float(), px, atol=gatol, rtol=rtol)
+        torch.testing.assert_close(dw, pw, atol=gatol, rtol=max(rtol, 1e-4))
+        torch.testing.assert_close(db, pb, atol=gatol, rtol=max(rtol, 1e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resnet18", "resnet", "googlenet", "regnetx200mf", "regnety400mf"])
+def test_new_families_on_the_card_match_the_cpu(cuda, name):
+    """ResNet-18, ResNet-101, GoogLeNet and both RegNets through K1 and K2 on
+    the card against the plain versions on the CPU, same weights, 4 inputs:
+    logits within atol 2e-3 of the CPU's f32 run (tens of layers of
+    differently ordered f32 sums; TF32 off), and the first conv's loss
+    gradient within atol 5e-3 of the CPU's f64 run. The f64 run is the
+    reference because ResNet-101's and RegNetY-400MF's gradients are
+    ill-conditioned in f32: ``scripts/zoo_numerics.py`` (H100, weight seeds
+    0-2, batches 4 and 8) puts their f32 runs up to 4.0e-3 from f64: the
+    CPU's plain versions up to 4.02e-3, the card with the kernels up to
+    3.75e-3 (this test's case) and with the plain versions up to 3.77e-3;
+    the other three models' f32 runs lie within 8e-4."""
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = build_model(name).to(memory_format=torch.channels_last).eval()
+    init_flax_defaults(cpu, torch.Generator().manual_seed(0))
+    x = torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    y = torch.randint(0, 10, (4,), generator=torch.Generator().manual_seed(2))
+    out = []
+    for d, dtype in ((cuda, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        model = build_model(name)
+        model.load_state_dict(cpu.state_dict())
+        model = model.to(d, dtype, memory_format=torch.channels_last).eval()
+        runtime.reset_launches()
+        logits = model(x.to(d, dtype))
+        softmax_xent(logits, y.to(d)).mean().backward()
+        if d == cuda:
+            assert runtime.LAUNCHES["groupnorm_fwd"] > 0 and runtime.LAUNCHES["groupnorm_bwd"] > 0
+            assert runtime.LAUNCHES["groupnorm_fwd_general"] == 0
+            assert runtime.LAUNCHES["xent_fwd"] == runtime.LAUNCHES["xent_bwd"] == 1
+        out.append((logits.detach().cpu(), model.Conv_0.weight.grad.cpu()))
+    (got, grad), (want, _), (_, exact) = out
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+    torch.testing.assert_close(grad.double(), exact, atol=5e-3, rtol=0)

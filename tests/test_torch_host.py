@@ -22,7 +22,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.obs import SERIES
 from dynamic_load_balance_distributeddnn_tpu_torch.train.schedule import one_cycle_lr
 
 # defaults the port changes on purpose (config.py module docstring)
-CHANGED_DEFAULTS = {"probe_mode": "always", "use_pallas": True}
+CHANGED_DEFAULTS = {"use_pallas": True}
 
 
 def _options(parser):
@@ -61,20 +61,20 @@ BASE = dict(model="densenet", dataset="cifar10")
 
 
 @pytest.mark.parametrize("override", [
-    {"probe_mode": "adaptive"}, {"fused_dbs": True}, {"shard_update": True},
+    {"profile_dir": "prof"}, {"fused_dbs": True}, {"shard_update": True},
     {"grad_comm": "hier"}, {"compress_grads": "int8"},
     {"grad_accum": 2}, {"rebalance": "window"},
     {"elastic": "on"}, {"coordinator": "localhost:1"}, {"trace": "on"},
-    {"fault_mode": "compute"}, {"precision": "bfloat16"}, {"remat": True},
-    {"ckpt_dir": "ck"}, {"fault_tolerance": True},
-    {"model": "resnet"}, {"seq_parallel": "ring"},
+    {"fault_schedule": "sin"}, {"precision": "bfloat16"}, {"remat": True},
+    {"ckpt_dir": "ck"}, {"superstep": "on"},
+    {"trace": "ring"}, {"seq_parallel": "ring"},
     {"device": [0, 1], "world_size": 2},
 ])
 def test_unported_settings_raise_naming_the_flag(override):
     with pytest.raises(NotImplementedError) as e:
         Config(**dict(BASE, **override))
     name = next(iter(override))
-    flag = {"device": "-gpu", "model": "-m"}.get(name, f"--{name}")
+    flag = {"device": "-gpu"}.get(name, f"--{name}")
     assert flag in str(e.value)
 
 
