@@ -56,6 +56,18 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
 4d. ``-m resnet`` (ResNet-101), ``-m googlenet``, ``-m regnet``
    (RegNetY-400MF): 4 workers, B=512, 2,048 examples, 2 epochs each; K1 and
    K2 launched and the 9 series written.
+4e. Window-cadence rebalancing: ``--packed off --straggler 8,1,1,1
+   --fault_mode compute --fault_schedule sin --fault_period 1 --rebalance
+   window --superstep_window 2`` on 8,192 examples (16 steps an epoch in 8
+   windows), 3 epochs: at least one mid-epoch switch, at most 2 an epoch and
+   fewer than the evaluations; the regret budget held (spent <= budget_frac
+   * credit + cost_init); the run's decision journal (the controller
+   snapshot in the series' ``_meta``) replays bit for bit through
+   ``balance/replaylab.py`` with no invariant violated; K1 (tiled route
+   only) and K2 launched; K1 forward and backward against their plain
+   versions at every DenseNet-121 GroupNorm shape of each per-worker width
+   the switches produced. Each evaluation's wall, and the per-epoch walls
+   beside the same recipe at ``--rebalance epoch`` (for information).
 5. The language-model path: ``cli.main`` trains the Transformer LM (EMSIZE
    200, 2 heads, 2 layers) on the committed wikitext-2 files with 4 workers,
    80 columns, bptt 35, per-worker clipping at 0.25, flash attention and a
@@ -120,6 +132,17 @@ FT_ARGV = (
 FAMILIES = ("resnet", "googlenet", "regnet")
 FAMILY_EPOCHS = 2
 FAMILY_ARGV = "-ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 -e 2 --n_train 2048".split()
+# [4e]: window-cadence rebalancing on the elastic path, 16 steps an epoch in
+# 8 windows of 2, the 8:1 straggler of tests/test_online_dbs.py following a
+# sin of one epoch's period as real synthetic load; and the same recipe at
+# epoch cadence beside it
+WINDOW_ARGV = (
+    "-m densenet -ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 -e 3 --packed off "
+    "--straggler 8,1,1,1 --fault_mode compute --fault_schedule sin --fault_period 1 "
+    "--rebalance window --superstep_window 2 --n_train 8192"
+).split()
+WINDOW_EPOCHS = 3
+EPOCH_CADENCE_ARGV = [("epoch" if a == "window" else a) for a in WINDOW_ARGV]
 
 LM_ARGV = (
     "-m transformer -ds wikitext2 -d false -ws 4 -b 80 -gpu 0,0,0,0 --bptt 35 "
@@ -856,6 +879,79 @@ def check_ft_path(counts, series):
     assert per_ex[FT_WORKER] > max(v for r, v in enumerate(per_ex) if r != FT_WORKER)
 
 
+def check_window_path(torch, dev, counts, series, epoch_arm, err, records):
+    """[4e]: window-cadence rebalancing on the elastic path. The switches:
+    at least one, at most 2 an epoch, fewer than the evaluations; the
+    regret budget held; the decision journal (the controller snapshot in
+    ``_meta``) replayed bit for bit with no invariant violated; K1 on its
+    tiled route only. Then K1 forward and backward against their plain
+    versions at every distinct DenseNet-121 GroupNorm shape of each
+    per-worker width the switches produced (f32, the path's dtype; the
+    errors join K1's in the JSON line). Logs each evaluation's wall and the
+    per-epoch walls beside the epoch-cadence arm's."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.balance import replaylab
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import plan
+
+    meta = check_cnn_path(counts, series, "window-cadence", path="elastic",
+                          epochs=WINDOW_EPOCHS, moved_off=None)
+    for k in GN_GENERAL:
+        assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the window path, want 0"
+    assert counts["synthetic_load"] > 0, "the synthetic-load kernel never launched"
+    ctl = meta["rebalance_controller"]
+    events = meta.get("rebalance_events", [])
+    switches = series["plan_switches"]
+    log(f"  controller: {ctl['evals']} evaluations, switches an epoch {switches}, "
+        f"spent {ctl['spent_s']:.6f}s, credit {ctl['credit_s']:.6f}s, "
+        f"wall_scale {ctl['wall_scale']}, switch cost EMA {ctl['switch_cost_ema_s']}s")
+    for ev in events:
+        log(f"  switch: epoch {ev['epoch']} window {ev['window']} step {ev['step']} -> "
+            f"batches {ev['batches']}, predicted win {ev['predicted_win_s'] * 1e3:.3f} ms over "
+            f"{ev['remaining_steps']} steps, measured cost {ev['switch_cost_s'] * 1e3:.3f} ms")
+    for e in meta["rebalance_evals"]:
+        log(f"  evaluation epoch {e['epoch']} window {e['window']}: wall {e['wall_s'] * 1e3:.3f} ms "
+            f"(synchronize {e['sync_s'] * 1e3:.3f} ms){', switch' if e['switch'] else ''}")
+    n = sum(switches)
+    assert n >= 1, f"no mid-epoch switch in {ctl['evals']} evaluations"
+    assert max(switches) <= 2, f"thrash: switches an epoch {switches}"
+    assert n < ctl["evals"], f"{n} switches in {ctl['evals']} evaluations"
+    cfg = ctl["config"]
+    assert ctl["spent_s"] <= cfg["budget_frac"] * ctl["credit_s"] + cfg["cost_init"], \
+        f"budget: spent {ctl['spent_s']} > {cfg['budget_frac']} * credit {ctl['credit_s']} + {cfg['cost_init']}"
+    path = os.path.join(OUT, "run_window", "corpus.json")
+    with open(path, "w") as f:
+        json.dump({"label": "chip_smoke [4e]", "rebalance_controller": ctl}, f)
+    corpus = replaylab.load_corpus(path)
+    report = replaylab.replay(corpus)
+    assert report["parity"], f"the card run's journal did not replay: {report['mismatches'][:3]}"
+    assert report["invariant_violations"] == [], report["invariant_violations"][:3]
+    assert replaylab.check_invariants(corpus["config"], corpus["journal"]) == []
+    assert report["replayed"]["switches"] == n, (report["replayed"], n)
+    log(f"  journal: {len(corpus['journal'])} decisions replayed bit for bit, no invariant violated")
+    widths = sorted({b for ev in events for b in ev["batches"] if b > 0})
+    log(f"  per-worker widths the switches produced: {widths}")
+    gen = torch.Generator().manual_seed(4)
+    rand = lambda shp: torch.randn(shp, generator=gen).to(dev)  # noqa: E731
+    for b in widths:
+        shapes = sorted(set(model_gn_shapes(torch, dev, "densenet", b, with_relu=True)[0]))
+        for bb, s, c, g, relu in shapes:
+            launch = [plan(bb, s, c, g, torch.float32, back) for back in (False, True)]
+            assert launch[0].route == launch[1].route == "tiled", (bb, s, c)
+            e_y, e_x, e_p = gn_case(torch, rand, (bb, s, c), g, relu, torch.float32, launch,
+                                    f"tiled, width {b}", records)
+            err["groupnorm_fwd"] = max(err["groupnorm_fwd"], e_y)
+            err["groupnorm_bwd"] = max(err["groupnorm_bwd"], e_x, e_p)
+        log(f"  K1 at width {b}: {len(shapes)} distinct GroupNorm shapes within tolerance")
+        torch.cuda.empty_cache()
+    walls = {}
+    for tag, ser in (("window", series), ("epoch", epoch_arm)):
+        wc = ser["wallclock_time"]
+        walls[tag] = [wc[0]] + [b - a for a, b in zip(wc, wc[1:])]
+    for e in range(WINDOW_EPOCHS):
+        log(f"  epoch {e} wall: window cadence {walls['window'][e]:.3f}s, "
+            f"epoch cadence {walls['epoch'][e]:.3f}s (for information)")
+    return walls
+
+
 def check_lm_path(counts, series):
     check_series(series, "tokens")
     assert series["accuracy"] == [1.0 - v for v in series["val_loss"]], "accuracy != 1 - val_loss"
@@ -1062,6 +1158,14 @@ def main() -> int:
         paths[name] = run_path(torch, ["-m", name] + FAMILY_ARGV, f"run_{name}")
         check_cnn_path(*paths[name][:2], name, epochs=FAMILY_EPOCHS, moved_off=None)
 
+    phase("[4e] vision path, window-cadence rebalancing (compute-mode sin straggler)")
+    paths["vision_window"] = run_path(torch, WINDOW_ARGV, "run_window")
+    paths["vision_window_epoch"] = run_path(torch, EPOCH_CADENCE_ARGV, "run_window_epoch")
+    check_cnn_path(*paths["vision_window_epoch"][:2], "epoch-cadence", path="elastic",
+                   epochs=WINDOW_EPOCHS, moved_off=None)
+    window_walls = check_window_path(torch, dev, *paths["vision_window"][:2],
+                                     paths["vision_window_epoch"][1], err, records)
+
     phase("[5] language-model path")
     paths["lm"] = run_path(torch, LM_ARGV, "run_lm")
     check_lm_path(*paths["lm"][:2])
@@ -1122,7 +1226,7 @@ def main() -> int:
                    "walls": {tag: p[2] for tag, p in paths.items()},
                    "peak_bytes": {tag: p[3] for tag, p in paths.items()},
                    "series": {tag: p[1] for tag, p in paths.items()},
-                   "groupnorm_shapes": shapes,
+                   "groupnorm_shapes": shapes, "window_walls": window_walls,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,6 @@
-"""The DBS balancer: the inverse-time solver and per-worker time accounting."""
+"""The DBS balancer: the inverse-time solver, per-worker time accounting,
+and the window-cadence online controller (``balance/controller.py``) with
+its replay lab (``balance/replaylab.py``)."""
 
 from dynamic_load_balance_distributeddnn_tpu_torch.balance.solver import (
     initial_partition,
@@ -7,11 +9,13 @@ from dynamic_load_balance_distributeddnn_tpu_torch.balance.solver import (
     rebalance,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.balance.timing import (
+    HostOverheadMeter,
     TimeKeeper,
     exchange_times,
 )
 
 __all__ = [
+    "HostOverheadMeter",
     "TimeKeeper",
     "exchange_times",
     "initial_partition",

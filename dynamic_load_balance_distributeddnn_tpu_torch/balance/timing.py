@@ -4,9 +4,16 @@ The balancer must react to compute speed, not to communication: the
 per-worker compute seconds and the injected straggler seconds are kept here,
 and the combine+update time is measured separately by the engine and never
 enters the solver's vector (PARITY contract 4).
+
+:class:`HostOverheadMeter` keeps the host's own cost of driving an elastic
+epoch apart: the seconds spent in launch calls, which the window controller
+subtracts from a window's measured wall.
 """
 
 from __future__ import annotations
+
+import time
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -28,6 +35,54 @@ class TimeKeeper:
     def add_injected(self, worker: int, seconds: float) -> None:
         """Virtual straggler seconds, counted into the solver's vector."""
         self.injected_s[worker] += seconds
+
+
+class HostOverheadMeter:
+    """Per-epoch accounting of the host's cost of driving the card: the
+    seconds spent in launch calls (``dispatch()``).
+
+    ``dispatch()`` wraps the calls that launch a step's work and nothing
+    that synchronizes: on an asynchronous device the wall of a launch call
+    is host time, and the window controller subtracts it from the measured
+    window wall (which it reads after a synchronize) so that what is left
+    stays device time. The JAX package also counts its host-to-device
+    transfers here; this port's rows live on the card and are gathered
+    there by index, so nothing is transferred a step and ``put_s`` stays
+    0.0 (the recorder's ``host_put_s`` series keeps the JAX meaning)."""
+
+    put_s = 0.0
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.dispatch_s = 0.0
+        self.dispatches = 0
+        self._mark_dispatch_s = 0.0
+        self._mark_dispatches = 0
+
+    @contextmanager
+    def dispatch(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.dispatch_s += time.perf_counter() - t0
+            self.dispatches += 1
+
+    def mark_window(self) -> "tuple[float, float, int]":
+        """``(dispatch_s, put_s, dispatches)`` since the previous mark: the
+        host's share of the window controller's wall signal. The epoch
+        totals are untouched; a mark only moves the window baseline."""
+        d = self.dispatch_s - self._mark_dispatch_s
+        n = self.dispatches - self._mark_dispatches
+        self._mark_dispatch_s = self.dispatch_s
+        self._mark_dispatches = self.dispatches
+        return d, 0.0, n
+
+    def per_step(self, num_steps: int) -> float:
+        """Host overhead (dispatch + put walls) a plan step."""
+        return (self.dispatch_s + self.put_s) / max(int(num_steps), 1)
 
 
 def exchange_times(local_times: np.ndarray) -> np.ndarray:

@@ -14,8 +14,11 @@ A flag whose feature this port does not implement yet raises
 ``NotImplementedError`` naming the flag when it is set to a non-default
 value. Flags that tune only the JAX package's compile service, device cache
 or dispatch windows (``aot_*``, ``speculate_scan``, ``warm_start``,
-``device_cache*``, ``stream_chunk_steps``, ``superstep_window``) have no
-meaning for an eager PyTorch program; they are accepted and have no effect.
+``device_cache*``) have no meaning for an eager PyTorch program; they are
+accepted and have no effect. ``stream_chunk_steps`` and ``superstep_window``
+cut the elastic epoch into the JAX package's dispatch windows (with
+``--superstep off``, ``stream_chunk_steps`` alone), the boundaries at which
+``--rebalance window`` evaluates its controller.
 """
 
 from __future__ import annotations
@@ -181,7 +184,38 @@ class Config:
             raise ValueError("straggler factor list length must equal world_size")
         if self.bucket < 1:
             raise ValueError("bucket must be >= 1")
+        self._check_rebalance()
         self._reject_unported()
+
+    def _check_rebalance(self) -> None:
+        """The JAX package's checks of the window-cadence controller and the
+        time-varying straggler schedule."""
+        if self.rebalance not in ("epoch", "window"):
+            raise ValueError("rebalance must be 'epoch' or 'window'")
+        if self.rebalance_every < 1:
+            raise ValueError("rebalance_every must be >= 1")
+        if self.rebalance_hysteresis < 0 or self.rebalance_margin < 0:
+            raise ValueError("rebalance hysteresis/margin must be >= 0")
+        if self.rebalance_budget_frac <= 0:
+            raise ValueError("rebalance_budget_frac must be > 0")
+        if not 0.0 < self.rebalance_rate_alpha <= 1.0:
+            raise ValueError("rebalance_rate_alpha must be in (0, 1]")
+        if self.fault_schedule not in (
+            "none", "sin", "ramp", "spike", "diurnal", "brownout", "killstorm"
+        ):
+            raise ValueError(
+                "fault_schedule must be 'none', 'sin', 'ramp', 'spike', "
+                "'diurnal', 'brownout' or 'killstorm'"
+            )
+        if self.fault_period <= 0:
+            raise ValueError("fault_period must be > 0 epochs")
+        if self.fault_schedule != "none" and not self.straggler:
+            raise ValueError("fault_schedule needs --straggler factors to modulate")
+        if self.rebalance == "window" and not self.dynamic_batch_size:
+            raise ValueError(
+                "rebalance=window is a DBS control-loop cadence; it needs "
+                "dynamic_batch_size on"
+            )
 
     def _reject_unported(self) -> None:
         """Features of the JAX package that this port does not have yet:
@@ -197,18 +231,23 @@ class Config:
                 f"-gpu {self.device}: every worker of this port shares one "
                 "card; name a single device (e.g. 0,0,0,0)"
             )
+        if self.rebalance == "window" and self.model == "transformer":
+            raise NotImplementedError(
+                "--rebalance='window' with -m transformer is not implemented by "
+                "this port: a remainder plan re-slices examples, not a token "
+                "stream folded into bptt windows, and the JAX package's language "
+                "model fails at its first switch (ROADMAP.md lists what is left)"
+            )
         unported = {
             "fused_dbs": self.fused_dbs,
             "shard_update": self.shard_update,
             "grad_comm": self.grad_comm != "flat",
             "compress_grads": bool(self.compress_grads),
             "grad_accum": self.grad_accum != 1,
-            "rebalance": self.rebalance != "epoch",
             "elastic": self.elastic != "off",
             "coordinator": bool(self.coordinator),
             "trace": self.trace != "off",
             "seq_parallel": bool(self.seq_parallel),
-            "fault_schedule": self.fault_schedule != "none",
             "precision": self.precision != "float32",
             "remat": self.remat,
             "ckpt_dir": bool(self.ckpt_dir),

@@ -14,6 +14,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.data.partitioner import (
     EpochPlan,
     WorkerPlan,
     build_epoch_plan,
+    build_remainder_plan,
     partition_indices,
 )
 
@@ -25,6 +26,7 @@ __all__ = [
     "batchify",
     "bptt_windows",
     "build_epoch_plan",
+    "build_remainder_plan",
     "load_dataset",
     "partition_indices",
     "synthetic_dataset",

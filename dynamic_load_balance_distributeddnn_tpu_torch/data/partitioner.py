@@ -5,6 +5,8 @@ contiguous fractions of length ``int(share_r * n)`` per worker. Each epoch
 gets an :class:`EpochPlan`: per-worker batch sizes from the balancer, a
 per-epoch reshuffle within each worker's shard, and step counts with the
 equal-step invariant (``num_steps`` is the max over workers).
+:func:`build_remainder_plan` re-slices the unvisited rest of an epoch under
+new batch sizes, for a mid-epoch switch (``--rebalance window``).
 
 The JAX package pads each batch up to a bucket multiple for static shapes;
 ``padded_batch`` is kept so the plan (and any timing model reading it) is
@@ -88,6 +90,62 @@ class EpochPlan:
                 idx[full_rows, :rem] = flat[full_rows * b :]
                 mask[full_rows, :rem] = True
         return idx, mask
+
+
+def build_remainder_plan(
+    plan: EpochPlan,
+    s_done: int,
+    batch_sizes: Sequence[int],
+    bucket: int = 16,
+) -> EpochPlan:
+    """Re-partition the unvisited tail of an epoch under new batch sizes:
+    the window-cadence controller's switch.
+
+    Steps ``[0, s_done)`` of ``plan`` have run. The remaining pool, each
+    worker's unvisited indices concatenated in rank order (already shuffled
+    for the epoch, so no new shuffle and no random draws), is split
+    contiguously by the new shares with the reference's truncation. Step
+    ``s`` of the result is step ``s_done + s`` of the epoch, and the epoch's
+    step count does not change: examples a larger share cannot visit in the
+    remaining steps are dropped. Deterministic in (plan, s_done,
+    batch_sizes), so a switch and a fresh run on the remainder plan from the
+    same state run the same work."""
+    b_new = np.asarray(batch_sizes, dtype=np.int64)
+    if len(b_new) != len(plan.workers):
+        raise ValueError("batch_sizes length must equal the plan's world size")
+    if not 0 < s_done < plan.num_steps:
+        raise ValueError("s_done must be a strict mid-epoch step boundary")
+    rem = [
+        w.indices[min(s_done * max(w.batch_size, 1), len(w.indices)):]
+        for w in plan.workers
+    ]
+    pool = np.concatenate(rem) if rem else np.empty(0, dtype=np.int64)
+    shares = b_new.astype(np.float64) / max(b_new.sum(), 1)
+    num_steps = plan.num_steps - s_done
+    workers: List[WorkerPlan] = []
+    lo = 0
+    for rank, b in enumerate(b_new):
+        b = int(max(b, 1))
+        ln = min(int(shares[rank] * len(pool)), b * num_steps)
+        part = pool[lo : lo + ln].copy()
+        lo += ln
+        workers.append(
+            WorkerPlan(
+                rank=rank,
+                indices=part,
+                batch_size=b,
+                padded_batch=-(-b // bucket) * bucket,
+                steps=max(min(-(-len(part) // b), num_steps), 1),
+            )
+        )
+    return EpochPlan(
+        epoch=plan.epoch,
+        shares=shares,
+        batch_sizes=b_new,
+        workers=tuple(workers),
+        num_steps=num_steps,
+        global_batch=plan.global_batch,
+    )
 
 
 def build_epoch_plan(

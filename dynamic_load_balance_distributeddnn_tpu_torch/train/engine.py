@@ -12,6 +12,9 @@ reference's ``-gpu 0,0,0,0`` contention recipe).
         train one epoch                           _dispatch_epoch:
             packed: one step over the workers' concatenated batches
             elastic: per-worker steps, summed     _train_epoch_packed / _elastic
+                in windows; --rebalance window    _run_elastic_windows
+                may switch the rest of the epoch  _maybe_window_rebalance
+                onto a new plan
         time each worker's step (probe)           _probe_workers
         validate                                  validate
         node_times <- compute * multipliers + injected   _record_epoch
@@ -45,6 +48,22 @@ engine calibrates the cost an iteration inside a real step, by a paired
 measurement (an injected probe's raw wall minus a clean one's), on the
 first injection-free probed epoch (``_calibrate_iter_cost``).
 
+Window-cadence rebalancing (``--rebalance window``, the JAX package's
+``_run_elastic_windows``): the elastic epoch runs in the JAX package's
+dispatch windows (``_elastic_ranges``). After every ``rebalance_every``
+windows the online controller (``balance/controller.py``) folds the probe
+anchors, the schedule's factors for the next window
+(``ScheduledStragglerInjector.faults_at``) and the measured wall of the
+windows since its last evaluation (read after a device synchronize, less
+the host's launch time, ``HostOverheadMeter``), and may switch the rest of
+the epoch onto a new plan (``build_remainder_plan``) appended to the
+segment table ``seg_plans``. Under compute-mode injection each window
+re-stages the synthetic-load iterations at the schedule's value in
+mid-window. Augmentation draws are seeded per window start, so a window's
+draws depend on (seed, epoch, step) alone and a switch replays as a fresh
+run on the remainder plan (``_replay_window_segment``). Packed epochs have no
+window boundary: there the flag warns once and the run keeps epoch cadence.
+
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
 ``_setup_model``, ``_build_plan``, ``_worker_epoch`` and ``validate``.
@@ -59,6 +78,7 @@ import numpy as np
 import torch
 
 from dynamic_load_balance_distributeddnn_tpu_torch.balance import (
+    HostOverheadMeter,
     TimeKeeper,
     exchange_times,
     initial_partition,
@@ -66,10 +86,15 @@ from dynamic_load_balance_distributeddnn_tpu_torch.balance import (
     quantize_batches,
     rebalance,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.balance.controller import (
+    OnlineRebalanceController,
+    step_time,
+)
 from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
 from dynamic_load_balance_distributeddnn_tpu_torch.data import (
     DatasetBundle,
     build_epoch_plan,
+    build_remainder_plan,
     load_dataset,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.faults import (
@@ -78,6 +103,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.faults import (
     FaultInjector,
     LuckyFaultInjector,
     NullInjector,
+    ScheduledStragglerInjector,
     StaticStragglerInjector,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
@@ -193,6 +219,17 @@ class Trainer:
         self._probe_episode: Optional[tuple] = None
         self._probe_wall_ref: Optional[float] = None
         self._slow_streak = 0
+        # window cadence (--rebalance window): the host's launch walls, the
+        # controller (built on the first elastic epoch), its executed
+        # switches, the recorder's per-epoch switch baseline, and the
+        # multiplier-free compute vector its rates fall back on
+        self._host_meter = HostOverheadMeter()
+        self._rebalance_ctl: Optional[OnlineRebalanceController] = None
+        self._rebalance_events: List[Dict] = []
+        self._switches_last = 0
+        self._window_rebalance_logged = False
+        self._clean_compute_s: Optional[np.ndarray] = None
+        self._clean_examples: Optional[np.ndarray] = None
         self._can_use_packed(None)  # --packed on fails here where it cannot engage
 
     # -------------------------------------------------------------- set-up
@@ -240,9 +277,18 @@ class Trainer:
                 m.generator = self.dropout_gen
 
     def _make_injector(self) -> FaultInjector:
-        """The JAX package's order: a straggler profile, else the
-        reference's random faults (``-ft``), else none."""
+        """The JAX package's order: a straggler profile following a schedule
+        (``--fault_schedule``), else a static one, else the reference's
+        random faults (``-ft``), else none."""
         cfg = self.cfg
+        if cfg.straggler and cfg.fault_schedule != "none":
+            return ScheduledStragglerInjector(
+                cfg.straggler_factors(),
+                mode=cfg.fault_mode,
+                schedule=cfg.fault_schedule,
+                period=cfg.fault_period,
+                seed=cfg.seed,
+            )
         if cfg.straggler:
             return StaticStragglerInjector(cfg.straggler_factors(), mode=cfg.fault_mode)
         if cfg.fault_tolerance:
@@ -523,6 +569,13 @@ class Trainer:
     def _dispatch_epoch(self, plan, faults: EpochFaults, epoch: int) -> Dict[str, float]:
         """Path selection and the epoch's training (probes included)."""
         packed = self._can_use_packed(plan)
+        if packed and self.cfg.rebalance == "window" and not self._window_rebalance_logged:
+            self._window_rebalance_logged = True
+            self.logger.warning(
+                "rebalance=window needs the elastic path but this run selected "
+                "packed epochs — running at epoch cadence (pass --packed off to "
+                "force the elastic path)"
+            )
         self.recorder.meta.setdefault("paths", []).append("packed" if packed else "elastic")
         if packed:
             return self._train_epoch_packed(plan, faults, epoch)
@@ -570,32 +623,281 @@ class Trainer:
             return augment_images(x_u8, mean, std, generator=self.aug_gen)
         return normalize_images(x_u8, mean, std)
 
+    def _elastic_ranges(self, num_steps: int):
+        """The elastic epoch's windows, the ones the JAX package cuts on one
+        device: ``stream_chunk_steps``-sized chunks (0: one), each cut at
+        ``superstep_window`` steps by its superstep mode (every worker on
+        one chip, ``--superstep`` not ``off``)."""
+        chunk = self.cfg.stream_chunk_steps
+        if chunk <= 0 or num_steps <= chunk:
+            ranges = [(0, num_steps)]
+        else:
+            ranges = [(s, min(s + chunk, num_steps)) for s in range(0, num_steps, chunk)]
+        if self.cfg.superstep == "off":
+            return ranges
+        win = max(int(self.cfg.superstep_window), 1)
+        return [(s, min(s + win, s1)) for s0, s1 in ranges for s in range(s0, s1, win)]
+
+    @staticmethod
+    def _seg_for_step(seg_plans, s: int):
+        """``(plan, start)`` of the segment holding epoch step ``s``:
+        segments are ``(start, plan)`` in increasing order, and the plan's
+        own step index is ``s - start``."""
+        pl, off = seg_plans[0][1], seg_plans[0][0]
+        for start, p in seg_plans:
+            if s >= start:
+                pl, off = p, start
+        return pl, off
+
+    def _aug_seed(self, epoch: int, step: int) -> int:
+        """The augmentation seed of the window starting at epoch step
+        ``step``: the epoch's seed (the packed path's) for the first."""
+        return self.cfg.seed * 7919 + epoch + 104729 * step
+
     def _train_epoch_elastic(self, plan, faults: EpochFaults, epoch: int) -> Dict[str, float]:
-        cfg = self.cfg
         self.timekeeper.reset()
         self.model.train()
-        if self.augment:
-            self.aug_gen.manual_seed(cfg.seed * 7919 + epoch)
-        suppliers = [self._worker_epoch(plan, r) for r in range(self.world_size)]
-        slow = faults.slow_iters_per_step.tolist()
-        loss_sum = torch.zeros((), device=self.device)
-        count = 0
-        first = None
-        for s in range(plan.num_steps):
-            batches = []
-            for supply in suppliers:
-                b, n = supply(s)
-                batches.append(b)
-                count += n
-            if first is None:
-                first = batches  # the probes reuse the epoch's first batches
-            step_loss = elastic_step(
-                self.model, self.optimizer, batches, self.grad_clip, self.load, slow
-            )
-            if step_loss is not None:
-                loss_sum += step_loss
+        meter = self._host_meter
+        meter.reset()
+        acc = {"loss": torch.zeros((), device=self.device), "count": 0}
+        # the whole epoch under the boundary plan, until the controller
+        # appends a remainder segment at a switch
+        seg_plans = [(0, plan)]
+        first = self._run_elastic_windows(
+            plan, seg_plans, self._elastic_ranges(plan.num_steps), faults, epoch, acc,
+            controller=self._window_controller(),
+        )
         self._sync()
-        return self._finish_epoch(plan, faults, epoch, loss_sum, count, lambda: first)
+        out = self._finish_epoch(plan, faults, epoch, acc["loss"], acc["count"], lambda: first)
+        out["host_dispatch_s"] = meter.dispatch_s
+        out["host_put_s"] = meter.put_s
+        out["host_overhead_per_step_s"] = meter.per_step(plan.num_steps)
+        return out
+
+    def _run_elastic_windows(self, plan, seg_plans, ranges, faults: EpochFaults, epoch: int,
+                             acc, controller=None):
+        """The elastic window loop: each window's plan comes from
+        ``seg_plans`` (a switch appends to it), each step is one
+        ``elastic_step`` over the workers' batches, its launch calls timed
+        by the host meter; the controller runs after every
+        ``rebalance_every`` windows. Adds each step's loss sum and real-row
+        count into ``acc``; returns the first step's batches (the probes
+        reuse them). Shared by the epoch and the switch-parity replay."""
+        cfg = self.cfg
+        meter = self._host_meter
+        slow = [int(v) for v in faults.slow_iters_per_step]
+        time_varying = (
+            getattr(self.injector, "faults_at", None) is not None and self._needs_iter_cost
+        )
+        suppliers: Dict[int, list] = {}  # segment start -> the workers' batch suppliers
+        eval_state = {"t": time.perf_counter(), "step": 0}
+        first = None
+        for i, (w0, w1) in enumerate(ranges):
+            pl, off = self._seg_for_step(seg_plans, w0)
+            if off not in suppliers:
+                suppliers[off] = [self._worker_epoch(pl, r) for r in range(self.world_size)]
+            if time_varying:
+                # the injected load follows the schedule at window
+                # granularity: its value in mid-window, at this segment's split
+                t_mid = float(epoch) + (w0 + w1) / (2.0 * max(plan.num_steps, 1))
+                wf = self._window_faults_at(t_mid, pl)
+                if wf is not None:
+                    slow = [int(v) for v in wf.slow_iters_per_step]
+            if self.augment:
+                self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
+            for s in range(w0, w1):
+                with meter.dispatch():
+                    batches = []
+                    for supply in suppliers[off]:
+                        b, n = supply(s - off)
+                        batches.append(b)
+                        acc["count"] += n
+                    step_loss = elastic_step(
+                        self.model, self.optimizer, batches, self.grad_clip, self.load, slow
+                    )
+                    if step_loss is not None:
+                        acc["loss"] += step_loss
+                if first is None:
+                    first = batches
+            if controller is not None and (i + 1) % cfg.rebalance_every == 0:
+                self._maybe_window_rebalance(
+                    controller, plan, seg_plans, ranges, i, epoch, eval_state, suppliers
+                )
+        return first
+
+    def _replay_window_segment(self, base_plan, rplan, s_offset: int, epoch: int,
+                               faults: EpochFaults, acc=None):
+        """Run only the remainder segment ``rplan`` of an epoch, from step
+        ``s_offset`` of ``base_plan``, from the current state: the fresh-run
+        leg of the switch-parity contract, through the same window loop,
+        windows and per-window seeds as a switch inside the epoch. Adds into
+        ``acc`` when given (a prefix's, so the epoch's loss sums in one
+        order); returns the (loss sum, real-row count)."""
+        ranges = [w for w in self._elastic_ranges(base_plan.num_steps) if w[0] >= s_offset]
+        if acc is None:
+            acc = {"loss": torch.zeros((), device=self.device), "count": 0}
+        self.model.train()
+        self._run_elastic_windows(base_plan, [(s_offset, rplan)], ranges, faults, epoch, acc)
+        self._sync()
+        return float(acc["loss"]), acc["count"]
+
+    # ------------------------------------------------- window-cadence control
+
+    def _modeled_comm_step_s(self) -> float:
+        """The modeled wall of one gradient combine, which the JAX package
+        derives from a hierarchical collective's measured link rates. This
+        port runs one process with a flat combine on one card, so it is 0.0:
+        the compute-only model (ROADMAP: multiple ranks)."""
+        return 0.0
+
+    def _window_controller(self) -> Optional[OnlineRebalanceController]:
+        """The online controller under ``--rebalance window`` (built once;
+        its rate track and ledgers persist across epochs), else None."""
+        cfg = self.cfg
+        if cfg.rebalance != "window" or not cfg.dynamic_batch_size:
+            return None
+        if self._rebalance_ctl is None:
+            self._rebalance_ctl = OnlineRebalanceController(
+                self.world_size,
+                cfg.batch_size,
+                [list(range(self.world_size))],  # every worker shares one card
+                bucket=cfg.bucket if (cfg.snap_to_bucket and self.SNAP_BATCHES) else 0,
+                max_share=min(1.0, cfg.capacity_factor / self.world_size),
+                hysteresis=cfg.rebalance_hysteresis,
+                margin=cfg.rebalance_margin,
+                budget_frac=cfg.rebalance_budget_frac,
+                rate_alpha=cfg.rebalance_rate_alpha,
+                logger=self.logger,
+            )
+        self._rebalance_ctl.comm_step_s = self._modeled_comm_step_s()
+        return self._rebalance_ctl
+
+    def _window_rates(self) -> Optional[np.ndarray]:
+        """Injection-free seconds an example per worker for the controller:
+        the probe anchors where they exist, else the last epoch's
+        multiplier-free compute over the example counts of the plan it was
+        measured under. None before any signal exists (epoch 0): the caller
+        then evaluates on unit rates and folds nothing into the EMA."""
+        c = self.per_example_cost.copy()
+        if np.isfinite(c).all() and (c > 0).all():
+            return np.maximum(c, 1e-12)
+        clean, examples = self._clean_compute_s, self._clean_examples
+        if (
+            clean is not None
+            and examples is not None
+            and len(clean) == self.world_size
+            and len(examples) == self.world_size
+            and (clean > 0).all()
+        ):
+            return np.maximum(clean / np.maximum(examples, 1.0), 1e-12)
+        return None
+
+    def _window_ctx(self, pl) -> FaultContext:
+        """The fault context at the current segment's batch sizes (after a
+        switch the injected load follows the new split)."""
+        return FaultContext(
+            batch_sizes=pl.batch_sizes.astype(np.float64),
+            iter_cost_s=self._iter_cost_s if self._needs_iter_cost else None,
+            per_example_cost_s=(
+                self.per_example_cost if np.isfinite(self.per_example_cost).all() else None
+            ),
+        )
+
+    def _window_faults_at(self, t: float, pl) -> Optional[EpochFaults]:
+        """The injector's faults at epoch-time ``t``; None for an injector
+        with no time-varying view."""
+        fa = getattr(self.injector, "faults_at", None)
+        if fa is None:
+            return None
+        return fa(t, self._window_ctx(pl))
+
+    def _effective_rates(self, rates: np.ndarray, wf: Optional[EpochFaults],
+                         batches: np.ndarray) -> np.ndarray:
+        """The base rates under the window's faults: virtual multipliers
+        scale them, compute-mode iterations add their cost an example at
+        the current split."""
+        eff = np.asarray(rates, dtype=np.float64).copy()
+        if wf is None:
+            return eff
+        eff = eff * np.asarray(wf.time_multipliers, dtype=np.float64)
+        if self._needs_iter_cost and self._iter_cost_s:
+            extra = self._iter_cost_s * np.asarray(wf.slow_iters_per_step, dtype=np.float64)
+            eff = eff + extra / np.maximum(np.asarray(batches, dtype=np.float64), 1.0)
+        return eff
+
+    def _maybe_window_rebalance(self, ctl, plan, seg_plans, ranges, i: int, epoch: int,
+                                eval_state, suppliers) -> None:
+        """One controller evaluation at the boundary after window ``i``:
+        fold the signal, propose, and on a switch re-slice the windows from
+        ``i + 2`` on under the new plan. The JAX package's double-buffered
+        transfer pipeline has already staged window ``i + 1`` when its
+        controller runs (``next_unlaunched``); this loop is synchronous but
+        keeps that horizon, so its switches land on the same steps. The
+        measured switch cost covers the whole span from the evaluation's
+        start to the applied switch (the synchronize, the signal, the solve,
+        the re-slice and the new segment's rows), the host price a switch
+        pays."""
+        j = i + 2
+        if j >= len(ranges):
+            return  # no window left to act on
+        s_switch = ranges[j][0]
+        remaining = plan.num_steps - s_switch
+        if remaining <= 0:
+            return
+        t_eval0 = time.perf_counter()
+        sync_s = 0.0
+        cur_pl, cur_off = self._seg_for_step(seg_plans, s_switch)
+        cur_batches = np.asarray(cur_pl.batch_sizes, dtype=np.int64)
+        base = self._window_rates()
+        if base is not None:
+            ctl.observe_rates(base)
+        t_next = float(epoch) + (ranges[j][0] + ranges[j][1]) / (2.0 * max(plan.num_steps, 1))
+        wf = self._window_faults_at(t_next, cur_pl)
+        rates = ctl.rates if ctl.rates is not None else np.ones(self.world_size)
+        eff = self._effective_rates(rates, wf, cur_batches)
+        if self.timing_model is None:
+            # wall feedback: the card's wall of the steps since the last
+            # evaluation, read after a synchronize (the launches are
+            # asynchronous), less the host's launch time over them, against
+            # the prediction stored at that evaluation for the same steps
+            t_sync = time.perf_counter()
+            self._sync()
+            now = time.perf_counter()
+            sync_s = now - t_sync
+            host_s, _, _ = self._host_meter.mark_window()
+            done = ranges[i][1] - eval_state["step"]
+            if eval_state["step"] > 0 and done > 0 and eval_state.get("pred_step"):
+                ctl.observe_wall(
+                    max(now - eval_state["t"] - host_s, 1e-9), eval_state["pred_step"] * done
+                )
+            eval_state["t"] = now
+            eval_state["step"] = ranges[i][1]
+        ctl.eval_context = {"epoch": int(epoch), "window": int(j)}
+        dec = ctl.propose(eff, cur_batches, remaining)
+        if dec.switch:
+            rplan = build_remainder_plan(
+                cur_pl, s_switch - cur_off, dec.candidate_batches, bucket=self.cfg.bucket
+            )
+            seg_plans.append((s_switch, rplan))
+            suppliers[s_switch] = [self._worker_epoch(rplan, r) for r in range(self.world_size)]
+            self.shares = np.asarray(dec.candidate_shares, dtype=np.float64)
+            ev = ctl.commit(
+                dec, time.perf_counter() - t_eval0,
+                epoch=int(epoch), window=int(j), step=int(s_switch),
+            )
+            self._rebalance_events.append(ev)
+            self.recorder.meta["rebalance_events"] = self._rebalance_events
+        if self.timing_model is None:
+            # the prediction for the stretch about to run, under the plan
+            # that governs it: the next evaluation's feedback reference
+            nxt_pl, _ = self._seg_for_step(seg_plans, ranges[j][0])
+            eval_state["pred_step"] = step_time(
+                eff, np.asarray(nxt_pl.batch_sizes, dtype=np.float64), ctl.groups
+            )
+        self.recorder.meta.setdefault("rebalance_evals", []).append({
+            "epoch": int(epoch), "window": int(j), "switch": bool(dec.switch),
+            "wall_s": time.perf_counter() - t_eval0, "sync_s": sync_s,
+        })
 
     def _train_epoch_packed(self, plan, faults: EpochFaults, epoch: int) -> Dict[str, float]:
         """One step a plan step over the workers' concatenated real rows
@@ -798,6 +1100,12 @@ class Trainer:
             # probes skipped: the solver runs on modeled per-worker times
             self._model_compute_times(plan, faults)
         self._update_probe_schedule(epoch, plan, faults, epoch_wall)
+        # the multiplier-free compute vector, with the example counts of the
+        # plan it was measured under: the window controller's fallback rates
+        self._clean_compute_s = self.timekeeper.compute_s.copy()
+        self._clean_examples = np.array(
+            [max(w.batch_size, 1) * max(w.steps, 1) for w in plan.workers], dtype=np.float64
+        )
         self.recorder.meta.setdefault("node_time_source", []).append(
             "timing_model" if self.timing_model is not None
             else "probed" if probe_s > 0
@@ -826,6 +1134,16 @@ class Trainer:
                 self.recorder.meta["realized_injection_profile"] = prof
         if epoch_wall > 0:
             extras["examples_per_s"] = self.n_train / epoch_wall
+        ctl = self._rebalance_ctl
+        if ctl is not None:
+            # mid-epoch switches this epoch, and the controller's ledgers
+            # with its decision journal (a replay corpus, balance/replaylab.py)
+            extras["plan_switches"] = float(ctl.switches - self._switches_last)
+            self._switches_last = ctl.switches
+            self.recorder.meta["rebalance_controller"] = ctl.snapshot(include_journal=True)
+        for k in ("host_dispatch_s", "host_put_s", "host_overhead_per_step_s"):
+            if k in train_metrics:  # the elastic path's host walls
+                extras[k] = train_metrics[k]
         self.recorder.record_epoch(
             epoch=epoch,
             train_loss=train_metrics["loss"],

@@ -63,9 +63,10 @@ BASE = dict(model="densenet", dataset="cifar10")
 @pytest.mark.parametrize("override", [
     {"profile_dir": "prof"}, {"fused_dbs": True}, {"shard_update": True},
     {"grad_comm": "hier"}, {"compress_grads": "int8"},
-    {"grad_accum": 2}, {"rebalance": "window"},
+    {"grad_accum": 2}, {"ckpt_dir": "ck", "rebalance": "window"},
     {"elastic": "on"}, {"coordinator": "localhost:1"}, {"trace": "on"},
-    {"fault_schedule": "sin"}, {"precision": "bfloat16"}, {"remat": True},
+    {"remat": True, "fault_schedule": "sin", "straggler": "2,1,1,1"},
+    {"precision": "bfloat16"}, {"remat": True},
     {"ckpt_dir": "ck"}, {"superstep": "on"},
     {"trace": "ring"}, {"seq_parallel": "ring"},
     {"device": [0, 1], "world_size": 2},
