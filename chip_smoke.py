@@ -30,7 +30,10 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    the CUDA-event wall, which includes the host's launch gaps, is printed
    beside it. K1 is timed over one DenseNet-121 worker pass at b = 32, 128
    and 160 beside its general route (the first port's kernels), and over
-   one packed step's pass (b = 512) of DenseNet-121 and of ResNet-101; K2
+   one packed step's pass (b = 512) of DenseNet-121 and of ResNet-101, f32
+   and (``--precision bfloat16``'s K1) bf16, whose bound counts 2-byte
+   activations; K1's route for every GroupNorm call of the four families at
+   b = 512 in bf16 (the tiled one: C in whole 8-element vectors); K2
    and K3 at every shape the language-model path gives them (below), K3
    beside its tiled route.
 3b. The compute-mode straggler's synthetic load (``ops/faultload.py``): its
@@ -68,16 +71,30 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    versions at every DenseNet-121 GroupNorm shape of each per-worker width
    the switches produced. Each evaluation's wall, and the per-epoch walls
    beside the same recipe at ``--rebalance epoch`` (for information).
+4f. ``--precision bfloat16`` (bf16 compute over f32 master weights): [4]'s
+   recipe, 3 epochs packed, then ``--packed off`` for 2 epochs (the elastic
+   step and the probes in bf16): share moved off worker 0, finite losses,
+   the 9 series, the peak memory; every K1 launch on bf16 activations and
+   on the tiled route, every K2 launch on f32 logits (counted apart by the
+   wrappers' ``_bf16`` counters). The packed epochs' walls beside [4]'s f32
+   walls (for information).
 5. The language-model path: ``cli.main`` trains the Transformer LM (EMSIZE
    200, 2 heads, 2 layers) on the committed wikitext-2 files with 4 workers,
    80 columns, bptt 35, per-worker clipping at 0.25, flash attention and a
    3:1 virtual straggler for 3 epochs; the counters (zeroed just before)
    show K3's short route and K2 ran (and K3's tiled route did not), share
    moved off worker 0, the 9 series were written. Each path's wall.
+5b. The same under ``--precision bfloat16``, 2 epochs: K3's short route and
+   K2 ran with f32 operands (the embedding runs in bf16, ``+ pe`` promotes
+   to f32, as in the JAX package), share moved, finite losses.
 6. DenseNet-121, ResNet-18, RegNetY-400MF and the Transformer LM on the
    card against the same models on the CPU (plain versions), same weights
    and inputs; the CNNs' first-conv gradient against the CPU's f64 run, at
    three weight seeds.
+6b. DenseNet-121 and the LM in bf16 on the card and on the CPU against the
+   CPU's f64 run from the same weights and inputs: the loss and the first
+   layer's gradient, the card's error within ``BF16_CARD_MULTIPLE`` times
+   the CPU's bf16 error.
 
 The last two lines are the kernels' JSON record (launches summed over every
 path) and the result line. Full tables go to ``chiprun_out/chip_smoke/``.
@@ -149,6 +166,31 @@ LM_ARGV = (
     "--grad_clip 0.25 --straggler 3,1,1,1 --fault_mode virtual "
     "--use_flash_attention true -e 3"
 ).split()
+
+
+def with_epochs(argv, epochs: int):
+    """``argv`` with its ``-e`` value replaced."""
+    i = argv.index("-e")
+    return argv[:i + 1] + [str(epochs)] + argv[i + 2:]
+
+
+# [4f] and [5b]: --precision bfloat16 (bf16 compute over f32 master
+# weights): the vision defaults for 3 epochs, the same on the elastic path
+# (--packed off: the elastic step and the probes in bf16) for 2 epochs of
+# 4 steps (2,048 examples: the arm is cut to keep the script's time), and
+# the language model for 2
+BF16 = ["--precision", "bfloat16"]
+BF16_ARGV = MAIN_ARGV + BF16
+BF16_ELASTIC_EPOCHS, LM_BF16_EPOCHS = 2, 2
+BF16_ELASTIC_ARGV = (with_epochs(MAIN_ARGV, BF16_ELASTIC_EPOCHS)[:-2]
+                     + ["--n_train", "2048", "--packed", "off"] + BF16)
+LM_BF16_ARGV = with_epochs(LM_ARGV, LM_BF16_EPOCHS) + BF16
+# [6b]: the card's bf16 error from the CPU's f64 run within this multiple
+# of the CPU's own bf16 error (for the scalar loss, or of one bf16 step of
+# its f64 value, where that is larger: one number can land near f64 by
+# chance; the gradient's largest error over its entries cannot)
+BF16_CARD_MULTIPLE = 4
+VAL_CHUNKS = -(-10000 // 1024)  # the CIFAR-10 test set in train/engine.py's chunks
 # 217,646 training tokens over 80 columns make 2,720 rows, 78 windows of 35
 # tokens per epoch; 70 leaves room for the rounding of the column split
 LM_LAYERS, LM_MIN_STEPS = 2, 70
@@ -177,6 +219,10 @@ XENT_FULL_V = 33278  # wikitext-2's vocabulary once train.txt is present
 CNN_KERNELS = ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd")
 SYNTH_ITERS = 1000  # the synthetic load's timed call
 GN_GENERAL = ("groupnorm_fwd_general", "groupnorm_bwd_general")
+# K1 on bf16 activations: the launch counters' bf16 shares, and the JSON
+# line's bf16 rows (a packed pass of DenseNet-121, b = 512)
+GN_BF16 = ("groupnorm_fwd_bf16", "groupnorm_bwd_bf16")
+XENT_BF16 = ("xent_fwd_bf16", "xent_bwd_bf16")
 # K1 is timed over one DenseNet-121 worker pass at each batch of the vision
 # path's plans: 128 under the uniform first plan (512 / 4 workers), 32 for
 # the straggler and 160 for the others after rebalancing; the JSON line's
@@ -199,12 +245,13 @@ def log(*a):
     print(*a, flush=True)
 
 
-def model_gn_shapes(torch, dev, name: str, b: int, with_relu: bool = False):
+def model_gn_shapes(torch, dev, name: str, b: int, with_relu: bool = False, dtype=None):
     """The ``(B, S, C, groups)`` of every GroupNorm call in one forward of
     ``-m name`` at batch ``b`` (``with_relu``: ``(B, S, C, groups, relu)``),
     read off the model with forward hooks, and how many of them ``plan``
-    sends to the general route (forward and backward). DenseNet-121's are
-    checked against ``gn_shapes``."""
+    sends to the general route (forward and backward) on ``dtype``
+    activations (f32 unless given). DenseNet-121's are checked against
+    ``gn_shapes``."""
     from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
     from dynamic_load_balance_distributeddnn_tpu_torch.models.common import GroupNorm
     from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import gn_shapes
@@ -228,7 +275,7 @@ def model_gn_shapes(torch, dev, name: str, b: int, with_relu: bool = False):
         assert len(shapes) == GN_PER_FORWARD, len(shapes)
         assert [sh[:3] for sh in shapes] == gn_shapes(b, (6, 12, 24, 16), 32), \
             "models/densenet.py gn_shapes is off"
-    general = sum(plan(bb, ss, c, g, torch.float32, back).route == "general"
+    general = sum(plan(bb, ss, c, g, dtype or torch.float32, back).route == "general"
                   for bb, ss, c, g, *_ in shapes for back in (False, True))
     return shapes, general
 
@@ -303,7 +350,8 @@ def check_groupnorm(torch, dev, records):
     call in DenseNet-121, ResNet-101, GoogLeNet and RegNetY-400MF (read off
     the models by ``model_gn_shapes``) at a packed step's b = 512, on the
     route and cluster ``plan`` picks. Returns the largest f32 errors of the
-    tiled route (``groupnorm_fwd``/``_bwd``) and of the general one."""
+    tiled route (``groupnorm_fwd``/``_bwd``) and of the general one, and the
+    tiled route's largest bf16 errors (``groupnorm_fwd_bf16``/``_bwd_bf16``)."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
         general_plan,
         plan,
@@ -329,7 +377,7 @@ def check_groupnorm(torch, dev, records):
     log(f"  K1 at a packed step's b = {GN_PACKED_B}: {len(packed)} distinct (S, C, groups, relu) "
         f"of DenseNet-121, ResNet-101, GoogLeNet and RegNetY-400MF")
     cases += [((bb, s, c), g, False, relu) for bb, s, c, g, relu in packed]
-    err = {k: 0.0 for k in ("groupnorm_fwd", "groupnorm_bwd") + GN_GENERAL}
+    err = {k: 0.0 for k in ("groupnorm_fwd", "groupnorm_bwd") + GN_GENERAL + GN_BF16}
     for dtype in (torch.float32, torch.bfloat16):
         on_card = torch.Generator(device=dev).manual_seed(3)
         for shape, groups, general, relu in cases:
@@ -346,6 +394,9 @@ def check_groupnorm(torch, dev, records):
             e_y, e_x, e_p = gn_case(torch, rand, shape, groups, relu, dtype, launch, what, records)
             if dtype == torch.float32:
                 keys = GN_GENERAL if route == "general" else ("groupnorm_fwd", "groupnorm_bwd")
+            else:
+                keys = GN_BF16 if route == "tiled" else ()
+            if keys:
                 err[keys[0]] = max(err[keys[0]], e_y)
                 err[keys[1]] = max(err[keys[1]], e_x, e_p)
             torch.cuda.empty_cache()
@@ -423,15 +474,17 @@ def check_xent(torch, dev, records):
     return err
 
 
-def time_groupnorm(torch, dev, shapes, general: bool = True):
+def time_groupnorm(torch, dev, shapes, general: bool = True, dtype=None):
     """K1 over a pass of GroupNorm calls, ``shapes`` their ``(b, s, c,
-    groups)``, forward and backward, f32, relu on: the kernels on the route
-    ``plan`` picks (the tiled one), with ``general`` the general route (the
-    first port's kernels, "was") on the same inputs, the plain version and
-    ``relu(F.group_norm)`` (cuDNN/ATen, the yardstick only), and the bound.
-    The backward yardsticks run 12 calls' autograd graphs at a time (their
-    saved tensors at b = 512 would not fit at once), their device times
-    summed."""
+    groups)``, forward and backward, relu on, activations in ``dtype`` (f32
+    unless given; scale and bias f32 as the model passes them): the kernels
+    on the route ``plan`` picks (the tiled one), with ``general`` the
+    general route (the first port's kernels, "was") on the same inputs, the
+    plain version and ``relu(F.group_norm)`` (cuDNN/ATen, the yardstick
+    only; in bf16 with bf16 scale and bias, the call a bf16 model would
+    make), and the bound from the bytes of that dtype. The backward
+    yardsticks run 12 calls' autograd graphs at a time (their saved tensors
+    at b = 512 would not fit at once), their device times summed."""
     from torch.nn import functional as F
 
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
@@ -441,11 +494,12 @@ def time_groupnorm(torch, dev, shapes, general: bool = True):
         group_norm_ref,
     )
 
+    dtype = dtype or torch.float32
     gen = torch.Generator(device=dev).manual_seed(2)
     calls = []
     for bb, s, c, g in shapes:
-        x = torch.randn((bb, s, c), device=dev, generator=gen)
-        dy = torch.randn((bb, s, c), device=dev, generator=gen)
+        x = torch.randn((bb, s, c), device=dev, generator=gen).to(dtype)
+        dy = torch.randn((bb, s, c), device=dev, generator=gen).to(dtype)
         w = torch.ones(c, device=dev)
         bias = torch.zeros(c, device=dev)
         launch = (general_plan(s, c // g, False), general_plan(s, c // g, True))
@@ -473,7 +527,7 @@ def time_groupnorm(torch, dev, shapes, general: bool = True):
 
     def l_fwd():
         for x, _, w, bias, g, _, _, _ in calls:
-            F.relu(F.group_norm(lib_view(x), g, w, bias, 1e-6))
+            F.relu(F.group_norm(lib_view(x), g, w.to(dtype), bias.to(dtype), 1e-6))
 
     out = {"groupnorm_fwd": timed(k_fwd)}
     out["groupnorm_fwd"]["plain_ms"] = device_ms(p_fwd)
@@ -484,7 +538,8 @@ def time_groupnorm(torch, dev, shapes, general: bool = True):
         out["groupnorm_bwd_general"] = timed(lambda: k_bwd("general"))
     # backward yardsticks: autograd through graphs built outside the timing
     for key, fwd in (("plain_ms", lambda x, w, bias, g: group_norm_ref(x, w, bias, g, 1e-6, True)),
-                     ("library_ms", lambda x, w, bias, g: F.relu(F.group_norm(lib_view(x), g, w, bias, 1e-6)))):
+                     ("library_ms", lambda x, w, bias, g: F.relu(F.group_norm(
+                         lib_view(x), g, w.to(dtype), bias.to(dtype), 1e-6)))):
         total = 0.0
         for lo in range(0, len(calls), 12):
             graphs = []
@@ -501,7 +556,7 @@ def time_groupnorm(torch, dev, shapes, general: bool = True):
             del graphs
             torch.cuda.empty_cache()
         out["groupnorm_bwd"][key] = total
-    for k, (nbytes, flops) in gn_work(shapes).items():
+    for k, (nbytes, flops) in gn_work(shapes, elem=torch.finfo(dtype).bits // 8).items():
         out[k]["bound_ms"], out[k]["bound_by"] = bound(nbytes, flops)
         if general:
             was = out[k + "_general"]
@@ -796,6 +851,12 @@ def run_path(torch, argv, tag):
     return counts, series, wall, peak
 
 
+def epoch_walls(series):
+    """Each epoch's wall, from the cumulative ``wallclock_time`` series."""
+    wc = series["wallclock_time"]
+    return [wc[0]] + [b - a for a, b in zip(wc, wc[1:])]
+
+
 def check_series(series, rate: str, epochs: int = EPOCHS, moved_off: int = 0):
     """The 9 series, finite losses, and (``moved_off`` not None) share moved
     off that worker."""
@@ -809,9 +870,7 @@ def check_series(series, rate: str, epochs: int = EPOCHS, moved_off: int = 0):
     if moved_off is not None:
         share = [p[moved_off] for p in series["partition"]]
         assert share[-1] < 0.25, f"worker {moved_off} share did not drop: {share}"
-    walls = [series["wallclock_time"][0]] + [
-        b - a for a, b in zip(series["wallclock_time"], series["wallclock_time"][1:])
-    ]
+    walls = epoch_walls(series)
     meta = series["_meta"]
     for e in range(epochs):
         log(f"  epoch {e} ({meta['paths'][e]}, node times {meta['node_time_source'][e]}): "
@@ -942,26 +1001,123 @@ def check_window_path(torch, dev, counts, series, epoch_arm, err, records):
             err["groupnorm_bwd"] = max(err["groupnorm_bwd"], e_x, e_p)
         log(f"  K1 at width {b}: {len(shapes)} distinct GroupNorm shapes within tolerance")
         torch.cuda.empty_cache()
-    walls = {}
-    for tag, ser in (("window", series), ("epoch", epoch_arm)):
-        wc = ser["wallclock_time"]
-        walls[tag] = [wc[0]] + [b - a for a, b in zip(wc, wc[1:])]
+    walls = {"window": epoch_walls(series), "epoch": epoch_walls(epoch_arm)}
     for e in range(WINDOW_EPOCHS):
         log(f"  epoch {e} wall: window cadence {walls['window'][e]:.3f}s, "
             f"epoch cadence {walls['epoch'][e]:.3f}s (for information)")
     return walls
 
 
-def check_lm_path(counts, series):
-    check_series(series, "tokens")
+def check_lm_path(counts, series, epochs=EPOCHS):
+    check_series(series, "tokens", epochs)
     assert series["accuracy"] == [1.0 - v for v in series["val_loss"]], "accuracy != 1 - val_loss"
     for k in LM_KERNELS:
         # attention runs once per layer of a worker step, the loss once
-        need = (LM_LAYERS if k.startswith("attn") else 1) * WORKERS * LM_MIN_STEPS * EPOCHS
+        need = (LM_LAYERS if k.startswith("attn") else 1) * WORKERS * LM_MIN_STEPS * epochs
         assert counts[k] >= need, f"kernel {k}: {counts[k]} launches on the LM path < {need}"
     for k in ATTN_TILED:  # T = 35 takes the short route only
         assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the LM path, want 0"
     log(f"  launches: {counts}")
+
+
+def check_bf16_vision_path(counts, series, path, epochs):
+    """[4f]: a vision path under ``--precision bfloat16``: the series, share
+    moved off worker 0, every epoch on ``path``; K1 launched on its tiled
+    route only, on bf16 activations (its wrapper takes the f32 scale and
+    bias the model casts) in every training forward and backward, on f32
+    ones only in evaluation (which never casts: ``GN_PER_FORWARD`` calls a
+    chunk of the 10,000 test images, ``VAL_CHUNKS`` chunks an epoch); K2 on
+    f32 logits only (the loss is taken on f32 logits, as in the JAX
+    package)."""
+    check_cnn_path(counts, series, f"bf16 {path}", path=path, epochs=epochs)
+    assert counts["groupnorm_bwd_bf16"] == counts["groupnorm_bwd"] > 0, \
+        f"groupnorm_bwd: {counts['groupnorm_bwd_bf16']} of {counts['groupnorm_bwd']} launches bf16, want all"
+    f32_fwd = counts["groupnorm_fwd"] - counts["groupnorm_fwd_bf16"]
+    assert f32_fwd == GN_PER_FORWARD * VAL_CHUNKS * epochs, \
+        f"groupnorm_fwd: {f32_fwd} launches on f32 activations, want the evaluation's alone"
+    for k in GN_GENERAL:
+        assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the bf16 path, want 0"
+    for k in XENT_BF16:
+        assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on bf16 logits, want 0 (f32)"
+    log(f"  K1 on bf16 activations: {counts['groupnorm_fwd_bf16']} / {counts['groupnorm_bwd_bf16']} "
+        f"launches (every training forward and backward; the evaluation's {f32_fwd} forwards f32), "
+        f"tiled route only; K2 on f32 logits: {counts['xent_fwd']} / {counts['xent_bwd']}")
+
+
+def check_bf16_lm_path(counts, series):
+    """[5b]: the language model under ``--precision bfloat16``: the LM
+    path's checks over its epochs; K2 on f32 logits only; K3 (short route
+    only) on f32 operands, the only dtype its wrapper takes: the embedding
+    and its scale run in bf16, and ``+ pe`` promotes to f32, as in the JAX
+    package."""
+    check_lm_path(counts, series, LM_BF16_EPOCHS)
+    for k in XENT_BF16:
+        assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on bf16 logits, want 0 (f32)"
+
+
+def check_bf16_against_cpu(torch, dev, which: str):
+    """[6b]: DenseNet-121 or the Transformer LM (full width, flash
+    attention, eval mode) under the bf16 compute dtype, on the card (K1 in
+    bf16, K2 and K3 in f32) and on the CPU (plain versions), against the
+    CPU's f64 run from the same seeded weights and inputs: the loss and the
+    first layer's gradient (``Conv_0``, ``Embed_0``), the card's error from
+    f64 within ``BF16_CARD_MULTIPLE`` times the CPU's bf16 error (for the
+    loss, or times one bf16 step of its f64 value, 2**-8 of it, where that
+    is larger)."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
+    from dynamic_load_balance_distributeddnn_tpu_torch.models.common import init_flax_defaults
+    from dynamic_load_balance_distributeddnn_tpu_torch.models.transformer import TransformerLM
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import weighted_loss
+
+    gen = torch.Generator().manual_seed(5)
+    if which == "densenet":
+        make = lambda: build_model("densenet").to(memory_format=torch.channels_last)  # noqa: E731
+        x = torch.randn(8, 32, 32, 3, generator=gen)
+        y = torch.randint(0, 10, (8,), generator=gen)
+        w, first = torch.full((8,), 1.0 / 8), "Conv_0"
+    else:
+        kw = dict(ntoken=XENT_LM_SHAPE[1], ninp=200, nhead=2, nhid=200, nlayers=LM_LAYERS,
+                  dropout=0.2, use_flash=True)
+        make = lambda: TransformerLM(**kw)  # noqa: E731
+        x = torch.randint(0, kw["ntoken"], (8, 35), generator=gen)
+        y = torch.randint(0, kw["ntoken"], (8, 35), generator=gen)
+        w, first = torch.full((8, 35), 1.0 / (8 * 35)), "Embed_0"
+    ref = make()
+    init_flax_defaults(ref, torch.Generator().manual_seed(0))
+    res = {}
+    for tag, d, dtype in (("card", dev, torch.bfloat16), ("cpu", "cpu", torch.bfloat16),
+                          ("f64", "cpu", None)):
+        model = make()
+        model.load_state_dict(ref.state_dict())
+        model = model.to(d, torch.float64 if dtype is None else torch.float32,
+                         memory_format=torch.channels_last).eval()
+        xx = x.to(d, torch.float64) if (dtype is None and x.is_floating_point()) else x.to(d)
+        ww = w.to(d, torch.float64 if dtype is None else torch.float32)
+        runtime.reset_launches()
+        loss, _ = weighted_loss(model, xx, y.to(d), ww, dtype)
+        loss.backward()
+        if tag == "card":
+            counts = dict(runtime.LAUNCHES)
+            assert loss.dtype == torch.float32 and torch.isfinite(loss), loss
+            if which == "densenet":
+                assert counts["groupnorm_fwd_bf16"] == counts["groupnorm_fwd"] == GN_PER_FORWARD, counts
+            else:
+                assert counts["attn_fwd"] == counts["attn_bwd"] == LM_LAYERS, counts
+            assert counts["xent_fwd"] == 1 and counts["xent_fwd_bf16"] == 0, counts
+        res[tag] = (loss.detach().double().cpu(), getattr(model, first).weight.grad.double().cpu())
+    row = {"model": which}
+    for i, what in enumerate(("loss", f"d{first}")):
+        exact = res["f64"][i]
+        e_card = (res["card"][i] - exact).abs().max().item()
+        e_cpu = (res["cpu"][i] - exact).abs().max().item()
+        step = 2.0**-8 * exact.abs().max().item() if what == "loss" else 0.0
+        lim = BF16_CARD_MULTIPLE * max(e_cpu, step)
+        row[what] = {"card_vs_f64": e_card, "cpu_bf16_vs_f64": e_cpu, "limit": lim}
+        log(f"  {which} bf16 {what}: card vs f64 {e_card:.3e}, CPU bf16 vs f64 {e_cpu:.3e}, "
+            f"limit {lim:.3e} (max |f64| {exact.abs().max().item():.3e})")
+        assert e_card <= lim, f"{which} bf16 {what}: card {e_card:.3g} from f64 > {lim:.3g}"
+    return row
 
 
 def check_against_cpu(torch, dev, name: str):
@@ -1093,17 +1249,25 @@ def main() -> int:
     err.update(check_flash(torch, dev, records))
     gn_routes = {}
     for name in ("densenet",) + FAMILIES:
-        for b in (GN_LINE_BATCH, GN_PACKED_B):
-            calls, general = model_gn_shapes(torch, dev, name, b)
-            gn_routes[f"{name} b={b}"] = {"calls": len(calls), "general": general}
-            log(f"  K1 routes, {name} b={b}: {len(calls)} GroupNorm calls a forward, "
+        for b, dtype in ((GN_LINE_BATCH, torch.float32), (GN_PACKED_B, torch.float32),
+                         (GN_PACKED_B, torch.bfloat16)):
+            calls, general = model_gn_shapes(torch, dev, name, b, dtype=dtype)
+            what = f"{name} b={b}" + (" bf16" if dtype == torch.bfloat16 else "")
+            gn_routes[what] = {"calls": len(calls), "general": general}
+            log(f"  K1 routes, {what}: {len(calls)} GroupNorm calls a forward, "
                 f"{general} of {2 * len(calls)} forward + backward launches on the general route")
+            # bf16 needs C in whole 8-element vectors: every family's C is
+            assert dtype == torch.float32 or general == 0, f"{what}: {general} general-route launches"
     shapes = model_gn_shapes(torch, dev, "densenet", GN_LINE_BATCH)[0]
     gt = {b: time_groupnorm(torch, dev, [(b,) + sh[1:] for sh in shapes]) for b in GN_BATCHES}
     # one packed step's pass at b = 512: DenseNet-121's and ResNet-101's
     gp = {name: time_groupnorm(torch, dev, model_gn_shapes(torch, dev, name, GN_PACKED_B)[0],
                                general=False)
           for name in ("densenet", "resnet")}
+    # and the same passes on bf16 activations (--precision bfloat16)
+    gp16 = {name: time_groupnorm(torch, dev, model_gn_shapes(torch, dev, name, GN_PACKED_B)[0],
+                                 general=False, dtype=torch.bfloat16)
+            for name in ("densenet", "resnet")}
     timing = dict(gt[GN_LINE_BATCH])
     xt = time_xent(torch, dev)
     at = time_flash(torch, dev)
@@ -1127,7 +1291,7 @@ def main() -> int:
                 f"general route (was) {t['was_ms']:.3f} ms (event wall "
                 f"{row[k + '_general']['wall_ms']:.3f}), plain {t['plain_ms']:.3f} ms, "
                 f"library {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
-    for name, row in gp.items():
+    for name, row in list(gp.items()) + [(n + " bf16", r) for n, r in gp16.items()]:
         for k in ("groupnorm_fwd", "groupnorm_bwd"):
             t = row[k]
             log(f"  {k} ({name} packed pass, b={GN_PACKED_B}): kernel {t['ms']:.3f} ms "
@@ -1166,9 +1330,25 @@ def main() -> int:
     window_walls = check_window_path(torch, dev, *paths["vision_window"][:2],
                                      paths["vision_window_epoch"][1], err, records)
 
+    phase("[4f] vision path under --precision bfloat16: packed (the defaults), then elastic")
+    paths["vision_bf16"] = run_path(torch, BF16_ARGV, "run_bf16")
+    check_bf16_vision_path(*paths["vision_bf16"][:2], "packed", EPOCHS)
+    for e, (w16, w32) in enumerate(zip(epoch_walls(paths["vision_bf16"][1]),
+                                       epoch_walls(paths["vision"][1]))):
+        log(f"  epoch {e} wall: bf16 {w16:.3f}s, f32 ([4]) {w32:.3f}s (for information)")
+    paths["vision_bf16_elastic"] = run_path(torch, BF16_ELASTIC_ARGV, "run_bf16_elastic")
+    check_bf16_vision_path(*paths["vision_bf16_elastic"][:2], "elastic", BF16_ELASTIC_EPOCHS)
+
     phase("[5] language-model path")
     paths["lm"] = run_path(torch, LM_ARGV, "run_lm")
     check_lm_path(*paths["lm"][:2])
+    torch.cuda.empty_cache()
+
+    phase("[5b] language-model path under --precision bfloat16")
+    paths["lm_bf16"] = run_path(torch, LM_BF16_ARGV, "run_lm_bf16")
+    check_bf16_lm_path(*paths["lm_bf16"][:2])
+    for e, (w16, w32) in enumerate(zip(epoch_walls(paths["lm_bf16"][1]), epoch_walls(paths["lm"][1]))):
+        log(f"  epoch {e} wall: bf16 {w16:.3f}s, f32 ([5]) {w32:.3f}s (for information)")
     torch.cuda.empty_cache()
     for tag, (_, _, wall, peak) in paths.items():
         log(f"  path {tag}: cli wall {wall:.1f}s, peak device memory {peak / 2**30:.2f} GiB")
@@ -1178,12 +1358,20 @@ def main() -> int:
                    for name in ("densenet", "resnet18", "regnet")}
     check_lm_against_cpu(torch, dev)
 
+    phase("[6b] bf16 on the card against the CPU's f64 run (the CPU's bf16 run the yardstick)")
+    bf16_vs_cpu = [check_bf16_against_cpu(torch, dev, which) for which in ("densenet", "lm")]
+
     sources = {
         # the tiled route (every DenseNet-121 call), then the general one
         "groupnorm_fwd": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:32", "DenseNet-121 b=128, 120 calls"),
         "groupnorm_bwd": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:110", "DenseNet-121 b=128, 120 calls"),
         "groupnorm_fwd_general": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:32", "DenseNet-121 b=128, 120 calls"),
         "groupnorm_bwd_general": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:110", "DenseNet-121 b=128, 120 calls"),
+        # the tiled route on bf16 activations (--precision bfloat16), a packed pass
+        "groupnorm_fwd_bf16": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:32",
+                               "DenseNet-121 b=512 packed, 120 calls, bf16"),
+        "groupnorm_bwd_bf16": ("csrc/groupnorm.cu", "ops/pallas/groupnorm.py:110",
+                               "DenseNet-121 b=512 packed, 120 calls, bf16"),
         "xent_fwd": ("csrc/xent.cu", "ops/pallas/xent.py:30", list(XENT_LM_SHAPE)),
         "xent_bwd": ("csrc/xent.cu", "ops/pallas/xent.py:40", list(XENT_LM_SHAPE)),
         # the short route (T <= 64): attn_fwd_short_kernel, and attn_bwd_short_kernel,
@@ -1197,6 +1385,15 @@ def main() -> int:
         # not a Pallas kernel: the JAX package's chain is an XLA loop
         "synthetic_load": ("csrc/faultload.cu", "ops/faultload.py:27", [SYNTH_ITERS, 256, 256]),
     }
+    for k16, k in zip(GN_BF16, ("groupnorm_fwd", "groupnorm_bwd")):
+        timing[k16] = gp16["densenet"][k]
+        launches = {tag: p[0][k16] for tag, p in paths.items() if p[0][k16]}
+        for name, row in gp16.items():
+            t = row[k]
+            log(f"  {k16} ({name} packed pass, b={GN_PACKED_B}): kernel {t['ms']:.3f} ms (event wall "
+                f"{t['wall_ms']:.3f}), bound {t['bound_ms']:.3f} ms ({t['bound_by']}, bf16 bytes), "
+                f"plain {t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms; launches on the bf16 "
+                f"paths {launches}")
     kernels = []
     for name, (src, tpu, shape) in sources.items():
         t = timing[name]
@@ -1218,6 +1415,7 @@ def main() -> int:
     with open(os.path.join(OUT, "kernels.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "checks": records,
                    "groupnorm_timing": gt, "groupnorm_packed_timing": gp,
+                   "groupnorm_packed_timing_bf16": gp16, "bf16_card_vs_cpu": bf16_vs_cpu,
                    "groupnorm_routes": gn_routes,
                    "xent_timing": {str(k): v for k, v in xt.items()},
                    "attn_timing": {str(k): v for k, v in at.items()},

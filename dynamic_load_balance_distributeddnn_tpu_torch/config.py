@@ -18,7 +18,9 @@ or dispatch windows (``aot_*``, ``speculate_scan``, ``warm_start``,
 accepted and have no effect. ``stream_chunk_steps`` and ``superstep_window``
 cut the elastic epoch into the JAX package's dispatch windows (with
 ``--superstep off``, ``stream_chunk_steps`` alone), the boundaries at which
-``--rebalance window`` evaluates its controller.
+``--rebalance window`` evaluates its controller. ``--precision bfloat16``
+is the JAX package's compute-dtype policy: each training forward runs on
+bf16 copies of the f32 master weights (``train/steps.py`` ``cast_compute``).
 """
 
 from __future__ import annotations
@@ -184,6 +186,8 @@ class Config:
             raise ValueError("straggler factor list length must equal world_size")
         if self.bucket < 1:
             raise ValueError("bucket must be >= 1")
+        if self.precision not in ("float32", "bfloat16"):
+            raise ValueError("precision must be 'float32' or 'bfloat16'")
         self._check_rebalance()
         self._reject_unported()
 
@@ -248,7 +252,6 @@ class Config:
             "coordinator": bool(self.coordinator),
             "trace": self.trace != "off",
             "seq_parallel": bool(self.seq_parallel),
-            "precision": self.precision != "float32",
             "remat": self.remat,
             "ckpt_dir": bool(self.ckpt_dir),
             "profile_dir": bool(self.profile_dir),

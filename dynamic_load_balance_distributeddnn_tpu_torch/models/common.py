@@ -43,7 +43,12 @@ class GroupNorm(nn.Module):
         # [B, C, H, W] channels-last -> [B, H*W, C]: a view, no copy (reshape
         # copies only if the caller broke the channels-last layout)
         x3 = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        y = _group_norm(x3, self.weight, self.bias, self.num_groups, self.eps, self.relu)
+        # scale and bias in f32 whatever x's dtype, as the JAX
+        # fused_group_norm passes them (no-ops on f32 parameters); under a
+        # bf16 compute dtype their gradients round through bf16 on the way
+        # back, as JAX's chain of casts does
+        y = _group_norm(x3, self.weight.float(), self.bias.float(), self.num_groups, self.eps,
+                        self.relu)
         return y.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
     def extra_repr(self) -> str:

@@ -23,16 +23,26 @@ Attention has two branches, as in the JAX package:
 
 Both keep the residual and feed-forward dropouts. LayerNorm eps is flax's
 1e-6, not torch's 1e-5.
+
+Mixed dtypes, as flax has them under the JAX package's bf16 compute dtype
+(parameters cast to bf16, tokens left integers): the embedding gathers in
+bf16 and ``x * sqrt(ninp)`` multiplies in bf16 by the factor rounded to bf16
+(14.125 for ``ninp = 200``); adding the f32 positional table promotes to f32,
+and from there every projection, LayerNorm and the decoder lift their bf16
+weights to the activation's dtype (flax's ``promote_dtype``), so attention
+(K3) and the logits are f32: an f32 computation on bf16-rounded weights.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from dynamic_load_balance_distributeddnn_tpu_torch.models.common import Dropout
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
@@ -40,6 +50,34 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention i
 )
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
+
+
+def _lifted(x: torch.Tensor, *ts: Optional[torch.Tensor]):
+    """``ts`` in ``promote_types(x.dtype, t.dtype)``, as flax's
+    ``promote_dtype`` lifts a layer's parameters to its input's dtype
+    (no-ops when the dtypes agree)."""
+    return [None if t is None else t.to(torch.promote_types(x.dtype, t.dtype)) for t in ts]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are lifted to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, *_lifted(x, self.weight, self.bias))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` whose scale and bias are lifted to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, *_lifted(x, self.weight, self.bias), self.eps)
+
+
+@functools.lru_cache(maxsize=None)
+def embed_scale(ninp: int, dtype: torch.dtype) -> float:
+    """``sqrt(ninp)`` rounded to ``dtype``: flax multiplies a bf16 embedding
+    by the f32 constant in bf16, which rounds the constant first."""
+    return torch.tensor(math.sqrt(float(ninp)), dtype=dtype).item()
 
 
 def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
@@ -58,10 +96,10 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.nhead = nhead
         self.use_flash = use_flash
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.query = Linear(d_model, d_model)
+        self.key = Linear(d_model, d_model)
+        self.value = Linear(d_model, d_model)
+        self.out = Linear(d_model, d_model)
         self.attn_dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -99,12 +137,12 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.attn = SelfAttention(d_model, nhead, dropout, use_flash)
         self.Dropout_0 = Dropout(dropout)
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.Dense_0 = nn.Linear(d_model, d_ff)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
+        self.Dense_0 = Linear(d_model, d_ff)
         self.Dropout_1 = Dropout(dropout)
-        self.Dense_1 = nn.Linear(d_ff, d_model)
+        self.Dense_1 = Linear(d_ff, d_model)
         self.Dropout_2 = Dropout(dropout)
-        self.LayerNorm_1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_1 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.LayerNorm_0(x + self.Dropout_0(self.attn(x)))
@@ -137,7 +175,7 @@ class TransformerLM(nn.Module):
         self.Dropout_0 = Dropout(dropout)
         for i in range(nlayers):
             setattr(self, f"EncoderLayer_{i}", EncoderLayer(ninp, nhead, nhid, dropout, use_flash))
-        self.Dense_0 = nn.Linear(ninp, ntoken)
+        self.Dense_0 = Linear(ninp, ntoken)
         self._pe: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     def _positions(self, t: int, device: torch.device) -> torch.Tensor:
@@ -150,8 +188,9 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         t = tokens.shape[1]
-        x = self.Embed_0(tokens.long()) * math.sqrt(float(self.ninp))
-        x = self.Dropout_0(x + self._positions(t, x.device)[None])
+        x = self.Embed_0(tokens.long())
+        x = x * embed_scale(self.ninp, x.dtype)
+        x = self.Dropout_0(x + self._positions(t, x.device)[None])  # f32 from here
         for i in range(self.nlayers):
             x = getattr(self, f"EncoderLayer_{i}")(x)
         return self.Dense_0(x)

@@ -274,6 +274,15 @@ def _route(x: torch.Tensor, groups: int, backward: bool, launch: Optional[Plan],
     return p
 
 
+def _count(key: str, p: Plan, x: torch.Tensor) -> None:
+    """One launch of ``key``, and of its general-route and bf16 shares."""
+    runtime.LAUNCHES[key] += 1
+    if p.route == "general":
+        runtime.LAUNCHES[key + "_general"] += 1
+    if x.dtype == torch.bfloat16:
+        runtime.LAUNCHES[key + "_bf16"] += 1
+
+
 def _tiled_args(p: Plan):
     return (p.tile, p.vpad.bit_length() - 1, p.rows, p.cluster, p.threads, p.smem)
 
@@ -305,9 +314,7 @@ def group_norm_fwd(
             err = lib.gn_forward(*ptrs, b, s, c, groups, float(eps), int(relu),
                                  _DTYPES[x.dtype], _stream(x))
     runtime.check(lib, err, f"gn_forward ({p.route})")
-    runtime.LAUNCHES["groupnorm_fwd"] += 1
-    if p.route == "general":
-        runtime.LAUNCHES["groupnorm_fwd_general"] += 1
+    _count("groupnorm_fwd", p, x)
     return y, mean, rstd
 
 
@@ -348,9 +355,7 @@ def group_norm_bwd(
             err = lib.gn_backward(*ptrs, b, s, c, groups, int(relu), _DTYPES[x.dtype],
                                   _stream(x))
     runtime.check(lib, err, f"gn_backward ({p.route})")
-    runtime.LAUNCHES["groupnorm_bwd"] += 1
-    if p.route == "general":
-        runtime.LAUNCHES["groupnorm_bwd_general"] += 1
+    _count("groupnorm_bwd", p, x)
     return dx, dw, db
 
 

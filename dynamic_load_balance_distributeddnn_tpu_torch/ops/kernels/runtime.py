@@ -9,9 +9,11 @@ here runs at import time: the CPU tests import every module.
 
 ``LAUNCHES`` counts, per kernel wrapper, the launches that reached the card:
 a wrapper adds one right after its C call returns success, and nowhere else.
-GroupNorm's ``groupnorm_fwd``/``groupnorm_bwd`` count both of its routes;
-``groupnorm_fwd_general``/``groupnorm_bwd_general`` the general route's
-share of them.
+GroupNorm's ``groupnorm_fwd``/``groupnorm_bwd`` count both of its routes
+and both dtypes; ``groupnorm_fwd_general``/``groupnorm_bwd_general`` the
+general route's share of them, and the ``_bf16`` keys (GroupNorm and
+cross-entropy) the share whose operands were bf16, so a run under
+``--precision bfloat16`` shows which dtype each kernel took.
 """
 
 from __future__ import annotations
@@ -39,8 +41,12 @@ LAUNCHES: Dict[str, int] = {
     "groupnorm_bwd": 0,
     "groupnorm_fwd_general": 0,  # of which the general route (K1's first kernels)
     "groupnorm_bwd_general": 0,
+    "groupnorm_fwd_bf16": 0,  # of which on bf16 activations
+    "groupnorm_bwd_bf16": 0,
     "xent_fwd": 0,
     "xent_bwd": 0,
+    "xent_fwd_bf16": 0,  # of which on bf16 logits
+    "xent_bwd_bf16": 0,
     "attn_fwd": 0,  # the short forward (T <= 64)
     "attn_bwd": 0,  # the fused short backward
     "attn_fwd_tiled": 0,  # the tiled kernels (T > 64)

@@ -135,6 +135,8 @@ def xent_fwd(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, 
         )
     runtime.check(lib, err, "xent_forward")
     runtime.LAUNCHES["xent_fwd"] += 1
+    if logits.dtype == torch.bfloat16:
+        runtime.LAUNCHES["xent_fwd_bf16"] += 1
     return loss, lse
 
 
@@ -155,6 +157,8 @@ def xent_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor,
         )
     runtime.check(lib, err, "xent_backward")
     runtime.LAUNCHES["xent_bwd"] += 1
+    if logits.dtype == torch.bfloat16:
+        runtime.LAUNCHES["xent_bwd_bf16"] += 1
     return dx
 
 

@@ -64,6 +64,12 @@ draws depend on (seed, epoch, step) alone and a switch replays as a fresh
 run on the remainder plan (``_replay_window_segment``). Packed epochs have no
 window boundary: there the flag warns once and the run keeps epoch cadence.
 
+Compute dtype (``--precision bfloat16``): every training forward (the
+packed and elastic steps, the probes and the compute-mode calibration) runs
+on bf16 copies of the f32 master weights and a bf16 batch (``_prep``), as the
+JAX ``StepLibrary`` does with its ``compute_dtype``; the loss, the gradients,
+the optimizer state and ``validate`` stay f32.
+
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
 ``_setup_model``, ``_build_plan``, ``_worker_epoch`` and ``validate``.
@@ -176,6 +182,9 @@ class Trainer:
                 "CUDA kernels (the plain versions are for CPU tensors)"
             )
         self.cfg = cfg
+        # the training forward's dtype: bf16 copies of the f32 master
+        # weights under --precision bfloat16 (train/steps.py cast_compute)
+        self.compute_dtype = torch.bfloat16 if cfg.precision == "bfloat16" else None
         self.timing_model = timing_model
         self.logger = logger or init_logger(cfg, to_file=log_to_file)
         self.world_size = cfg.world_size
@@ -618,10 +627,15 @@ class Trainer:
         return step
 
     def _prep(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """A training batch: augmented or normalised, then cast to the
+        compute dtype (``--precision bfloat16``) as the JAX ``local_grads``
+        casts it."""
         mean, std = self.bundle.mean, self.bundle.std
         if self.augment:
-            return augment_images(x_u8, mean, std, generator=self.aug_gen)
-        return normalize_images(x_u8, mean, std)
+            x = augment_images(x_u8, mean, std, generator=self.aug_gen)
+        else:
+            x = normalize_images(x_u8, mean, std)
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
     def _elastic_ranges(self, num_steps: int):
         """The elastic epoch's windows, the ones the JAX package cuts on one
@@ -713,7 +727,8 @@ class Trainer:
                         batches.append(b)
                         acc["count"] += n
                     step_loss = elastic_step(
-                        self.model, self.optimizer, batches, self.grad_clip, self.load, slow
+                        self.model, self.optimizer, batches, self.grad_clip, self.load, slow,
+                        self.compute_dtype,
                     )
                     if step_loss is not None:
                         acc["loss"] += step_loss
@@ -921,7 +936,8 @@ class Trainer:
         for s in steps:
             sel = idx[offs[s] : offs[s + 1]]
             batch = (self._prep(self.train_x[sel]), self.train_y[sel], w[offs[s] : offs[s + 1]])
-            loss_sum += packed_step(self.model, self.optimizer, batch, self.load, slow)
+            loss_sum += packed_step(self.model, self.optimizer, batch, self.load, slow,
+                                    self.compute_dtype)
         self._sync()
 
         def first():
@@ -972,10 +988,11 @@ class Trainer:
         touch it, and until the calibration has run they track the
         iteration cost from a paired clean probe."""
         model, params, clip, load = self.model, self.params, self.grad_clip, self.load
+        dtype = self.compute_dtype  # the probe times the step training runs
         slow = [int(n) for n in faults.slow_iters_per_step]
         for r, b in enumerate(batches):  # untimed warm pass
             if b is not None:
-                probe_grads(model, params, b, clip, load, slow[r])
+                probe_grads(model, params, b, clip, load, slow[r], dtype)
         self._sync()
         # the host's launch + synchronize round trip, which is not device
         # compute; floored at 20% of the raw wall as in the JAX package
@@ -997,7 +1014,7 @@ class Trainer:
             for _ in range(reps):
                 self._sync()
                 t0 = time.perf_counter()
-                g = probe_grads(model, params, b, clip, load, n_slow)
+                g = probe_grads(model, params, b, clip, load, n_slow, dtype)
                 self._sync()
                 dt = min(dt, time.perf_counter() - t0)
             return max(dt - ovh, 0.2 * dt), dt, g
@@ -1071,7 +1088,9 @@ class Trainer:
 
     @torch.no_grad()
     def validate(self) -> "tuple[float, float]":
-        """Full-test-set loss and accuracy (percent)."""
+        """Full-test-set loss and accuracy (percent), on the f32 parameters
+        whatever the compute dtype (the JAX ``fused_eval_step`` never
+        casts)."""
         self.model.eval()
         loss_sum = torch.zeros((), device=self.device)
         correct = torch.zeros((), device=self.device, dtype=torch.int64)

@@ -42,11 +42,25 @@ The probe twins time a worker's forward/backward (``probe_grads``: returns
 gradients, clipped as in training, without touching ``.grad``) and the
 combine + update (``combine_probe``: computes the updated parameters without
 writing them), so probing never changes the training state.
+
+Compute dtype (``--precision bfloat16``, the JAX ``StepLibrary``'s
+``compute_dtype``): every training forward runs on ``cast_compute`` copies
+of the f32 master weights, each f32 parameter cast to bf16, with the input
+cast likewise (integer tokens stay as they are); ``model(x).float()`` keeps
+the loss in f32. The copies enter the model through
+``torch.func.functional_call``, so each gradient reaches its f32 leaf
+through the cast's backward (a bf16 gradient widened to f32), as the JAX
+gradient reaches it through the transpose of ``astype``; ``.grad``, the
+momentum buffers and the sum over workers stay f32. The elastic step casts
+once a step and shares the copies between its workers: each worker's
+backward still runs through the casts on its own, so its gradient is
+widened on its own and the workers are summed in f32 (``combine_update``'s
+sum), never in the bf16 copies. Evaluation never casts.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,9 +70,38 @@ Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, y, w)
 Load = Callable[[int, torch.Tensor], torch.Tensor]  # (iterations, seed) -> scalar
 
 
-def weighted_loss(model: torch.nn.Module, x, y, w) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(sum(losses * w), sum(losses * (w > 0)))`` for one worker's batch."""
-    losses = softmax_xent(model(x).float(), y)
+Cast = Optional[Dict[str, torch.Tensor]]  # cast_compute's copies of the parameters
+
+
+def cast_compute(named: Iterable[Tuple[str, torch.Tensor]], dtype: Optional[torch.dtype]) -> Cast:
+    """The JAX ``StepLibrary._cast_compute`` over ``(name, tensor)`` pairs
+    (``model.named_parameters()``): each f32 tensor cast to ``dtype``, every
+    other one as it is; None when ``dtype`` is None (no compute dtype: the
+    model runs on its own parameters)."""
+    if dtype is None:
+        return None
+    return {k: t.to(dtype) if t.dtype == torch.float32 else t for k, t in named}
+
+
+def forward(model: torch.nn.Module, x, compute_dtype: Optional[torch.dtype] = None,
+            cast: Cast = None) -> torch.Tensor:
+    """The training forward: ``model(x)``, or under ``compute_dtype`` the
+    model on ``cast`` (``cast_compute`` of its parameters, made here when
+    not given) with an f32 input cast too."""
+    if compute_dtype is None:
+        return model(x)
+    if cast is None:
+        cast = cast_compute(model.named_parameters(), compute_dtype)
+    if x.dtype == torch.float32:
+        x = x.to(compute_dtype)
+    return torch.func.functional_call(model, cast, (x,))
+
+
+def weighted_loss(model: torch.nn.Module, x, y, w, compute_dtype: Optional[torch.dtype] = None,
+                  cast: Cast = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sum(losses * w), sum(losses * (w > 0)))`` for one worker's batch,
+    the loss on f32 logits whatever the compute dtype."""
+    losses = softmax_xent(forward(model, x, compute_dtype, cast).float(), y)
     return torch.sum(losses * w), torch.sum(losses.detach() * (w > 0))
 
 
@@ -78,10 +121,11 @@ def _inject(load: Optional[Load], slow_iters: int, wloss: torch.Tensor) -> None:
 
 
 def worker_grads(model, params: List[torch.Tensor], batch: Batch, grad_clip: float,
-                 load: Optional[Load] = None, slow_iters: int = 0):
+                 load: Optional[Load] = None, slow_iters: int = 0,
+                 compute_dtype: Optional[torch.dtype] = None, cast: Cast = None):
     """One worker's (clipped) weighted gradient and its loss sum, then its
-    injected load; ``.grad`` untouched."""
-    wloss, loss_sum = weighted_loss(model, *batch)
+    injected load; ``.grad`` untouched. The gradient is the f32 leaves'."""
+    wloss, loss_sum = weighted_loss(model, *batch, compute_dtype, cast)
     grads = list(torch.autograd.grad(wloss, params))
     if grad_clip > 0:
         clip_worker_grads(grads, batch[2], grad_clip)
@@ -96,26 +140,29 @@ def elastic_step(
     grad_clip: float = 0.0,
     load: Optional[Load] = None,
     slow_iters: Sequence[int] = (),
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Optional[torch.Tensor]:
     """One DBS step over every worker's batch (``None`` for a worker with no
     real data this step), worker r followed by ``slow_iters[r]`` iterations
-    of ``load``. Returns the sum of the losses of the entries with positive
-    weight, or None if no worker had data."""
+    of ``load``; under ``compute_dtype`` every worker's forward runs on one
+    ``cast_compute`` of the parameters. Returns the sum of the losses of the
+    entries with positive weight, or None if no worker had data."""
     optimizer.zero_grad(set_to_none=True)
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    cast = cast_compute(model.named_parameters(), compute_dtype)
     loss_sum, total = None, None
     for r, b in enumerate(batches):
         if b is None:
             continue
         n_slow = int(slow_iters[r]) if len(slow_iters) else 0
         if grad_clip > 0:
-            grads, s = worker_grads(model, params, b, grad_clip, load, n_slow)
+            grads, s = worker_grads(model, params, b, grad_clip, load, n_slow, compute_dtype, cast)
             if total is None:
                 total = grads
             else:
                 torch._foreach_add_(total, grads)
         else:
-            wloss, s = weighted_loss(model, *b)
+            wloss, s = weighted_loss(model, *b, compute_dtype, cast)
             wloss.backward()  # adds this worker's weighted gradient into .grad
             _inject(load, n_slow, wloss)
         loss_sum = s if loss_sum is None else loss_sum + s
@@ -132,13 +179,14 @@ def packed_step(
     batch: Batch,
     load: Optional[Load] = None,
     slow_iters: int = 0,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """One DBS step over the workers' concatenated batch (per-example
     weights as the elastic step's), then ``slow_iters`` iterations of
     ``load`` (the workers' sum). Returns the sum of the losses of the
     entries with positive weight."""
     optimizer.zero_grad(set_to_none=True)
-    wloss, loss_sum = weighted_loss(model, *batch)
+    wloss, loss_sum = weighted_loss(model, *batch, compute_dtype)
     wloss.backward()
     _inject(load, int(slow_iters), wloss)
     optimizer.step()
@@ -148,10 +196,12 @@ def packed_step(
 def probe_grads(
     model: torch.nn.Module, params: List[torch.Tensor], batch: Batch, grad_clip: float = 0.0,
     load: Optional[Load] = None, slow_iters: int = 0,
+    compute_dtype: Optional[torch.dtype] = None,
 ):
     """One worker's forward/backward (and clip) and its injected load,
-    gradients returned, ``.grad`` untouched."""
-    return worker_grads(model, params, batch, grad_clip, load, slow_iters)[0]
+    gradients returned, ``.grad`` untouched; under ``compute_dtype`` its
+    cast included (the elastic step casts once for all its workers)."""
+    return worker_grads(model, params, batch, grad_clip, load, slow_iters, compute_dtype)[0]
 
 
 @torch.no_grad()

@@ -2,7 +2,8 @@
 """Where one DBS epoch's time goes on an NVIDIA card.
 
     python3 scripts/torch_profile.py [--recipe densenet|lm] [--arms auto|packed,elastic,...]
-                                     [--epochs-warm 1] [--out DIR]
+                                     [--precision float32|bfloat16,...] [--epochs-warm 1]
+                                     [--out DIR]
 
 Recipes:
 
@@ -21,7 +22,15 @@ trainer picks), it runs the training steps of one more epoch's plan three
 times, probes off: once to warm up that plan's batch shapes, once plain for
 its host wall, and once under ``torch.profiler`` for the device's kernel
 time. Arms listed in turn (``packed,elastic,elastic,packed``) alternate on
-one card and one plan. It prints, for each arm:
+one card and one plan.
+
+``--precision`` gives each arm its compute dtype (``float32``, the default,
+or ``bfloat16``: the port's ``--precision bfloat16``, bf16 compute over f32
+master weights), a list matched to ``--arms`` one to one, either list of
+length 1 repeated (``--arms packed --precision
+float32,bfloat16,bfloat16,float32`` alternates the two dtypes on the packed
+path). Each dtype gets its own trainer, warmed up alike; every arm runs the
+first one's plan. It prints, for each arm:
 
 - the first pass's wall (new batch shapes pay cuDNN's and the driver's
   first-use costs) beside the steady one;
@@ -71,6 +80,7 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("groupnorm (port)", ("gn_fwd_", "gn_bwd_", "gn_param_")),
     ("cross-entropy (port)", ("xent_",)),
     ("layout transposes (cuDNN)", ("nhwcToNchw", "nchwToNhwc")),
+    ("dtype casts and copies", ("copy_kernel",)),
     ("convolution (cuDNN)", ("conv", "xmma", "fft", "region_transform", "implicit", "winograd", "cudnn", "sm90", "gemm", "dgrad", "wgrad")),
     ("concatenation", ("CatArray",)),
     ("pooling", ("pool",)),
@@ -92,6 +102,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--recipe", choices=sorted(RECIPES), default="densenet")
     ap.add_argument("--arms", default="auto")
+    ap.add_argument("--precision", default="float32")
     ap.add_argument("--epochs-warm", type=int, default=1)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -116,21 +127,31 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
-    cfg = config_from_args(
-        RECIPES[args.recipe].split()
-        + ["--log_dir", os.path.join(args.out, "logs"), "--stat_dir", os.path.join(args.out, "statis")]
-    )
+    paths, precisions = args.arms.split(","), args.precision.split(",")
+    n = max(len(paths), len(precisions))
+    if {len(paths), len(precisions)} - {1, n}:
+        ap.error("--arms and --precision: lists of one length, or of length 1")
+    paths, precisions = paths * (n // len(paths)), precisions * (n // len(precisions))
     families = LM_FAMILIES if args.recipe == "lm" else FAMILIES
-    tr = (LMTrainer if args.recipe == "lm" else Trainer)(cfg, log_to_file=False)
-    for e in range(args.epochs_warm):
-        tr.run_epoch(e)
+    trainers = {}
+    for prec in dict.fromkeys(precisions):  # one trainer a dtype, in order of first use
+        sub = os.path.join(args.out, prec)
+        cfg = config_from_args(
+            RECIPES[args.recipe].split() + ["--precision", prec,
+                                            "--log_dir", os.path.join(sub, "logs"),
+                                            "--stat_dir", os.path.join(sub, "statis")]
+        )
+        tr = (LMTrainer if args.recipe == "lm" else Trainer)(cfg, log_to_file=False)
+        for e in range(args.epochs_warm):
+            tr.run_epoch(e)
+        trainers[prec] = tr
     epoch = args.epochs_warm
-    plan, faults = tr._plan_epoch(epoch)
+    plan, faults = trainers[precisions[0]]._plan_epoch(epoch)
 
-    arms = [("packed" if tr._can_use_packed(plan) else "elastic") if arm == "auto" else arm
-            for arm in args.arms.split(",")]
     results = []
-    for arm in arms:
+    for path, prec in zip(paths, precisions):
+        tr = trainers[prec]
+        arm = ("packed" if tr._can_use_packed(plan) else "elastic") if path == "auto" else path
         train = {"packed": tr._train_epoch_packed, "elastic": tr._train_epoch_elastic}[arm]
 
         def train_steps():
@@ -145,7 +166,7 @@ def main(argv=None) -> int:
         wall = train_steps()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall_profiled = train_steps()
-        results.append(report(tr, cfg, plan, epoch, arm, families, prof,
+        results.append(report(tr, tr.cfg, plan, epoch, f"{arm} {prec}", families, prof,
                               wall, wall_first, wall_profiled, args.recipe))
     with open(os.path.join(args.out, "profile.json"), "w") as f:
         json.dump({"card": smi, "recipe": args.recipe, "epoch": epoch,

@@ -692,3 +692,80 @@ def test_new_families_on_the_card_match_the_cpu(cuda, name):
     (got, grad), (want, _), (_, exact) = out
     torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
     torch.testing.assert_close(grad.double(), exact, atol=5e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bf16_packed_step_on_the_card_is_as_close_to_f64_as_the_cpu(cuda):
+    """``--precision bfloat16``'s packed step (bf16 compute over f32 master
+    weights) on the card: K1 on bf16 activations only, K2 on f32 logits;
+    the step's summed gradient (the momentum buffer) and the updated
+    parameters against the CPU's f64 step from the same weights and batch,
+    within 4 times the CPU's own bf16 step's distance from f64 (the two
+    round to bf16 at the same points; the card's convolutions and K1 sum in
+    another order). Parameters and buffers stay f32."""
+    torch.backends.cudnn.allow_tf32 = False
+    ref = DenseNet((2, 2), growth_rate=8, image_size=16)
+    init_flax_defaults(ref, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(5)
+    x, y = torch.randn(24, 16, 16, 3, generator=g), torch.randint(0, 10, (24,), generator=g)
+    w = torch.full((24,), 1.0 / 24)
+    out = {}
+    for tag, d, dtype in (("card", cuda, torch.bfloat16), ("cpu", "cpu", torch.bfloat16),
+                          ("f64", "cpu", None)):
+        m = DenseNet((2, 2), growth_rate=8, image_size=16)
+        m.load_state_dict(ref.state_dict())
+        wide = torch.float64 if dtype is None else torch.float32
+        m = m.to(d, wide, memory_format=torch.channels_last)
+        opt = make_optimizer(list(m.parameters()), 0.05, 0.9)
+        runtime.reset_launches()
+        packed_step(m, opt, (x.to(d, wide), y.to(d), w.to(d, wide)), compute_dtype=dtype)
+        if tag == "card":
+            n_gn = sum(isinstance(mod, GroupNorm) for mod in m.modules())
+            assert runtime.LAUNCHES["groupnorm_fwd_bf16"] == runtime.LAUNCHES["groupnorm_fwd"] == n_gn
+            assert runtime.LAUNCHES["groupnorm_bwd_bf16"] == runtime.LAUNCHES["groupnorm_bwd"] == n_gn
+            assert runtime.LAUNCHES["xent_fwd"] == 1 and runtime.LAUNCHES["xent_fwd_bf16"] == 0
+            for p in m.parameters():
+                assert p.dtype == opt.state[p]["momentum_buffer"].dtype == torch.float32
+        out[tag] = {n: (p.detach().double().cpu(), opt.state[p]["momentum_buffer"].double().cpu())
+                    for n, p in m.named_parameters()}
+    for i in (0, 1):  # parameters, buffers
+        err = {tag: max((out[tag][n][i] - out["f64"][n][i]).abs().max().item() for n in out["f64"])
+               for tag in ("card", "cpu")}
+        assert 0 < err["card"] <= 4 * err["cpu"], (i, err)
+
+
+@pytest.mark.cuda
+def test_groupnorm_bf16_at_every_densenet121_packed_shape(cuda):
+    """K1 on bf16 activations (``--precision bfloat16``: f32 scale and bias)
+    at every distinct GroupNorm call of DenseNet-121 at a packed step's
+    b = 512, on the tiled route ``plan`` picks: y against ``group_norm_ref``
+    (atol 2e-2, rtol 1e-2: inputs and outputs rounded to 8 significant
+    bits), the saved statistics (1e-5), and the backward, twice bit for bit,
+    against ``group_norm_bwd_ref`` from the kernel's own statistics (dx at
+    the bf16 tolerance; dscale/dbias also rtol 1e-4)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b = 512
+    for s, c, groups, relu in _zoo_gn_calls("densenet"):
+        fwd, bwd = (plan(b, s, c, groups, torch.bfloat16, back) for back in (False, True))
+        assert fwd.route == bwd.route == "tiled", (s, c, groups)
+        x = torch.randn((b, s, c), device=cuda, generator=gen).to(torch.bfloat16)
+        dy = torch.randn((b, s, c), device=cuda, generator=gen).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(c, device=cuda, generator=gen)
+        bias = 0.1 * torch.randn(c, device=cuda, generator=gen)
+        runtime.reset_launches()
+        y, mean, rstd = group_norm_fwd(x, w, bias, groups, 1e-6, relu, launch=fwd)
+        got = group_norm_bwd(x, dy, w, bias, mean, rstd, groups, relu, launch=bwd)
+        again = group_norm_bwd(x, dy, w, bias, mean, rstd, groups, relu, launch=bwd)
+        assert runtime.LAUNCHES["groupnorm_fwd_bf16"] == 1 and runtime.LAUNCHES["groupnorm_bwd_bf16"] == 2
+        assert all(torch.equal(u, v) for u, v in zip(got, again)), (s, c)
+        torch.testing.assert_close(y.float(), group_norm_ref(x.float(), w, bias, groups, 1e-6, relu),
+                                   atol=2e-2, rtol=1e-2)
+        for have, want in zip((mean, rstd), group_norm_stats_ref(x, groups, 1e-6)):
+            torch.testing.assert_close(have, want, atol=1e-5, rtol=1e-5)
+        px, pw, pb = group_norm_bwd_ref(x.float(), dy.float(), w, bias, mean, rstd, groups, relu)
+        dx, dw, db = got
+        torch.testing.assert_close(dx.float(), px, atol=2e-2, rtol=1e-2)
+        torch.testing.assert_close(dw, pw, atol=2e-2, rtol=1e-2)
+        torch.testing.assert_close(db, pb, atol=2e-2, rtol=1e-2)
+        del x, dy, y, got, again, px, pw, pb, dx, dw, db
+        torch.cuda.empty_cache()

@@ -66,7 +66,7 @@ BASE = dict(model="densenet", dataset="cifar10")
     {"grad_accum": 2}, {"ckpt_dir": "ck", "rebalance": "window"},
     {"elastic": "on"}, {"coordinator": "localhost:1"}, {"trace": "on"},
     {"remat": True, "fault_schedule": "sin", "straggler": "2,1,1,1"},
-    {"precision": "bfloat16"}, {"remat": True},
+    {"seq_parallel": "ulysses"}, {"remat": True},
     {"ckpt_dir": "ck"}, {"superstep": "on"},
     {"trace": "ring"}, {"seq_parallel": "ring"},
     {"device": [0, 1], "world_size": 2},

@@ -462,7 +462,8 @@ def test_compute_mode_restages_the_load_at_each_window(bundle, monkeypatch):
     plan, faults = tr._plan_epoch(1)
     seen = []
     monkeypatch.setattr(port_engine, "elastic_step",
-                        lambda model, opt, batches, clip, load, slow: seen.append(list(slow)))
+                        lambda model, opt, batches, clip, load, slow, compute_dtype:
+                        seen.append(list(slow)))
     tr._run_elastic_windows(plan, [(0, plan)], tr._elastic_ranges(plan.num_steps), faults, 1,
                             {"loss": torch.zeros(()), "count": 0})
     ctx = FaultContext(batch_sizes=plan.batch_sizes.astype(np.float64), iter_cost_s=2e-4,
