@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 4g,5]
 
-Phases (any failure raises and exits nonzero; there is no CPU fallback):
+Phases (any failure raises and exits nonzero; there is no CPU fallback).
+``--phases`` runs [1], [2] and the listed phases only, and then ends without
+the two JSON lines (a quicker check of one part); with no arguments every
+phase runs.
 
 1. The card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
    TF32 off for matrix products and convolutions (the plain versions and the
@@ -87,6 +90,28 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
 5b. The same under ``--precision bfloat16``, 2 epochs: K3's short route and
    K2 ran with f32 operands (the embedding runs in bf16, ``+ pe`` promotes
    to f32, as in the JAX package), share moved, finite losses.
+   Every path of [4]-[5b] runs under the default ``--superstep auto``: each
+   training step replayed from a captured CUDA graph
+   (``train/supersteps.py``); every epoch's steps are replays, one dispatch
+   a window (the packed epoch: one), and an epoch on a repeated plan
+   captures nothing (``_meta["supersteps"]``). Launch counts include the
+   replays.
+4g. ``--superstep`` as captured CUDA graphs: (i) each kernel captured alone
+   at a path shape and replayed, against its plain version (the tolerances
+   of [3]) and the eager launch's bits: K1 at every DenseNet-121 call at
+   b = 512, f32 and bf16; K2 at [512, 10] and [1400, 18328]; K3's short
+   route at (40, 2, 35, 100); the load with a device count, replayed at 0,
+   3 and 300 iterations. (ii) From one state, two graphed steps (a capture,
+   then a replay) against two eager steps, cuDNN deterministic: the
+   parameters, momentum buffers and loss sums bit for bit, for DenseNet-121
+   elastic at the 3:1 plan's widths (32, 160, 160, 160) with the
+   straggler's compute-mode load, DenseNet-121 packed (b = 512), and the
+   LM with dropout (the replays draw the eager masks). (iii) ``--superstep
+   auto`` against ``off`` on [4b]'s, [5]'s and [4f]'s packed recipes: each
+   arm's epochs (walls, captures, dispatches against the windows, host
+   dispatch seconds, peak memory), then steady passes over one plan,
+   alternating off, auto, auto, off, and one profiled pass each for the
+   busy share.
 6. DenseNet-121, ResNet-18, RegNetY-400MF and the Transformer LM on the
    card against the same models on the CPU (plain versions), same weights
    and inputs; the CNNs' first-conv gradient against the CPU's f64 run, at
@@ -106,6 +131,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import sys
 import time
 
@@ -881,12 +907,38 @@ def check_series(series, rate: str, epochs: int = EPOCHS, moved_off: int = 0):
             f"{series['sync_time'][e]:.4f}s  probe_time {series['probe_time'][e]:.3f}s")
 
 
-def check_cnn_path(counts, series, what, path="packed", epochs=EPOCHS, moved_off=0):
+def check_supersteps(meta, what, repeats=True):
+    """Every epoch of a path under the default ``--superstep auto``: scan
+    mode, each training step replayed from a step graph, one capture a new
+    key, one dispatch a window (the packed epoch: one); with ``repeats``,
+    an epoch whose plan and injected workers repeat an earlier epoch's
+    captures nothing (not under a time-varying schedule, whose load moves
+    within the epoch). Logs each epoch's captures and host dispatch time."""
+    seen = []
+    for rec in meta["supersteps"]:
+        e = rec["epoch"]
+        assert rec["mode"] == "scan" and rec["eager_runs"] == 0, f"{what} epoch {e}: {rec}"
+        assert rec["replays"] == rec["steps"], f"{what} epoch {e}: {rec['replays']} replays, {rec['steps']} steps"
+        assert rec["dispatches"] == rec["windows"], f"{what} epoch {e}: {rec}"
+        assert rec["captures"] == rec["new_keys"], f"{what} epoch {e}: {rec}"
+        sig = (rec["batch_sizes"], rec["injected"])
+        if repeats and sig in seen:
+            assert rec["captures"] == 0, f"{what} epoch {e}: a repeated plan captured {rec['captures']}"
+        seen.append(sig)
+        log(f"  epoch {e} step graphs: {rec['captures']} captured ({rec['capture_s']:.2f}s), "
+            f"{rec['replays']} replays in {rec['dispatches']} dispatches, host dispatch "
+            f"{rec['host_dispatch_s']:.3f}s, {rec['keys']} keys")
+
+
+def check_cnn_path(counts, series, what, path="packed", epochs=EPOCHS, moved_off=0,
+                   repeats=True):
     """A vision path: the series (``check_series``), every epoch on
-    ``path``, K1 and K2 launched; logs the launches and returns ``_meta``."""
+    ``path`` and through step graphs (``check_supersteps``), K1 and K2
+    launched; logs the launches and returns ``_meta``."""
     check_series(series, "examples", epochs, moved_off)
     meta = series["_meta"]
     assert meta["paths"] == [path] * epochs, meta["paths"]
+    check_supersteps(meta, what, repeats)
     for k in CNN_KERNELS:
         assert counts[k] > 0, f"kernel {k} never launched on the {what} path"
     log(f"  launches: {counts}")
@@ -952,7 +1004,7 @@ def check_window_path(torch, dev, counts, series, epoch_arm, err, records):
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import plan
 
     meta = check_cnn_path(counts, series, "window-cadence", path="elastic",
-                          epochs=WINDOW_EPOCHS, moved_off=None)
+                          epochs=WINDOW_EPOCHS, moved_off=None, repeats=False)
     for k in GN_GENERAL:
         assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the window path, want 0"
     assert counts["synthetic_load"] > 0, "the synthetic-load kernel never launched"
@@ -1010,6 +1062,7 @@ def check_window_path(torch, dev, counts, series, epoch_arm, err, records):
 
 def check_lm_path(counts, series, epochs=EPOCHS):
     check_series(series, "tokens", epochs)
+    check_supersteps(series["_meta"], "LM")
     assert series["accuracy"] == [1.0 - v for v in series["val_loss"]], "accuracy != 1 - val_loss"
     for k in LM_KERNELS:
         # attention runs once per layer of a worker step, the loss once
@@ -1206,47 +1259,374 @@ def check_lm_against_cpu(torch, dev):
     torch.testing.assert_close(res[1][1], res[0][1], atol=1e-4, rtol=0)
 
 
-def main() -> int:
-    import torch
+# [4g]: --superstep as captured CUDA graphs. (i) each kernel alone replayed
+# from a graph at a path shape; (ii) one graphed step against one eager step
+# from the same state, cuDNN deterministic: DenseNet-121 elastic at the 3:1
+# plan's widths with the straggler's compute-mode load in the step,
+# DenseNet-121 packed (b = 512, the workers' summed load), the LM (4 x 20
+# columns, clip 0.25, dropout); (iii) --superstep auto against off on [4b]'s,
+# [5]'s and [4f]'s recipes, each arm's run beside the other's, then steady
+# passes over one plan alternating off, auto, auto, off and one profiled
+# pass each
+SUPERSTEP_ELASTIC_WIDTHS, SUPERSTEP_LOAD_ITERS = (32, 160, 160, 160), 300
+SUPERSTEP_LM_COLS = 20
+SUPERSTEP_ARMS = (("densenet elastic, compute-mode straggler", COMPUTE_ARGV),
+                  ("language model", LM_ARGV),
+                  ("densenet packed, bf16", BF16_ARGV))
+# [4]'s and [4f]'s packed cli peaks with eager steps, before step graphs
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside each arm's peak
+EAGER_PEAK_GIB = "19.17 GiB ([4], f32 packed) / 9.69 GiB ([4f], bf16 packed)"
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs the port on an NVIDIA card",
-              file=sys.stderr)
-        return 1
-    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
 
-    t_start = time.perf_counter()
+def replay_graph(torch, fn):
+    """``fn()`` warmed once on a side stream (libraries loaded, plans
+    chosen), captured into a CUDA graph and replayed once: (graph, the
+    replay's outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph, outs
 
-    def phase(title):  # each phase's header, with the script's clock
-        log(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
 
-    os.makedirs(OUT, exist_ok=True)
-    dev = torch.device("cuda", 0)
+def check_kernels_in_graphs(torch, dev, err):
+    """[4g](i): each kernel captured alone at a path shape and replayed,
+    against its plain version under the tolerances of [3] and against the
+    same call launched eagerly (the same bits): K1 forward and backward at
+    every distinct GroupNorm call of DenseNet-121 at the packed b = 512, f32
+    and bf16; K2 forward and backward at [512, 10] and [1400, 18328]; K3's
+    short route forward and fused backward at (40, 2, 35, 100) on the
+    model's views; the synthetic load captured once with a device count and
+    replayed at 0, 3 and 300 iterations. The errors join the JSON line's."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.faultload import SyntheticLoad, synthetic_load
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
+        attn_bwd_short,
+        attn_bwd_short_ref,
+        attn_fwd_ref,
+        attn_fwd_short,
+    )
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
+        group_norm_bwd,
+        group_norm_bwd_ref,
+        group_norm_fwd,
+        group_norm_ref,
+    )
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import (
+        xent_bwd,
+        xent_bwd_ref,
+        xent_fwd,
+        xent_fwd_ref,
+    )
 
-    phase("[1] card")
-    smi = card()
-    log(smi)
-    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log(f"  torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
-    log(f"  torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    def same(got, want, what):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), f"{what}: the replay's bits differ from the eager launch's"
 
-    phase("[2] build")
-    t0 = time.perf_counter()
-    runtime.build()
-    log(f"  built {list(runtime.SOURCES)} in {time.perf_counter() - t0:.1f}s into {runtime.BUILD_DIR}")
-    for name, text in runtime.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {name}: {line.strip()}")
+    shapes = sorted(set(model_gn_shapes(torch, dev, "densenet", GN_PACKED_B, with_relu=True)[0]))
+    on_card = torch.Generator(device=dev).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        ty, tg, rt = GN_TOL[str(dtype)]
+        keys = GN_BF16 if dtype == torch.bfloat16 else ("groupnorm_fwd", "groupnorm_bwd")
+        for bb, s, c, g, relu in shapes:
+            x = torch.randn((bb, s, c), generator=on_card, device=dev).to(dtype)
+            dy = torch.randn((bb, s, c), generator=on_card, device=dev).to(dtype)
+            w = 1 + 0.1 * torch.randn((c,), generator=on_card, device=dev)
+            b = 0.1 * torch.randn((c,), generator=on_card, device=dev)
 
-    phase("[3] kernels against their plain versions")
-    records = []
-    err = check_groupnorm(torch, dev, records)
-    err.update(check_xent(torch, dev, records))
-    err.update(check_flash(torch, dev, records))
+            def gn():
+                y, mean, rstd = group_norm_fwd(x, w, b, g, 1e-6, relu)
+                return (y, mean, rstd) + tuple(group_norm_bwd(x, dy, w, b, mean, rstd, g, relu))
+
+            graph, got = replay_graph(torch, gn)
+            same(got, gn(), f"groupnorm {dtype} {(bb, s, c)}")
+            y, mean, rstd, dx, dw, db = got
+            yr = group_norm_ref(x.float(), w, b, g, 1e-6, relu)
+            torch.testing.assert_close(y.float(), yr, atol=ty, rtol=rt)
+            gx, gw, gb = group_norm_bwd_ref(x.float(), dy.float(), w, b, mean, rstd, g, relu)
+            torch.testing.assert_close(dx.float(), gx, atol=tg, rtol=rt)
+            torch.testing.assert_close(dw, gw, atol=tg, rtol=max(rt, 1e-4))
+            torch.testing.assert_close(db, gb, atol=tg, rtol=max(rt, 1e-4))
+            err[keys[0]] = max(err[keys[0]], (y.float() - yr).abs().max().item())
+            err[keys[1]] = max(err[keys[1]], (dx.float() - gx).abs().max().item(),
+                               (dw - gw).abs().max().item(), (db - gb).abs().max().item())
+            del graph, got, x, dy, y, dx, yr, gx
+            torch.cuda.empty_cache()
+        log(f"  K1 {str(dtype)[6:]} in a graph: {len(shapes)} distinct DenseNet-121 calls at "
+            f"b={GN_PACKED_B}, forward and backward, within tolerance and the eager bits")
+    for r, v in ((512, 10), XENT_LM_SHAPE):
+        logits, labels, gr, _ = xent_inputs(r, v, dev)
+
+        def xent():
+            loss, lse = xent_fwd(logits, labels)
+            return loss, lse, xent_bwd(logits, labels, gr, lse)
+
+        graph, (loss, lse, dx) = replay_graph(torch, xent)
+        same((loss, lse, dx), xent(), f"xent [{r}, {v}]")
+        loss_r, lse_r = xent_fwd_ref(logits, labels)
+        dx_r = xent_bwd_ref(logits, labels, gr, lse)
+        torch.testing.assert_close(loss, loss_r, atol=1e-5, rtol=0)
+        torch.testing.assert_close(lse, lse_r, atol=1e-5, rtol=0)
+        ratio = dlogits_ratio(torch, dx, dx_r, labels, gr, 1e-5)
+        assert ratio <= 1.0, f"xent [{r}, {v}] in a graph: dlogits off by {ratio:.3g} of its limit"
+        err["xent_fwd"] = max(err["xent_fwd"], (loss - loss_r).abs().max().item(),
+                              (lse - lse_r).abs().max().item())
+        err["xent_bwd"] = max(err["xent_bwd"], (dx - dx_r).abs().max().item())
+        log(f"  K2 [{r}, {v}] in a graph: forward and backward within tolerance and the eager bits")
+    q, k, v, do = attn_inputs(ATTN_PATH_SHAPE, dev, 11, "model")
+
+    def attn():
+        o, lse = attn_fwd_short(q, k, v, True)
+        return (o, lse) + tuple(attn_bwd_short(q, k, v, do, o, lse, True))
+
+    graph, got = replay_graph(torch, attn)
+    same(got, attn(), f"attention {ATTN_PATH_SHAPE}")
+    o, lse = got[:2]
+    o_r, lse_r = attn_fwd_ref(q, k, v, True)
+    err["attn_fwd"] = max(err["attn_fwd"], _close(torch, o, o_r, 2e-5, "attn_fwd in a graph"),
+                          _close(torch, lse, lse_r, 2e-5, "attn_fwd lse in a graph"))
+    for n, a, b in zip("qkv", got[2:], attn_bwd_short_ref(q, k, v, do, o, lse, True)):
+        err["attn_bwd"] = max(err["attn_bwd"], _close(torch, a, b, 5e-4, f"attn_bwd d{n} in a graph"))
+    log(f"  K3 {ATTN_PATH_SHAPE} in a graph: forward and backward within tolerance and the eager bits")
+    load = SyntheticLoad()
+    seed = torch.tensor(1.7, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    graph, out = replay_graph(torch, lambda: load(count, seed))
+    for n in (0, 3, SUPERSTEP_LOAD_ITERS):
+        count.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, load(n, seed)), f"synthetic load x{n} in a graph: bits differ"
+        torch.testing.assert_close(out, synthetic_load(n, seed), atol=1e-6, rtol=1e-5)
+        err["synthetic_load"] = max(err["synthetic_load"], (out - synthetic_load(n, seed)).abs().item())
+    log(f"  synthetic load captured once with a device count, replayed at 0, 3 and "
+        f"{SUPERSTEP_LOAD_ITERS} iterations: the int form's bits")
+
+
+def step_state(tr):
+    """Copies of the trainer's parameters, momentum buffers and dropout
+    generator state."""
+    opt = tr.optimizer
+    return ([p.detach().clone() for p in tr.params],
+            [opt.state[p]["momentum_buffer"].clone() for p in tr.params],
+            tr.dropout_gen.get_state())
+
+
+def restore_state(torch, tr, saved):
+    """``step_state``'s copies written back in place (a captured graph
+    holds the tensors' addresses)."""
+    params, bufs, gen = saved
+    with torch.no_grad():
+        for p, a, b in zip(tr.params, params, bufs):
+            p.copy_(a)
+            tr.optimizer.state[p]["momentum_buffer"].copy_(b)
+    tr.dropout_gen.set_state(gen)
+
+
+def check_step_graphs(torch, dev):
+    """[4g](ii): from one state, two eager steps (``train/steps.py``) and
+    two steps through ``StepGraphs`` (a capture, then replays) on the same
+    batches: the parameters, momentum buffers and loss sums after each step
+    bit for bit, cuDNN deterministic. DenseNet-121 elastic at the widths
+    ``SUPERSTEP_ELASTIC_WIDTHS`` with the straggler's load of
+    ``SUPERSTEP_LOAD_ITERS`` iterations in its step, DenseNet-121 packed
+    (b = 512, the same load), and the LM (4 workers x 20 columns, clip
+    0.25, dropout on: the replays draw the eager masks)."""
+    import numpy as np
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import (
+        elastic_step,
+        packed_step,
+        prepare_step_state,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for case in ("elastic", "packed", "lm"):
+            lm = case == "lm"
+            argv = with_epochs(LM_ARGV if lm else COMPUTE_ARGV, 1) + [
+                "--log_dir", os.path.join(OUT, "step_graphs", "logs"),
+                "--stat_dir", os.path.join(OUT, "step_graphs", "statis")]
+            tr = (LMTrainer if lm else Trainer)(config_from_args(argv), log_to_file=False)
+            tr.model.train()
+            if lm:
+                cols = np.full(WORKERS, SUPERSTEP_LM_COLS)
+                tr.shares = cols / cols.sum()
+                plan = tr._build_plan(0, cols)
+                batches = [tr._worker_epoch(plan, r)(0)[0] for r in range(WORKERS)]
+                slow = [0] * WORKERS
+            else:
+                widths = np.asarray(SUPERSTEP_ELASTIC_WIDTHS)
+                gen = torch.Generator(device=dev).manual_seed(8)
+                batches = []
+                for b in widths:
+                    rows = torch.randint(0, tr.n_train, (int(b),), device=dev, generator=gen)
+                    batches.append((tr._prep(tr.train_x[rows]), tr.train_y[rows],
+                                    torch.full((int(b),), 1.0 / widths.sum(), device=dev)))
+                slow = [SUPERSTEP_LOAD_ITERS, 0, 0, 0]
+                if case == "packed":
+                    batches = [tuple(torch.cat(t) for t in zip(*batches))]
+                    slow = [SUPERSTEP_LOAD_ITERS]
+            if case == "packed":
+                def eager():
+                    return packed_step(tr.model, tr.optimizer, batches[0], tr.load, slow[0],
+                                       tr.compute_dtype)
+                body, warm = tr._packed_body(), tr._warmup(0.0)
+            else:
+                def eager():
+                    return elastic_step(tr.model, tr.optimizer, batches, tr.grad_clip, tr.load, slow,
+                                        tr.compute_dtype)
+                body, warm = tr._elastic_body(), tr._warmup(tr.grad_clip)
+            prepare_step_state(tr.optimizer)
+            saved = step_state(tr)
+            want, loss = [], torch.zeros((), device=dev)
+            for _ in range(2):
+                loss += eager()
+                want.append((step_state(tr)[:2], loss.clone()))
+            restore_state(torch, tr, saved)
+            tr.supersteps.loss.zero_()
+            t0 = time.perf_counter()
+            for i in range(2):
+                tr._superstep(case if case == "packed" else "elastic", batches, slow, body, warm)
+                torch.cuda.synchronize()
+                (params, bufs), got_loss = step_state(tr)[:2], tr.supersteps.loss.clone()
+                (w_params, w_bufs), w_loss = want[i]
+                d_p = max((a - b).abs().max().item() for a, b in zip(params, w_params))
+                d_m = max((a - b).abs().max().item() for a, b in zip(bufs, w_bufs))
+                log(f"  {case} step {i + 1}: graphed against eager: |parameters| {d_p:.3g}, "
+                    f"|momentum| {d_m:.3g}, loss sums {got_loss.item():.9g} / {w_loss.item():.9g}")
+                assert all(torch.equal(a, b) for a, b in zip(params, w_params)), f"{case}: parameters differ"
+                assert all(torch.equal(a, b) for a, b in zip(bufs, w_bufs)), f"{case}: momentum differs"
+                assert torch.equal(got_loss, w_loss), f"{case}: loss sums differ"
+            st = tr.supersteps.stats()
+            assert (st["captures"], st["replays"]) == (1, 2), st
+            out[case] = {"capture_s": st["capture_s"], "wall_s": time.perf_counter() - t0}
+            log(f"  {case}: 1 capture ({st['capture_s']:.2f}s with its warm-up), 2 replays, "
+                f"bit for bit with the eager steps")
+            del tr, batches, saved, want
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def run_superstep_arms(torch, dev):
+    """[4g](iii): ``--superstep auto`` against ``off`` on each recipe of
+    ``SUPERSTEP_ARMS``: each arm's trainer runs the recipe's epochs (auto,
+    then off); then, on the auto trainer's next plan, one untimed pass per
+    arm (the auto arm captures that plan's new keys there), four timed
+    passes of the epoch's training steps, probes off (off, auto, auto, off),
+    and one pass each under ``torch.profiler`` for the busy share (device
+    kernel time over the arm's median unprofiled pass wall). Per arm and
+    epoch: walls, captures, replays, dispatches against the windows, host
+    dispatch seconds; the peak device memory above the arm's baseline.
+    Asserts: under auto every epoch's dispatches equal its windows (steps
+    under off), an epoch whose batch sizes repeat an earlier epoch's
+    captures nothing, and the timed passes capture nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
+
+    results = {}
+    for name, argv in SUPERSTEP_ARMS:
+        trainers, res = {}, {}
+        for mode in ("auto", "off"):
+            sub = os.path.join(OUT, "supersteps", name.split(",")[0].replace(" ", "_") + "_" + mode)
+            shutil.rmtree(sub, ignore_errors=True)
+            cfg = config_from_args(argv + ["--superstep", mode, "--log_dir", os.path.join(sub, "logs"),
+                                           "--stat_dir", os.path.join(sub, "statis")])
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tr = (LMTrainer if cfg.model == "transformer" else Trainer)(cfg, log_to_file=False)
+            t0 = time.perf_counter()
+            tr.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            recs = tr.recorder.meta["supersteps"]
+            if mode == "auto":
+                check_supersteps(tr.recorder.meta, f"{name} [auto]")
+            for e, rec in enumerate(recs):
+                assert rec["mode"] == ("scan" if mode == "auto" else "step"), rec
+                want = rec["windows"] if mode == "auto" else rec["steps"]
+                assert rec["dispatches"] == want, f"{name} {mode} epoch {e}: {rec}"
+            walls = epoch_walls(tr.recorder.data)
+            for e, rec in enumerate(recs):
+                log(f"  {name} [{mode}] epoch {e} ({rec['path']}, batches {rec['batch_sizes']}): wall "
+                    f"{walls[e]:.3f}s, {rec['steps']} steps in {rec['windows']} windows, dispatches "
+                    f"{rec['dispatches']}, host dispatch {rec['host_dispatch_s']:.3f}s, captures "
+                    f"{rec['captures']} ({rec['capture_s']:.2f}s), replays {rec['replays']}")
+            log(f"  {name} [{mode}]: run {wall:.1f}s, peak device memory {peak / 2**30:.2f} GiB above "
+                f"the arm's baseline (eager cli peaks before step graphs: {EAGER_PEAK_GIB})")
+            trainers[mode] = tr
+            res[mode] = {"epoch_walls": walls, "supersteps": recs, "run_s": wall, "peak_bytes": peak,
+                         "passes": []}
+        epoch = trainers["auto"].cfg.epoch_size
+        plan, faults = trainers["auto"]._plan_epoch(epoch)
+
+        def train_pass(mode):
+            tr = trainers[mode]
+            tr._probe_this_epoch = False  # the training steps alone
+            train = tr._train_epoch_packed if tr._can_use_packed(plan) else tr._train_epoch_elastic
+            before = tr.supersteps.stats()["captures"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(plan, faults, epoch)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, tr.supersteps.stats()["captures"] - before, tr._host_meter
+
+        for mode in ("off", "auto"):
+            train_pass(mode)  # new keys of this plan captured here
+        for mode in ("off", "auto", "auto", "off"):
+            w, caps, meter = train_pass(mode)
+            assert caps == 0, f"{name} {mode}: a pass on a repeated plan captured {caps}"
+            res[mode]["passes"].append({"wall_s": w, "dispatches": meter.dispatches,
+                                        "host_dispatch_s": meter.dispatch_s})
+        for mode in ("auto", "off"):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                train_pass(mode)
+            dev_us = 0.0
+            for ev in prof.key_averages():
+                us = getattr(ev, "self_device_time_total", None)
+                us = us if us is not None else getattr(ev, "self_cuda_time_total", 0.0)
+                if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+                    dev_us += us
+            res[mode]["device_s"] = dev_us / 1e6
+            res[mode]["busy"] = dev_us / 1e6 / statistics.median(p["wall_s"] for p in res[mode]["passes"])
+        for mode in ("auto", "off"):
+            r = res[mode]
+            log(f"  {name} [{mode}] steady passes over one plan ({plan.num_steps} steps, batches "
+                f"{plan.batch_sizes.tolist()}): walls {[round(p['wall_s'], 4) for p in r['passes']]}s, "
+                f"host dispatch {[round(p['host_dispatch_s'], 4) for p in r['passes']]}s in "
+                f"{r['passes'][0]['dispatches']} dispatches, device kernel time {r['device_s']:.4f}s, "
+                f"busy {100 * r['busy']:.1f}%")
+        results[name] = res
+        del trainers
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_kernels(torch, dev):
+    """[3]'s timing: K1's route for every GroupNorm call of the four
+    families at b = 128 and 512 (f32 and bf16), K1 over DenseNet-121 worker
+    passes (``GN_BATCHES``) and packed passes of DenseNet-121 and ResNet-101
+    (f32 and bf16), K2 and K3 at their path shapes; logs each beside its
+    bound, plain version and library call. Returns (the JSON line's timing
+    rows, K1's worker-pass, packed and packed bf16 tables, K2's and K3's
+    tables, DenseNet-121's GroupNorm shapes at b = 128, K1's routes)."""
     gn_routes = {}
     for name in ("densenet",) + FAMILIES:
         for b, dtype in ((GN_LINE_BATCH, torch.float32), (GN_PACKED_B, torch.float32),
@@ -1299,67 +1679,173 @@ def main() -> int:
                 f"plain {t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
                 f"bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
     torch.cuda.empty_cache()
+    return timing, gt, gp, gp16, xt, at, shapes, gn_routes
 
-    phase("[3b] synthetic load (compute-mode stragglers)")
-    err["synthetic_load"], load = check_synthetic_load(torch, dev)
-    timing["synthetic_load"] = load["timing"]
+
+PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "4g", "6", "6b")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Run the PyTorch port on one NVIDIA card and check it.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="the phases to run after [1] and [2], a comma list of "
+                         f"{', '.join(PHASES)} (default: all; a subset ends without the JSON lines)")
+    args = ap.parse_args(argv)
+    chosen = args.phases.split(",")
+    unknown = set(chosen) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    every = set(chosen) == set(PHASES)
+
+    def want(name):
+        return name in chosen
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on an NVIDIA card",
+              file=sys.stderr)
+        return 1
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+
+    t_start = time.perf_counter()
+
+    def phase(title):  # each phase's header, with the script's clock
+        log(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
+
+    os.makedirs(OUT, exist_ok=True)
+    dev = torch.device("cuda", 0)
+
+    phase("[1] card")
+    smi = card()
+    log(smi)
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
+    log(f"  torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+
+    phase("[2] build")
+    t0 = time.perf_counter()
+    runtime.build()
+    log(f"  built {list(runtime.SOURCES)} in {time.perf_counter() - t0:.1f}s into {runtime.BUILD_DIR}")
+    for name, text in runtime.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {name}: {line.strip()}")
+
+    err = {}
+    records = []
+    if want("3"):
+        phase("[3] kernels against their plain versions")
+        err.update(check_groupnorm(torch, dev, records))
+        err.update(check_xent(torch, dev, records))
+        err.update(check_flash(torch, dev, records))
+        timing, gt, gp, gp16, xt, at, shapes, gn_routes = time_kernels(torch, dev)
+
+    if want("3b"):
+        phase("[3b] synthetic load (compute-mode stragglers)")
+        err["synthetic_load"], load = check_synthetic_load(torch, dev)
+        timing["synthetic_load"] = load["timing"]
 
     paths = {}  # tag: (launch counts, series, wall, peak bytes)
-    phase("[4] vision path: the defaults (packed epochs, adaptive probes)")
-    paths["vision"] = run_path(torch, MAIN_ARGV, "run")
-    check_main_path(*paths["vision"][:2])
+    if want("4"):
+        phase("[4] vision path: the defaults (packed epochs, adaptive probes)")
+        paths["vision"] = run_path(torch, MAIN_ARGV, "run")
+        check_main_path(*paths["vision"][:2])
 
-    phase("[4b] vision path, elastic, compute-mode straggler")
-    paths["vision_compute"] = run_path(torch, COMPUTE_ARGV, "run_compute")
-    check_compute_path(*paths["vision_compute"][:2])
+    if want("4b"):
+        phase("[4b] vision path, elastic, compute-mode straggler")
+        paths["vision_compute"] = run_path(torch, COMPUTE_ARGV, "run_compute")
+        check_compute_path(*paths["vision_compute"][:2])
 
-    phase(f"[4c] vision path, the reference's random faults (-ft), compute mode, seed {FT_SEED}")
-    paths["vision_ft"] = run_path(torch, FT_ARGV, "run_ft")
-    check_ft_path(*paths["vision_ft"][:2])
+    if want("4c"):
+        phase(f"[4c] vision path, the reference's random faults (-ft), compute mode, seed {FT_SEED}")
+        paths["vision_ft"] = run_path(torch, FT_ARGV, "run_ft")
+        check_ft_path(*paths["vision_ft"][:2])
 
-    for name in FAMILIES:
-        phase(f"[4d] -m {name}")
-        paths[name] = run_path(torch, ["-m", name] + FAMILY_ARGV, f"run_{name}")
-        check_cnn_path(*paths[name][:2], name, epochs=FAMILY_EPOCHS, moved_off=None)
+    if want("4d"):
+        for name in FAMILIES:
+            phase(f"[4d] -m {name}")
+            paths[name] = run_path(torch, ["-m", name] + FAMILY_ARGV, f"run_{name}")
+            check_cnn_path(*paths[name][:2], name, epochs=FAMILY_EPOCHS, moved_off=None)
 
-    phase("[4e] vision path, window-cadence rebalancing (compute-mode sin straggler)")
-    paths["vision_window"] = run_path(torch, WINDOW_ARGV, "run_window")
-    paths["vision_window_epoch"] = run_path(torch, EPOCH_CADENCE_ARGV, "run_window_epoch")
-    check_cnn_path(*paths["vision_window_epoch"][:2], "epoch-cadence", path="elastic",
-                   epochs=WINDOW_EPOCHS, moved_off=None)
-    window_walls = check_window_path(torch, dev, *paths["vision_window"][:2],
-                                     paths["vision_window_epoch"][1], err, records)
+    window_walls = None
+    if want("4e"):
+        phase("[4e] vision path, window-cadence rebalancing (compute-mode sin straggler)")
+        err.setdefault("groupnorm_fwd", 0.0)
+        err.setdefault("groupnorm_bwd", 0.0)
+        paths["vision_window"] = run_path(torch, WINDOW_ARGV, "run_window")
+        paths["vision_window_epoch"] = run_path(torch, EPOCH_CADENCE_ARGV, "run_window_epoch")
+        check_cnn_path(*paths["vision_window_epoch"][:2], "epoch-cadence", path="elastic",
+                       epochs=WINDOW_EPOCHS, moved_off=None, repeats=False)
+        window_walls = check_window_path(torch, dev, *paths["vision_window"][:2],
+                                         paths["vision_window_epoch"][1], err, records)
 
-    phase("[4f] vision path under --precision bfloat16: packed (the defaults), then elastic")
-    paths["vision_bf16"] = run_path(torch, BF16_ARGV, "run_bf16")
-    check_bf16_vision_path(*paths["vision_bf16"][:2], "packed", EPOCHS)
-    for e, (w16, w32) in enumerate(zip(epoch_walls(paths["vision_bf16"][1]),
-                                       epoch_walls(paths["vision"][1]))):
-        log(f"  epoch {e} wall: bf16 {w16:.3f}s, f32 ([4]) {w32:.3f}s (for information)")
-    paths["vision_bf16_elastic"] = run_path(torch, BF16_ELASTIC_ARGV, "run_bf16_elastic")
-    check_bf16_vision_path(*paths["vision_bf16_elastic"][:2], "elastic", BF16_ELASTIC_EPOCHS)
+    if want("4f"):
+        phase("[4f] vision path under --precision bfloat16: packed (the defaults), then elastic")
+        paths["vision_bf16"] = run_path(torch, BF16_ARGV, "run_bf16")
+        check_bf16_vision_path(*paths["vision_bf16"][:2], "packed", EPOCHS)
+        if "vision" in paths:
+            for e, (w16, w32) in enumerate(zip(epoch_walls(paths["vision_bf16"][1]),
+                                               epoch_walls(paths["vision"][1]))):
+                log(f"  epoch {e} wall: bf16 {w16:.3f}s, f32 ([4]) {w32:.3f}s (for information)")
+        paths["vision_bf16_elastic"] = run_path(torch, BF16_ELASTIC_ARGV, "run_bf16_elastic")
+        check_bf16_vision_path(*paths["vision_bf16_elastic"][:2], "elastic", BF16_ELASTIC_EPOCHS)
 
-    phase("[5] language-model path")
-    paths["lm"] = run_path(torch, LM_ARGV, "run_lm")
-    check_lm_path(*paths["lm"][:2])
-    torch.cuda.empty_cache()
+    if want("5"):
+        phase("[5] language-model path")
+        paths["lm"] = run_path(torch, LM_ARGV, "run_lm")
+        check_lm_path(*paths["lm"][:2])
+        torch.cuda.empty_cache()
 
-    phase("[5b] language-model path under --precision bfloat16")
-    paths["lm_bf16"] = run_path(torch, LM_BF16_ARGV, "run_lm_bf16")
-    check_bf16_lm_path(*paths["lm_bf16"][:2])
-    for e, (w16, w32) in enumerate(zip(epoch_walls(paths["lm_bf16"][1]), epoch_walls(paths["lm"][1]))):
-        log(f"  epoch {e} wall: bf16 {w16:.3f}s, f32 ([5]) {w32:.3f}s (for information)")
-    torch.cuda.empty_cache()
+    if want("5b"):
+        phase("[5b] language-model path under --precision bfloat16")
+        paths["lm_bf16"] = run_path(torch, LM_BF16_ARGV, "run_lm_bf16")
+        check_bf16_lm_path(*paths["lm_bf16"][:2])
+        if "lm" in paths:
+            for e, (w16, w32) in enumerate(zip(epoch_walls(paths["lm_bf16"][1]),
+                                               epoch_walls(paths["lm"][1]))):
+                log(f"  epoch {e} wall: bf16 {w16:.3f}s, f32 ([5]) {w32:.3f}s (for information)")
+        torch.cuda.empty_cache()
     for tag, (_, _, wall, peak) in paths.items():
         log(f"  path {tag}: cli wall {wall:.1f}s, peak device memory {peak / 2**30:.2f} GiB")
 
-    phase("[6] end-to-end numerics")
-    card_vs_cpu = {name: check_against_cpu(torch, dev, name)
-                   for name in ("densenet", "resnet18", "regnet")}
-    check_lm_against_cpu(torch, dev)
+    supersteps = {}
+    if want("4g"):
+        phase("[4g] --superstep as captured CUDA graphs: (i) each kernel replayed alone")
+        for k in ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd", "attn_fwd", "attn_bwd",
+                  "synthetic_load") + GN_BF16:
+            err.setdefault(k, 0.0)
+        check_kernels_in_graphs(torch, dev, err)
+        phase("[4g] (ii) one graphed step against one eager step, from the same state")
+        supersteps["step_graphs"] = check_step_graphs(torch, dev)
+        phase("[4g] (iii) --superstep auto against off")
+        supersteps["arms"] = run_superstep_arms(torch, dev)
 
-    phase("[6b] bf16 on the card against the CPU's f64 run (the CPU's bf16 run the yardstick)")
-    bf16_vs_cpu = [check_bf16_against_cpu(torch, dev, which) for which in ("densenet", "lm")]
+    card_vs_cpu, bf16_vs_cpu = None, None
+    if want("6"):
+        phase("[6] end-to-end numerics")
+        card_vs_cpu = {name: check_against_cpu(torch, dev, name)
+                       for name in ("densenet", "resnet18", "regnet")}
+        check_lm_against_cpu(torch, dev)
+
+    if want("6b"):
+        phase("[6b] bf16 on the card against the CPU's f64 run (the CPU's bf16 run the yardstick)")
+        bf16_vs_cpu = [check_bf16_against_cpu(torch, dev, which) for which in ("densenet", "lm")]
+
+    if not every:
+        with open(os.path.join(OUT, "phases.json"), "w") as f:
+            json.dump({"card": smi, "phases": chosen, "errors": err, "supersteps": supersteps,
+                       "launches": {tag: p[0] for tag, p in paths.items()},
+                       "series": {tag: p[1] for tag, p in paths.items()},
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+        log(f"  phases {chosen} passed in {time.perf_counter() - t_start:.1f}s "
+            "(a subset: no kernels line, no result line)")
+        return 0
 
     sources = {
         # the tiled route (every DenseNet-121 call), then the general one
@@ -1425,6 +1911,7 @@ def main() -> int:
                    "peak_bytes": {tag: p[3] for tag, p in paths.items()},
                    "series": {tag: p[1] for tag, p in paths.items()},
                    "groupnorm_shapes": shapes, "window_walls": window_walls,
+                   "supersteps": supersteps,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -12,15 +12,32 @@ card never quietly runs the plain path.
 
 A flag whose feature this port does not implement yet raises
 ``NotImplementedError`` naming the flag when it is set to a non-default
-value. Flags that tune only the JAX package's compile service, device cache
-or dispatch windows (``aot_*``, ``speculate_scan``, ``warm_start``,
-``device_cache*``) have no meaning for an eager PyTorch program; they are
-accepted and have no effect. ``stream_chunk_steps`` and ``superstep_window``
-cut the elastic epoch into the JAX package's dispatch windows (with
-``--superstep off``, ``stream_chunk_steps`` alone), the boundaries at which
-``--rebalance window`` evaluates its controller. ``--precision bfloat16``
-is the JAX package's compute-dtype policy: each training forward runs on
-bf16 copies of the f32 master weights (``train/steps.py`` ``cast_compute``).
+value. Flags that tune only the JAX package's compile service or device
+cache (``aot_*``, ``speculate_scan``, ``warm_start``, ``device_cache*``)
+have no meaning for an eager PyTorch program; they are accepted and have no
+effect. ``--precision bfloat16`` is the JAX package's compute-dtype policy:
+each training forward runs on bf16 copies of the f32 master weights
+(``train/steps.py`` ``cast_compute``).
+
+``--superstep`` works as in the JAX package on one device, where every
+worker of this port runs (``Trainer._elastic_mode``):
+
+- ``auto`` (the default) and ``on`` give ``"scan"``: each training step of
+  the elastic and packed epochs is replayed from a CUDA graph captured once
+  per step key (``train/supersteps.py``), a window's steps in one host
+  dispatch; on the CPU the same executor runs each step eagerly from its
+  static slots. The JAX package's ``"window"`` mode cannot occur: it needs
+  workers on several devices, and a multi-device ``-gpu`` map is refused.
+- ``off`` gives ``"step"``: the eager per-step loop, the parity and
+  host-overhead reference. One difference from the JAX package: ``off``
+  keeps the packed step eager too, so both paths have an eager arm on the
+  card (the JAX ``off`` leaves its fused packed scan as it is).
+
+``stream_chunk_steps`` and ``superstep_window`` cut the elastic epoch into
+the JAX package's dispatch windows (with ``--superstep off``,
+``stream_chunk_steps`` alone): the boundaries at which ``--rebalance
+window`` evaluates its controller, and in scan mode the steps that one
+dispatch runs.
 """
 
 from __future__ import annotations
@@ -255,7 +272,6 @@ class Config:
             "remat": self.remat,
             "ckpt_dir": bool(self.ckpt_dir),
             "profile_dir": bool(self.profile_dir),
-            "superstep": self.superstep == "on",
         }
         for flag, set_ in unported.items():
             if set_:

@@ -27,6 +27,12 @@
 //   registers; a block sums its tile (warp shuffles, then its warps in
 //   order) into one partial, and after a last barrier block 0 sums the 64
 //   partials in order. No float atomics, so the result repeats bit for bit.
+// - The iteration count is read from device memory (an int32 scalar), not
+//   passed by value: a launch captured into a CUDA graph (train/supersteps.py)
+//   keeps its arguments, so a count that changes between replays (a
+//   time-varying straggler schedule) is copied into that scalar before each
+//   replay instead. The launch is cudaLaunchKernelEx with the cooperative
+//   attribute, the form a graph's kernel node carries.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -49,9 +55,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // work: two kN x kN buffers, then kBlocks partial sums.
-__global__ void __launch_bounds__(kThreads) synthetic_load_kernel(const float* seed, float* work,
-                                                                   float* out, int n) {
+__global__ void __launch_bounds__(kThreads) synthetic_load_kernel(const float* seed,
+                                                                   const int* n_iters, float* work,
+                                                                   float* out) {
   cg::grid_group grid = cg::this_grid();
+  const int n = *n_iters;  // every thread reads the same count; n <= 0 runs none
   __shared__ float a_s[kTile][kChunk + 1];  // rows r0.., k slice (padded)
   __shared__ __align__(16) float b_s[kChunk][kTile];  // k slice, columns c0..
   __shared__ float warp_part[kThreads / 32];
@@ -125,13 +133,22 @@ const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err);
 // The floats of scratch the kernel needs: two matrices and the partials.
 int synthetic_load_work_floats() { return 2 * kN * kN + kBlocks; }
 
-// n >= 0 iterations; seed, work and out are device pointers (f32 scalar,
-// synthetic_load_work_floats() floats, f32 scalar). Returns the launch's
-// CUDA error (a device without cooperative launch refuses it).
-int synthetic_load(const float* seed, float* work, float* out, int n, void* stream) {
-  void* args[] = {(void*)&seed, (void*)&work, (void*)&out, (void*)&n};
-  return (int)cudaLaunchCooperativeKernel((const void*)synthetic_load_kernel, dim3(kBlocks),
-                                          dim3(kThreads), args, 0, (cudaStream_t)stream);
+// *n_iters iterations; seed, n_iters, work and out are device pointers (f32
+// scalar, int32 scalar, synthetic_load_work_floats() floats, f32 scalar).
+// Returns the launch's CUDA error (a device without cooperative launch
+// refuses it).
+int synthetic_load(const float* seed, const int* n_iters, float* work, float* out, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kBlocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, synthetic_load_kernel, seed, n_iters, work, out);
 }
 
 }  // extern "C"

@@ -67,7 +67,9 @@ def group_norm(channels: int, groups: int = 32, relu: bool = False) -> GroupNorm
 class Dropout(nn.Module):
     """Inverted dropout whose mask comes from an explicit generator
     (``self.generator``, set by the trainer for the model's device; the
-    default generator when None). Identity in eval mode."""
+    default generator when None). Identity in eval mode. Inside a captured
+    step graph the trainer's generator is registered with the graph
+    (``train/supersteps.py``), so each replay draws a fresh mask."""
 
     def __init__(self, p: float):
         super().__init__()

@@ -25,7 +25,7 @@ loses S seconds" into an iteration count, the reference's wait seconds.
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
@@ -42,9 +42,11 @@ def _seed_matrix(seed_val: torch.Tensor) -> torch.Tensor:
     )
 
 
-def synthetic_load(n_iters: int, seed_val: torch.Tensor) -> torch.Tensor:
+def synthetic_load(n_iters: Union[int, torch.Tensor], seed_val: torch.Tensor) -> torch.Tensor:
     """``n_iters`` dependent products, plain PyTorch, one launch sequence an
-    iteration; returns a scalar that depends on every one of them."""
+    iteration; returns a scalar that depends on every one of them.
+    ``n_iters`` is an int or an int32 scalar tensor, the kernel's two
+    forms of the count."""
     x = _seed_matrix(seed_val)
     for _ in range(int(n_iters)):
         x = _body(x)
@@ -58,7 +60,7 @@ class SyntheticLoad:
     def __init__(self):
         self._iter_cost: Dict[torch.device, float] = {}
 
-    def __call__(self, n_iters: int, seed_val: torch.Tensor) -> torch.Tensor:
+    def __call__(self, n_iters: Union[int, torch.Tensor], seed_val: torch.Tensor) -> torch.Tensor:
         if seed_val.is_cuda:
             return synthetic_load_cuda(n_iters, seed_val)
         return synthetic_load(n_iters, seed_val)

@@ -70,6 +70,20 @@ on bf16 copies of the f32 master weights and a bf16 batch (``_prep``), as the
 JAX ``StepLibrary`` does with its ``compute_dtype``; the loss, the gradients,
 the optimizer state and ``validate`` stay f32.
 
+Supersteps (``--superstep``, the JAX package's one-device scan mode):
+``auto`` and ``on`` give ``_elastic_mode() == "scan"``, every worker of this
+port sharing one card. Each training step of the elastic and packed epochs
+then goes through ``StepGraphs`` (``train/supersteps.py``): on the card it
+is replayed from a CUDA graph captured once per step key, a window's
+replays (the packed epoch's: the whole epoch's, as the JAX ``fused_epoch``)
+inside one ``HostOverheadMeter.dispatch()``; on the CPU the same executor
+runs the step eagerly from its static slots. The batches are gathered and
+augmented eagerly in the same order as before, so the augmentation draws
+do not move. ``off`` gives ``"step"``: the eager per-step loop, the parity
+and host-overhead reference, on both paths. The probes and the in-step
+calibration stay eager. Each epoch's captures, replays, capture seconds,
+dispatches and host dispatch seconds go to ``_meta["supersteps"]``.
+
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
 ``_setup_model``, ``_build_plan``, ``_worker_epoch`` and ``validate``.
@@ -135,8 +149,10 @@ from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import (
     combine_probe,
     elastic_step,
     packed_step,
+    prepare_step_state,
     probe_grads,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.train.supersteps import StepGraphs
 
 _EVAL_CHUNK = 1024
 
@@ -191,6 +207,10 @@ class Trainer:
 
         self._setup_data(bundle)
         self._setup_model()
+        # the step executor of --superstep auto/on (train/supersteps.py); the
+        # dropout generator is registered with every captured step
+        self.supersteps = StepGraphs(self.device, generators=[self.dropout_gen])
+        self._superstep_keys: set = set()
 
         self.injector = injector if injector is not None else self._make_injector()
         self._needs_iter_cost = cfg.fault_mode == "compute" and not isinstance(
@@ -310,6 +330,16 @@ class Trainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _elastic_mode(self) -> str:
+        """How the training steps execute (``--superstep``), with the JAX
+        package's names: ``"scan"`` (``auto``/``on``: every worker shares
+        one device, so a window's steps run without the host between them,
+        here as step graphs replayed by ``StepGraphs``) or ``"step"``
+        (``off``: the eager per-step loop, the parity and host-overhead
+        reference). The JAX package's ``"window"`` mode needs workers on
+        several devices, which this port refuses (``config.py``)."""
+        return "step" if self.cfg.superstep == "off" else "scan"
 
     # ------------------------------------------------------------------ run
 
@@ -586,9 +616,97 @@ class Trainer:
                 "force the elastic path)"
             )
         self.recorder.meta.setdefault("paths", []).append("packed" if packed else "elastic")
+        before = self.supersteps.stats()
         if packed:
-            return self._train_epoch_packed(plan, faults, epoch)
-        return self._train_epoch_elastic(plan, faults, epoch)
+            out = self._train_epoch_packed(plan, faults, epoch)
+        else:
+            out = self._train_epoch_elastic(plan, faults, epoch)
+        self._record_supersteps(epoch, plan, faults, "packed" if packed else "elastic", before)
+        return out
+
+    def _record_supersteps(self, epoch: int, plan, faults: EpochFaults, path: str,
+                           before: Dict[str, float]) -> None:
+        """The epoch's executor counts (captures, capture seconds, replays,
+        eager runs from the slots, keys and the keys it added), its steps
+        and dispatch windows (the elastic epoch's ``_elastic_ranges``; the
+        packed epoch is one), its batch sizes and which workers carry an
+        injected load, and the host meter's dispatches and launch seconds,
+        in ``_meta["supersteps"]``; warns, as the JAX package does, if the
+        prepared variants exceed the keys dispatched."""
+        now = self.supersteps.stats()
+        windows = 1 if path == "packed" else len(self._elastic_ranges(plan.num_steps))
+        rec = {"epoch": int(epoch), "path": path, "mode": self._elastic_mode(),
+               "steps": int(plan.num_steps), "windows": windows,
+               "batch_sizes": [int(b) for b in plan.batch_sizes],
+               "injected": [int(n > 0) for n in faults.slow_iters_per_step]}
+        rec.update({k: now[k] - before[k] for k in ("captures", "capture_s", "replays", "eager_runs")})
+        rec["keys"], rec["new_keys"] = now["keys"], now["keys"] - before["keys"]
+        rec["dispatches"] = self._host_meter.dispatches
+        rec["host_dispatch_s"] = self._host_meter.dispatch_s
+        self.recorder.meta.setdefault("supersteps", []).append(rec)
+        if now["keys"] > len(self._superstep_keys):
+            self.logger.warning(
+                f"Epoch {epoch}: {now['keys']} prepared step variants exceed "
+                f"the {len(self._superstep_keys)} dispatched keys"
+            )
+
+    # ------------------------------------------------------------ supersteps
+
+    def _step_key(self, path: str, batches, counts) -> tuple:
+        """A step graph's key (``train/supersteps.py``): the path, each
+        batch's shape (None: no real rows), the compute dtype, the clip,
+        which batches carry an injected load, and the learning rate."""
+        return (
+            path,
+            tuple(None if b is None else tuple(b[0].shape) for b in batches),
+            str(self.compute_dtype),
+            float(self.grad_clip),
+            tuple(int(n) > 0 for n in counts),
+            learning_rate(self.optimizer),
+        )
+
+    def _superstep(self, path: str, batches, counts, body, warmup) -> None:
+        """One training step through ``StepGraphs``; a worker without a
+        batch carries no load."""
+        counts = [0 if b is None else int(n) for b, n in zip(batches, counts)]
+        key = self._step_key(path, batches, counts)
+        self._superstep_keys.add(key)
+        self.supersteps.run(key, batches, counts, body, warmup)
+
+    def _elastic_body(self):
+        """The captured elastic step: ``elastic_step``, its loss sum added
+        into the executor's accumulator."""
+        acc = self.supersteps.loss
+
+        def body(batches, slow):
+            s = elastic_step(self.model, self.optimizer, batches, self.grad_clip, self.load, slow,
+                             self.compute_dtype)
+            if s is not None:
+                acc.add_(s)
+
+        return body
+
+    def _packed_body(self):
+        acc = self.supersteps.loss
+
+        def body(batches, slow):
+            acc.add_(packed_step(self.model, self.optimizer, batches[0], self.load, slow[0],
+                                 self.compute_dtype))
+
+        return body
+
+    def _warmup(self, clip: float):
+        """A step's warm-up before its capture: the step state prepared
+        (``prepare_step_state``), then each batch's forward and backward
+        with its clip and load, as the probes run them, no update."""
+
+        def warm(batches, slow):
+            prepare_step_state(self.optimizer)
+            for b, n in zip(batches, slow):
+                if b is not None:
+                    probe_grads(self.model, self.params, b, clip, self.load, n, self.compute_dtype)
+
+        return warm
 
     def _worker_rows(self, plan, rank: int):
         """Worker ``rank``'s epoch on the host: example indices and weights
@@ -693,7 +811,8 @@ class Trainer:
         """The elastic window loop: each window's plan comes from
         ``seg_plans`` (a switch appends to it), each step is one
         ``elastic_step`` over the workers' batches, its launch calls timed
-        by the host meter; the controller runs after every
+        by the host meter (in scan mode a window's steps go through
+        ``StepGraphs`` under one dispatch); the controller runs after every
         ``rebalance_every`` windows. Adds each step's loss sum and real-row
         count into ``acc``; returns the first step's batches (the probes
         reuse them). Shared by the epoch and the switch-parity replay."""
@@ -706,6 +825,20 @@ class Trainer:
         suppliers: Dict[int, list] = {}  # segment start -> the workers' batch suppliers
         eval_state = {"t": time.perf_counter(), "step": 0}
         first = None
+        scan = self._elastic_mode() == "scan"
+        if scan:
+            # the graphs add into the executor's accumulator: continue acc's sum
+            self.supersteps.loss.copy_(acc["loss"])
+            body, warm = self._elastic_body(), self._warmup(self.grad_clip)
+
+        def gather(s: int):
+            batches = []
+            for supply in suppliers[off]:
+                b, n = supply(s - off)
+                batches.append(b)
+                acc["count"] += n
+            return batches
+
         for i, (w0, w1) in enumerate(ranges):
             pl, off = self._seg_for_step(seg_plans, w0)
             if off not in suppliers:
@@ -719,25 +852,31 @@ class Trainer:
                     slow = [int(v) for v in wf.slow_iters_per_step]
             if self.augment:
                 self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
-            for s in range(w0, w1):
-                with meter.dispatch():
-                    batches = []
-                    for supply in suppliers[off]:
-                        b, n = supply(s - off)
-                        batches.append(b)
-                        acc["count"] += n
-                    step_loss = elastic_step(
-                        self.model, self.optimizer, batches, self.grad_clip, self.load, slow,
-                        self.compute_dtype,
-                    )
-                    if step_loss is not None:
-                        acc["loss"] += step_loss
-                if first is None:
-                    first = batches
+            if scan:
+                with meter.dispatch():  # the window's steps: one dispatch
+                    for s in range(w0, w1):
+                        batches = gather(s)
+                        self._superstep("elastic", batches, slow, body, warm)
+                        if first is None:
+                            first = batches
+            else:
+                for s in range(w0, w1):
+                    with meter.dispatch():
+                        batches = gather(s)
+                        step_loss = elastic_step(
+                            self.model, self.optimizer, batches, self.grad_clip, self.load, slow,
+                            self.compute_dtype,
+                        )
+                        if step_loss is not None:
+                            acc["loss"] += step_loss
+                    if first is None:
+                        first = batches
             if controller is not None and (i + 1) % cfg.rebalance_every == 0:
                 self._maybe_window_rebalance(
                     controller, plan, seg_plans, ranges, i, epoch, eval_state, suppliers
                 )
+        if scan:
+            acc["loss"].copy_(self.supersteps.loss)
         return first
 
     def _replay_window_segment(self, base_plan, rplan, s_offset: int, epoch: int,
@@ -932,12 +1071,28 @@ class Trainer:
         idx = torch.from_numpy(idx).to(self.device)
         w = torch.from_numpy(w).to(self.device)
         slow = int(faults.slow_iters_per_step.sum())
-        loss_sum = torch.zeros((), device=self.device)
-        for s in steps:
+        meter = self._host_meter
+        meter.reset()
+
+        def batch(s: int):
             sel = idx[offs[s] : offs[s + 1]]
-            batch = (self._prep(self.train_x[sel]), self.train_y[sel], w[offs[s] : offs[s + 1]])
-            loss_sum += packed_step(self.model, self.optimizer, batch, self.load, slow,
-                                    self.compute_dtype)
+            return (self._prep(self.train_x[sel]), self.train_y[sel], w[offs[s] : offs[s + 1]])
+
+        if self._elastic_mode() == "scan":
+            # the epoch's steps through StepGraphs in one dispatch, as the
+            # JAX package's packed epoch is one scan
+            self.supersteps.loss.zero_()
+            body, warm = self._packed_body(), self._warmup(0.0)
+            with meter.dispatch():
+                for s in steps:
+                    self._superstep("packed", [batch(s)], [slow], body, warm)
+            loss_sum = self.supersteps.loss.clone()
+        else:
+            loss_sum = torch.zeros((), device=self.device)
+            for s in steps:
+                with meter.dispatch():
+                    loss_sum += packed_step(self.model, self.optimizer, batch(s), self.load, slow,
+                                            self.compute_dtype)
         self._sync()
 
         def first():

@@ -19,6 +19,13 @@ The plan, the windows and the weights equal the JAX package's. The JAX
 package pads each worker's columns to a bucket multiple with weight-0
 columns for static shapes; eager PyTorch runs each worker at its true
 column count, which changes no sum.
+
+Under ``--superstep auto`` (the default) the LM's elastic steps run as
+replays of captured step graphs (``train/supersteps.py``), each key one
+plan's column widths. Its dropout (and flash attention's absence of it, or
+the plain attention's probability dropout) draws from the trainer's CUDA
+generator (``dropout_gen``), which the executor registers with every graph,
+so a replay draws the masks the eager step draws from the same state.
 """
 
 from __future__ import annotations
@@ -150,10 +157,22 @@ class LMTrainer(Trainer):
         weights = m * (p_r / np.maximum(tok_counts, 1.0)[:, None, None]).astype(np.float32)
         return x, y, weights
 
+    def _steps_to_device(self, a: np.ndarray) -> torch.Tensor:
+        """``[steps, cols, bptt]`` on the device with every step's block
+        starting on a 16-byte boundary (each padded to a multiple of 4
+        elements): a reduction over one step's weights then takes the same
+        vectorized path whatever the column count, as it does on the static
+        slots of a captured step (``train/supersteps.py``), so the eager and
+        graphed steps sum in the same order."""
+        steps, n = a.shape[0], int(np.prod(a.shape[1:]))
+        buf = np.zeros((steps, -(-n // 4) * 4), dtype=a.dtype)
+        buf[:, :n] = a.reshape(steps, n)
+        return torch.from_numpy(buf).to(self.device)[:, :n].view(a.shape)
+
     def _worker_epoch(self, plan: EpochPlan, rank: int):
         x, y, w = self._build_windows(plan, rank)
         counts = (w > 0).reshape(plan.num_steps, -1).sum(axis=1).tolist()
-        x, y, w = (torch.from_numpy(a).to(self.device) for a in (x, y, w))
+        x, y, w = (self._steps_to_device(a) for a in (x, y, w))
 
         def step(s: int):
             if counts[s] == 0:

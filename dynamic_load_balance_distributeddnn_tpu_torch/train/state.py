@@ -4,6 +4,13 @@
 package's ``optax.inject_hyperparams(optax.sgd)(momentum=0.9)``: optax's
 trace starts at zero, so its first step's buffer is the gradient itself,
 which is what torch's buffer is initialized to.
+
+The port creates each momentum buffer at zero before the first step
+(``train/steps.py`` ``prepare_step_state``), so the buffers keep their
+addresses from the first step on and a captured CUDA graph can update them
+in place (``train/supersteps.py``). That is bit-identical to torch's
+clone-on-first-step, since ``0 * momentum + g`` is ``g``, and it is optax's
+trace from zero.
 """
 
 from __future__ import annotations

@@ -56,11 +56,26 @@ once a step and shares the copies between its workers: each worker's
 backward still runs through the casts on its own, so its gradient is
 widened on its own and the workers are summed in f32 (``combine_update``'s
 sum), never in the bf16 copies. Evaluation never casts.
+
+Capturable form (``train/supersteps.py`` captures a whole step into a CUDA
+graph): a step allocates nothing that outlives it. ``prepare_step_state``
+gives every parameter a zero ``.grad`` and a zero momentum buffer once,
+before the first step; each step then zeroes ``.grad`` in place, the
+workers' gradients add into it (``backward()`` accumulates in place into an
+existing ``.grad``; a clipped worker's gradient is added with
+``_foreach_add_``), and ``optimizer.step()`` updates the parameters and
+buffers in place. So the parameters, ``.grad`` and the momentum buffers
+keep their addresses from step to step, and only temporaries live in a
+graph's memory pool. The sums are the same as before in the same order
+(``0 + g`` is ``g``), and a buffer that starts at zero takes the gradient
+on the first step as torch's clone-on-first-step does (``train/state.py``).
+A load's iteration count is an int, or the device int32 scalar that a
+captured load reads (``ops/faultload.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -115,13 +130,34 @@ def clip_worker_grads(grads: Sequence[torch.Tensor], w: torch.Tensor, grad_clip:
     return grads
 
 
-def _inject(load: Optional[Load], slow_iters: int, wloss: torch.Tensor) -> None:
-    if slow_iters > 0:
+Count = Union[int, torch.Tensor]  # iterations: an int, or a device int32 scalar
+
+
+def _inject(load: Optional[Load], slow_iters: Count, wloss: torch.Tensor) -> None:
+    """The load after a worker's backward: a device count always runs (its
+    value is on the card); an int runs when positive."""
+    if isinstance(slow_iters, torch.Tensor) or slow_iters > 0:
         load(slow_iters, wloss.detach())
 
 
+def prepare_step_state(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """Give every parameter a zero ``.grad`` and (with momentum) a zero
+    momentum buffer where it has none, so the step's state keeps its
+    addresses from the first step on; returns the parameters."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if group.get("momentum", 0) != 0:
+                state = optimizer.state[p]
+                if state.get("momentum_buffer") is None:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+    return params
+
+
 def worker_grads(model, params: List[torch.Tensor], batch: Batch, grad_clip: float,
-                 load: Optional[Load] = None, slow_iters: int = 0,
+                 load: Optional[Load] = None, slow_iters: Count = 0,
                  compute_dtype: Optional[torch.dtype] = None, cast: Cast = None):
     """One worker's (clipped) weighted gradient and its loss sum, then its
     injected load; ``.grad`` untouched. The gradient is the f32 leaves'."""
@@ -139,7 +175,7 @@ def elastic_step(
     batches: Sequence[Optional[Batch]],
     grad_clip: float = 0.0,
     load: Optional[Load] = None,
-    slow_iters: Sequence[int] = (),
+    slow_iters: Sequence[Count] = (),
     compute_dtype: Optional[torch.dtype] = None,
 ) -> Optional[torch.Tensor]:
     """One DBS step over every worker's batch (``None`` for a worker with no
@@ -147,28 +183,23 @@ def elastic_step(
     of ``load``; under ``compute_dtype`` every worker's forward runs on one
     ``cast_compute`` of the parameters. Returns the sum of the losses of the
     entries with positive weight, or None if no worker had data."""
-    optimizer.zero_grad(set_to_none=True)
-    params = [p for g in optimizer.param_groups for p in g["params"]]
+    params = prepare_step_state(optimizer)
+    grads = [p.grad for p in params]
+    torch._foreach_zero_(grads)
     cast = cast_compute(model.named_parameters(), compute_dtype)
-    loss_sum, total = None, None
+    loss_sum = None
     for r, b in enumerate(batches):
         if b is None:
             continue
-        n_slow = int(slow_iters[r]) if len(slow_iters) else 0
+        n_slow = slow_iters[r] if len(slow_iters) else 0
         if grad_clip > 0:
-            grads, s = worker_grads(model, params, b, grad_clip, load, n_slow, compute_dtype, cast)
-            if total is None:
-                total = grads
-            else:
-                torch._foreach_add_(total, grads)
+            g, s = worker_grads(model, params, b, grad_clip, load, n_slow, compute_dtype, cast)
+            torch._foreach_add_(grads, g)
         else:
             wloss, s = weighted_loss(model, *b, compute_dtype, cast)
             wloss.backward()  # adds this worker's weighted gradient into .grad
             _inject(load, n_slow, wloss)
         loss_sum = s if loss_sum is None else loss_sum + s
-    if total is not None:
-        for p, g in zip(params, total):
-            p.grad = g
     optimizer.step()
     return loss_sum
 
@@ -178,24 +209,25 @@ def packed_step(
     optimizer: torch.optim.Optimizer,
     batch: Batch,
     load: Optional[Load] = None,
-    slow_iters: int = 0,
+    slow_iters: Count = 0,
     compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """One DBS step over the workers' concatenated batch (per-example
     weights as the elastic step's), then ``slow_iters`` iterations of
     ``load`` (the workers' sum). Returns the sum of the losses of the
     entries with positive weight."""
-    optimizer.zero_grad(set_to_none=True)
+    params = prepare_step_state(optimizer)
+    torch._foreach_zero_([p.grad for p in params])
     wloss, loss_sum = weighted_loss(model, *batch, compute_dtype)
     wloss.backward()
-    _inject(load, int(slow_iters), wloss)
+    _inject(load, slow_iters, wloss)
     optimizer.step()
     return loss_sum
 
 
 def probe_grads(
     model: torch.nn.Module, params: List[torch.Tensor], batch: Batch, grad_clip: float = 0.0,
-    load: Optional[Load] = None, slow_iters: int = 0,
+    load: Optional[Load] = None, slow_iters: Count = 0,
     compute_dtype: Optional[torch.dtype] = None,
 ):
     """One worker's forward/backward (and clip) and its injected load,

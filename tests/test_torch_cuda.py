@@ -769,3 +769,181 @@ def test_groupnorm_bf16_at_every_densenet121_packed_shape(cuda):
         torch.testing.assert_close(db, pb, atol=2e-2, rtol=1e-2)
         del x, dy, y, got, again, px, pw, pb, dx, dw, db
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- step graphs (--superstep)
+
+
+def _replayed(fn):
+    """``fn()`` warmed once on a side stream, captured into a CUDA graph and
+    replayed once: (graph, the outputs of the replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph, outs
+
+
+@pytest.mark.cuda
+def test_load_reads_its_count_on_the_card_inside_a_graph(cuda):
+    """The synthetic load captured once with a device count replays at
+    each count copied in: equal to the int form's bits and within the
+    plain chain's tolerance (atol 1e-6, rtol 1e-5)."""
+    load = SyntheticLoad()
+    seed = torch.tensor(1.25, device=cuda)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    graph, out = _replayed(lambda: load(count, seed))
+    for n in (0, 3, 300):
+        count.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, load(n, seed)), n
+        torch.testing.assert_close(out, synthetic_load(n, seed), atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernels_replayed_in_a_graph_equal_their_eager_launches(cuda):
+    """K1 (tiled route, f32 and bf16), K2 and K3's short route, forward and
+    backward through their autograd functions, captured and replayed: the
+    same bits as the same calls launched eagerly."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x32 = torch.randn(16, 256, 128, device=cuda, generator=g)
+    cases = {
+        "groupnorm f32": (x32, lambda x, w, b: group_norm(x, w, b, 32, 1e-6, True)),
+        "groupnorm bf16": (x32.bfloat16(), lambda x, w, b: group_norm(x, w, b, 32, 1e-6, True)),
+    }
+    wgt = (1 + 0.1 * torch.randn(128, device=cuda, generator=g)).requires_grad_()
+    bias = (0.1 * torch.randn(128, device=cuda, generator=g)).requires_grad_()
+    for name, (x, fn) in cases.items():
+        x = x.clone().requires_grad_()
+        dy = torch.randn(x.shape, device=cuda, generator=g).to(x.dtype)
+
+        def step():
+            return torch.autograd.grad(fn(x, wgt, bias), (x, wgt, bias), dy)
+
+        _, got = _replayed(step)
+        for a, b in zip(got, step()):
+            assert torch.equal(a, b), name
+    logits = torch.randn(700, 18328, device=cuda, generator=g).requires_grad_()
+    labels = torch.randint(0, 18328, (700,), device=cuda, generator=g)
+    wts = torch.rand(700, device=cuda, generator=g)
+
+    def xent():
+        loss = softmax_xent(logits, labels)
+        return (loss,) + torch.autograd.grad(torch.sum(loss * wts), logits)
+
+    _, got = _replayed(xent)
+    for a, b in zip(got, xent()):
+        assert torch.equal(a, b), "xent"
+    qkv = torch.randn(20, 35, 3, 200, device=cuda, generator=g).requires_grad_()
+    do = torch.randn(20, 2, 35, 100, device=cuda, generator=g)
+
+    def attn():
+        q, k, v = (qkv[:, :, i].view(20, 35, 2, 100).transpose(1, 2) for i in range(3))
+        o = flash_attention(q, k, v, causal=True)
+        return (o,) + torch.autograd.grad(o, qkv, do)
+
+    _, got = _replayed(attn)
+    for a, b in zip(got, attn()):
+        assert torch.equal(a, b), "attention"
+
+
+@pytest.mark.cuda
+def test_replayed_dropout_draws_the_eager_masks(cuda):
+    """The trainer's dropout generator registered with a graph: three
+    replays draw the masks three eager calls draw from the same state."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.models.common import Dropout
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    drop = Dropout(0.2)
+    drop.generator = gen
+    x = torch.ones(20, 35, 200, device=cuda)
+    state = gen.get_state()
+    eager = [drop(x) for _ in range(3)]
+    gen.set_state(state)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = drop(x)
+    for want in eager:
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def _card_trainer(case, superstep, out, device):
+    """A small run of each path for ``test_graphed_training_equals_eager``:
+    DenseNet-121 (4 workers, B 64, 256 examples, a 3:1 straggler), elastic
+    (virtual or compute mode, its load's costs pinned), packed, bf16; the
+    language model on the committed wikitext-2 files (4 workers, 16
+    columns, 4,000 tokens, clip 0.25, dropout, flash attention). A timing
+    model fixes the plans, so the two runs see the same widths. One window
+    an epoch (the default ``superstep_window`` over 4-8 steps): the
+    augmentation is seeded at each window start, and ``off`` runs the
+    epoch in one stream chunk, so equal windows draw equal crops."""
+    import os
+
+    import numpy as np
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
+
+    def timing(plan):
+        return np.array([3.0, 1.0, 1.0, 1.0]) * np.array([w.batch_size * w.steps for w in plan.workers])
+
+    common = dict(world_size=4, epoch_size=2, seed=0, straggler="3,1,1,1", superstep=superstep,
+                  debug=True, device=0, log_dir=str(out / "logs"),
+                  stat_dir=str(out / superstep))
+    if case == "lm":
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        cfg = Config(model="transformer", dataset="wikitext2", batch_size=16, n_train=4000,
+                     bptt=35, grad_clip=0.25, use_flash_attention=True, bucket=4,
+                     lm_data_dir=os.path.join(root, "rnn_data", "wikitext-2"), **common)
+        return LMTrainer(cfg, timing_model=timing, device=device, log_to_file=False)
+    kw = {"packed": dict(packed="auto"), "bf16": dict(precision="bfloat16", packed="off"),
+          "compute": dict(fault_mode="compute", packed="off")}.get(case, dict(packed="off"))
+    cfg = Config(model="densenet", dataset="cifar10", batch_size=64, n_train=256, **common, **kw)
+    tr = Trainer(cfg, timing_model=timing, device=device, log_to_file=False)
+    if case == "compute":
+        tr.per_example_cost = np.full(4, 1e-4)
+        tr._iter_cost_s = 1e-5
+    return tr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["elastic", "compute", "packed", "bf16", "lm"])
+def test_graphed_training_equals_eager_on_the_card(cuda, tmp_path, case):
+    """``--superstep auto`` (step graphs) against ``off`` (eager steps) over
+    two epochs on the card, cuDNN deterministic: the same train losses,
+    parameters and momentum buffers, bit for bit; the auto run replayed
+    graphs and its launch counts include the replays."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for superstep in ("off", "auto"):
+            tr = _card_trainer(case, superstep, tmp_path, cuda)
+            runtime.reset_launches()
+            tr.run()
+            runs[superstep] = (tr, dict(runtime.LAUNCHES))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (off, n_off), (auto, n_auto) = runs["off"], runs["auto"]
+    assert off.recorder.data["train_loss"] == auto.recorder.data["train_loss"]
+    for p, q in zip(off.model.parameters(), auto.model.parameters()):
+        assert torch.equal(p, q)
+        assert torch.equal(off.optimizer.state[p]["momentum_buffer"],
+                           auto.optimizer.state[q]["momentum_buffer"])
+    ran = auto.recorder.meta["supersteps"]
+    assert sum(r["captures"] for r in ran) >= 1 and sum(r["replays"] for r in ran) >= 2
+    key = "attn_fwd" if case == "lm" else "groupnorm_bwd"
+    assert n_auto[key] >= n_off[key] > 0  # replays counted, warm-ups added

@@ -67,7 +67,7 @@ BASE = dict(model="densenet", dataset="cifar10")
     {"elastic": "on"}, {"coordinator": "localhost:1"}, {"trace": "on"},
     {"remat": True, "fault_schedule": "sin", "straggler": "2,1,1,1"},
     {"seq_parallel": "ulysses"}, {"remat": True},
-    {"ckpt_dir": "ck"}, {"superstep": "on"},
+    {"ckpt_dir": "ck"},
     {"trace": "ring"}, {"seq_parallel": "ring"},
     {"device": [0, 1], "world_size": 2},
 ])

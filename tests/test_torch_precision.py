@@ -482,7 +482,7 @@ STILL_UNPORTED = [
     {"fused_dbs": True}, {"shard_update": True}, {"grad_comm": "hier"},
     {"compress_grads": "int8"}, {"grad_accum": 2}, {"elastic": "on"},
     {"coordinator": "localhost:1"}, {"trace": "on"}, {"seq_parallel": "ring"},
-    {"remat": True}, {"ckpt_dir": "ck"}, {"profile_dir": "prof"}, {"superstep": "on"},
+    {"remat": True}, {"ckpt_dir": "ck"}, {"profile_dir": "prof"},
 ]
 
 
