@@ -50,7 +50,8 @@ phase runs.
    every epoch packed, epoch 2 on modeled node times with no probe wall; the
    launch counters (zeroed just before) show K1 (on its tiled route only)
    and K2 ran, the rebalancer moved share off worker 0 and the 9 series
-   were written; the peak device memory is printed.
+   were written; the peak device memory is printed. The run is traced
+   (``--trace on --trace_spool``), for [4i].
 4b. The same recipe with ``--packed off --fault_mode compute``: the elastic
    path, the calibrated cost of a synthetic-load iteration inside a step,
    the straggler's probed time an example at least twice a clean worker's,
@@ -72,8 +73,16 @@ phase runs.
    ``balance/replaylab.py`` with no invariant violated; K1 (tiled route
    only) and K2 launched; K1 forward and backward against their plain
    versions at every DenseNet-121 GroupNorm shape of each per-worker width
-   the switches produced. Each evaluation's wall, and the per-epoch walls
-   beside the same recipe at ``--rebalance epoch`` (for information).
+   the switches produced. Each evaluation's wall, its wall feedback (the
+   card's time between two evaluations' CUDA events against the model's
+   prediction) and the controller's ``wall_scale``, which no steady
+   evaluation (epochs 1 on) may read at its clip (0.25 or 4.0); the run is
+   traced (``--trace ring --trace_spool``, for [4i]). The same window
+   recipe under ``--superstep off`` (eager steps; ``--stream_chunk_steps
+   2`` cuts its windows, as ``--superstep_window 2`` does under ``auto``)
+   with the same gates, and
+   the per-epoch walls beside the same recipe at ``--rebalance epoch`` (for
+   information).
 4f. ``--precision bfloat16`` (bf16 compute over f32 master weights): [4]'s
    recipe, 3 epochs packed, then ``--packed off`` for 2 epochs (the elastic
    step and the probes in bf16): share moved off worker 0, finite losses,
@@ -90,6 +99,21 @@ phase runs.
 5b. The same under ``--precision bfloat16``, 2 epochs: K3's short route and
    K2 ran with f32 operands (the embedding runs in bf16, ``+ pe`` promotes
    to f32, as in the JAX package), share moved, finite losses.
+4h. Stop and resume (``--ckpt_dir``): [4]'s packed DenseNet-121 and [4b]'s
+   elastic compute-mode run at 1,024 examples, and [5]'s LM, each 3 epochs
+   with ``--probe_mode always`` under ``--superstep auto`` and ``off``,
+   cuDNN deterministic: the whole run with ``--ckpt_dir``, then a fresh
+   trainer resuming from its epoch-1 checkpoint for the last epoch. Its
+   parameters, momentum buffers and last train loss equal the whole run's
+   bit for bit, and its recorder holds that epoch with the whole run's
+   partition. Each save's and each restore's wall.
+4i. Tracing: [4]'s trace attributes at least 95% of each epoch's wall to
+   its phases (``obs/scope_cli.py summarize``), ``postmortem`` reads its
+   spool; ``replay`` of [4e]'s spool reproduces every recorded verdict;
+   [4f]'s recipe (1 epoch, 1,024 examples) under ``--profile_dir``: its
+   Chrome trace's K1 kernels, counted, and those launched from graph
+   replays; ``flops_per_epoch`` and ``mfu_bf16_peak`` of [4], [4f] and [5],
+   each in (0, 1].
    Every path of [4]-[5b] runs under the default ``--superstep auto``: each
    training step replayed from a captured CUDA graph
    (``train/supersteps.py``); every epoch's steps are replays, one dispatch
@@ -127,6 +151,7 @@ path) and the result line. Full tables go to ``chiprun_out/chip_smoke/``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -186,6 +211,15 @@ WINDOW_ARGV = (
 ).split()
 WINDOW_EPOCHS = 3
 EPOCH_CADENCE_ARGV = [("epoch" if a == "window" else a) for a in WINDOW_ARGV]
+# [4e] under --superstep off: the JAX package cuts the eager elastic epoch's
+# windows at stream_chunk_steps alone (128 by default: one window, so no
+# evaluation), so the off arm cuts them there at superstep_window's 2 steps
+WINDOW_OFF_ARGV = WINDOW_ARGV + ["--superstep", "off", "--stream_chunk_steps", "2"]
+# [4e]'s wall feedback: with the host formula (its launch time subtracted)
+# the controller read wall_scale 0.37-0.43 at the end of its graphed runs
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+HOST_FORMULA_WALL_SCALE = "0.37-0.43"
+WALL_SCALE_CLIP = (0.25, 4.0)
 
 LM_ARGV = (
     "-m transformer -ds wikitext2 -d false -ws 4 -b 80 -gpu 0,0,0,0 --bptt 35 "
@@ -200,6 +234,25 @@ def with_epochs(argv, epochs: int):
     return argv[:i + 1] + [str(epochs)] + argv[i + 2:]
 
 
+def with_n_train(argv, n: int):
+    """``argv`` with its ``--n_train`` value replaced."""
+    i = argv.index("--n_train")
+    return argv[:i + 1] + [str(n)] + argv[i + 2:]
+
+
+# [4] and [4e] run traced; [4i] reads their traces and spools. What is too
+# big to bring back (checkpoints, the profiler's trace) stays under build/.
+TRACE_DIR = os.path.join(OUT, "trace")
+SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
+
+
+def traced(tag: str, mode: str):
+    """The flags that trace a run (``--trace`` ``mode``) with a spool."""
+    d = os.path.join(TRACE_DIR, tag)
+    shutil.rmtree(d, ignore_errors=True)
+    return ["--trace", mode, "--trace_dir", d, "--trace_spool", os.path.join(d, "spool")]
+
+
 # [4f] and [5b]: --precision bfloat16 (bf16 compute over f32 master
 # weights): the vision defaults for 3 epochs, the same on the elastic path
 # (--packed off: the elastic step and the probes in bf16) for 2 epochs of
@@ -211,6 +264,15 @@ BF16_ELASTIC_EPOCHS, LM_BF16_EPOCHS = 2, 2
 BF16_ELASTIC_ARGV = (with_epochs(MAIN_ARGV, BF16_ELASTIC_EPOCHS)[:-2]
                      + ["--n_train", "2048", "--packed", "off"] + BF16)
 LM_BF16_ARGV = with_epochs(LM_ARGV, LM_BF16_EPOCHS) + BF16
+# [4h]: stop and resume, 3 epochs each, every epoch probed (so the whole
+# and the resumed run train the last epoch on one plan)
+RESUME_EPOCHS = 3
+RESUME_RECIPES = (("densenet packed", with_n_train(MAIN_ARGV, 1024)),
+                  ("densenet elastic compute", with_n_train(COMPUTE_ARGV, 1024)),
+                  ("language model", LM_ARGV))
+# [4i]: [4f]'s packed bf16 recipe under the profiler, cut to 1 epoch of 2
+# steps, both replayed from its graph (2 epochs traced 1.7M events)
+PROFILE_ARGV = with_n_train(with_epochs(BF16_ARGV, 1), 1024)
 # [6b]: the card's bf16 error from the CPU's f64 run within this multiple
 # of the CPU's own bf16 error (for the scalar loss, or of one bf16 step of
 # its f64 value, where that is larger: one number can land near f64 by
@@ -998,46 +1060,14 @@ def check_window_path(torch, dev, counts, series, epoch_arm, err, records):
     tiled route only. Then K1 forward and backward against their plain
     versions at every distinct DenseNet-121 GroupNorm shape of each
     per-worker width the switches produced (f32, the path's dtype; the
-    errors join K1's in the JSON line). Logs each evaluation's wall and the
+    errors join K1's in the JSON line). Logs each evaluation's wall, its
+    wall feedback and ``wall_scale`` (``check_window_controller``), and the
     per-epoch walls beside the epoch-cadence arm's."""
-    from dynamic_load_balance_distributeddnn_tpu_torch.balance import replaylab
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import plan
 
-    meta = check_cnn_path(counts, series, "window-cadence", path="elastic",
-                          epochs=WINDOW_EPOCHS, moved_off=None, repeats=False)
-    for k in GN_GENERAL:
-        assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the window path, want 0"
-    assert counts["synthetic_load"] > 0, "the synthetic-load kernel never launched"
-    ctl = meta["rebalance_controller"]
-    events = meta.get("rebalance_events", [])
-    switches = series["plan_switches"]
-    log(f"  controller: {ctl['evals']} evaluations, switches an epoch {switches}, "
-        f"spent {ctl['spent_s']:.6f}s, credit {ctl['credit_s']:.6f}s, "
-        f"wall_scale {ctl['wall_scale']}, switch cost EMA {ctl['switch_cost_ema_s']}s")
-    for ev in events:
-        log(f"  switch: epoch {ev['epoch']} window {ev['window']} step {ev['step']} -> "
-            f"batches {ev['batches']}, predicted win {ev['predicted_win_s'] * 1e3:.3f} ms over "
-            f"{ev['remaining_steps']} steps, measured cost {ev['switch_cost_s'] * 1e3:.3f} ms")
-    for e in meta["rebalance_evals"]:
-        log(f"  evaluation epoch {e['epoch']} window {e['window']}: wall {e['wall_s'] * 1e3:.3f} ms "
-            f"(synchronize {e['sync_s'] * 1e3:.3f} ms){', switch' if e['switch'] else ''}")
-    n = sum(switches)
-    assert n >= 1, f"no mid-epoch switch in {ctl['evals']} evaluations"
-    assert max(switches) <= 2, f"thrash: switches an epoch {switches}"
-    assert n < ctl["evals"], f"{n} switches in {ctl['evals']} evaluations"
-    cfg = ctl["config"]
-    assert ctl["spent_s"] <= cfg["budget_frac"] * ctl["credit_s"] + cfg["cost_init"], \
-        f"budget: spent {ctl['spent_s']} > {cfg['budget_frac']} * credit {ctl['credit_s']} + {cfg['cost_init']}"
-    path = os.path.join(OUT, "run_window", "corpus.json")
-    with open(path, "w") as f:
-        json.dump({"label": "chip_smoke [4e]", "rebalance_controller": ctl}, f)
-    corpus = replaylab.load_corpus(path)
-    report = replaylab.replay(corpus)
-    assert report["parity"], f"the card run's journal did not replay: {report['mismatches'][:3]}"
-    assert report["invariant_violations"] == [], report["invariant_violations"][:3]
-    assert replaylab.check_invariants(corpus["config"], corpus["journal"]) == []
-    assert report["replayed"]["switches"] == n, (report["replayed"], n)
-    log(f"  journal: {len(corpus['journal'])} decisions replayed bit for bit, no invariant violated")
+    check_cnn_path(counts, series, "window-cadence", path="elastic",
+                   epochs=WINDOW_EPOCHS, moved_off=None, repeats=False)
+    events = check_window_controller(counts, series, "auto")
     widths = sorted({b for ev in events for b in ev["batches"] if b > 0})
     log(f"  per-worker widths the switches produced: {widths}")
     gen = torch.Generator().manual_seed(4)
@@ -1058,6 +1088,80 @@ def check_window_path(torch, dev, counts, series, epoch_arm, err, records):
         log(f"  epoch {e} wall: window cadence {walls['window'][e]:.3f}s, "
             f"epoch cadence {walls['epoch'][e]:.3f}s (for information)")
     return walls
+
+
+def check_window_off(counts, series):
+    """[4e] under ``--superstep off``: the elastic path's eager steps (one
+    dispatch a step), K1 (tiled route only) and K2 launched, and the
+    controller's gates (``check_window_controller``)."""
+    check_series(series, "examples", WINDOW_EPOCHS, moved_off=None)
+    meta = series["_meta"]
+    assert meta["paths"] == ["elastic"] * WINDOW_EPOCHS, meta["paths"]
+    for rec in meta["supersteps"]:
+        assert rec["mode"] == "step" and rec["dispatches"] == rec["steps"], rec
+    for k in CNN_KERNELS:
+        assert counts[k] > 0, f"kernel {k} never launched on the eager window path"
+    check_window_controller(counts, series, "off")
+    log(f"  launches: {counts}")
+
+
+def check_window_controller(counts, series, mode):
+    """[4e]'s controller gates: at least one switch, at most 2 an epoch and
+    fewer than the evaluations; the regret budget held; the decision
+    journal replayed bit for bit with no invariant violated; K1 on its
+    tiled route only. Each evaluation's wall, its wall feedback (the card's
+    time between the CUDA events of two evaluations, ``measured_s``,
+    against the prediction, ``modeled_s``) and ``wall_scale`` after it; no
+    steady evaluation (epochs 1 on: epoch 0 predicts on unanchored rates)
+    reads ``wall_scale`` at its clip. Returns the switch events."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.balance import replaylab
+
+    meta = series["_meta"]
+    for k in GN_GENERAL:
+        assert counts[k] == 0, f"kernel {k}: {counts[k]} launches on the window path, want 0"
+    assert counts["synthetic_load"] > 0, "the synthetic-load kernel never launched"
+    ctl = meta["rebalance_controller"]
+    events = meta.get("rebalance_events", [])
+    switches = series["plan_switches"]
+    log(f"  controller: {ctl['evals']} evaluations, switches an epoch {switches}, "
+        f"spent {ctl['spent_s']:.6f}s, credit {ctl['credit_s']:.6f}s, "
+        f"wall_scale {ctl['wall_scale']}, switch cost EMA {ctl['switch_cost_ema_s']}s")
+    for ev in events:
+        log(f"  switch: epoch {ev['epoch']} window {ev['window']} step {ev['step']} -> "
+            f"batches {ev['batches']}, predicted win {ev['predicted_win_s'] * 1e3:.3f} ms over "
+            f"{ev['remaining_steps']} steps, measured cost {ev['switch_cost_s'] * 1e3:.3f} ms")
+    for e in meta["rebalance_evals"]:
+        fed = ("" if e["measured_s"] is None else
+               f", fed {e['measured_s'] * 1e3:.3f} ms measured / {e['modeled_s'] * 1e3:.3f} ms "
+               f"modeled = {e['measured_s'] / e['modeled_s']:.4f}")
+        log(f"  [{mode}] evaluation epoch {e['epoch']} window {e['window']}: wall "
+            f"{e['wall_s'] * 1e3:.3f} ms (synchronize {e['sync_s'] * 1e3:.3f} ms){fed}, "
+            f"wall_scale {e['wall_scale']:.4f}{', switch' if e['switch'] else ''}")
+    steady = [e["wall_scale"] for e in meta["rebalance_evals"] if e["epoch"] >= 1]
+    assert steady and all(WALL_SCALE_CLIP[0] < w < WALL_SCALE_CLIP[1] for w in steady), \
+        f"[{mode}] a steady evaluation's wall_scale sits at its clip {WALL_SCALE_CLIP}: {steady}"
+    log(f"  [{mode}] steady wall_scale {min(steady):.4f}-{max(steady):.4f} "
+        f"(the host formula under graphs: {HOST_FORMULA_WALL_SCALE}); switches {sum(switches)} "
+        f"(with the host formula: 1 a run)")
+    n = sum(switches)
+    assert n >= 1, f"no mid-epoch switch in {ctl['evals']} evaluations"
+    assert max(switches) <= 2, f"thrash: switches an epoch {switches}"
+    assert n < ctl["evals"], f"{n} switches in {ctl['evals']} evaluations"
+    cfg = ctl["config"]
+    assert ctl["spent_s"] <= cfg["budget_frac"] * ctl["credit_s"] + cfg["cost_init"], \
+        f"budget: spent {ctl['spent_s']} > {cfg['budget_frac']} * credit {ctl['credit_s']} + {cfg['cost_init']}"
+    path = os.path.join(OUT, f"run_window_{mode}", "corpus.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"label": "chip_smoke [4e]", "rebalance_controller": ctl}, f)
+    corpus = replaylab.load_corpus(path)
+    report = replaylab.replay(corpus)
+    assert report["parity"], f"the card run's journal did not replay: {report['mismatches'][:3]}"
+    assert report["invariant_violations"] == [], report["invariant_violations"][:3]
+    assert replaylab.check_invariants(corpus["config"], corpus["journal"]) == []
+    assert report["replayed"]["switches"] == n, (report["replayed"], n)
+    log(f"  journal: {len(corpus['journal'])} decisions replayed bit for bit, no invariant violated")
+    return events
 
 
 def check_lm_path(counts, series, epochs=EPOCHS):
@@ -1618,6 +1722,178 @@ def run_superstep_arms(torch, dev):
         torch.cuda.empty_cache()
     return results
 
+def run_trainer(torch, argv, tag, epochs=None):
+    """The port's trainer on one recipe, as ``cli.main`` builds and runs it
+    (``Trainer.run`` / ``LMTrainer.run``), launch counts zeroed just before
+    and read just after; returns (launch counts, series with their
+    "_meta", wall, peak device memory in bytes, the trainer)."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
+
+    run_dir = os.path.join(OUT, tag)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cfg = config_from_args(argv + ["--log_dir", os.path.join(run_dir, "logs"),
+                                   "--stat_dir", os.path.join(run_dir, "statis")])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    tr = (LMTrainer if cfg.model == "transformer" else Trainer)(cfg, log_to_file=False)
+    tr.run(epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(runtime.LAUNCHES)
+    series = dict(tr.recorder.data, _meta=tr.recorder.meta)
+    return counts, series, wall, torch.cuda.max_memory_allocated(), tr
+
+
+def check_resume(torch, name, argv, mode, paths):
+    """[4h]: one recipe under ``--superstep mode``: the whole run with
+    ``--ckpt_dir`` (a save after each epoch), then a fresh trainer resuming
+    from its checkpoint of epoch ``RESUME_EPOCHS - 2`` (copied alone into
+    a directory of its own: the run as if stopped there) for the last
+    epoch. The stop is taken from the whole run itself: a separate shorter
+    run would probe its own walls, and on the card their noise can move its
+    plans off the whole run's. The resumed run's parameters, momentum
+    buffers and train loss equal the whole run's bit for bit; its recorder
+    holds the last epoch alone, with the whole run's partition. Logs each
+    save's and the restore's wall; both legs' launches join ``paths``."""
+    tag = name.replace(" ", "_") + "_" + mode
+    ck = os.path.join(SCRATCH, "ckpt", tag)  # DenseNet-121: 56 MB a checkpoint
+    stop_ck = ck + "_stop"
+    for d in (ck, stop_ck):
+        shutil.rmtree(d, ignore_errors=True)
+    base = argv + ["--superstep", mode, "--probe_mode", "always"]
+    *run, whole = run_trainer(torch, base + ["--ckpt_dir", ck], f"resume/{tag}_whole")
+    paths[f"resume_{tag}_whole"] = tuple(run)
+    last = RESUME_EPOCHS - 1
+    assert sorted(n for n in os.listdir(ck) if n.isdigit()) == [str(e) for e in range(RESUME_EPOCHS)]
+    os.makedirs(stop_ck)
+    shutil.copytree(os.path.join(ck, str(last - 1)), os.path.join(stop_ck, str(last - 1)))
+    shutil.copy(os.path.join(ck, f"controller_{last - 1}.json"), stop_ck)
+    *run, resumed = run_trainer(torch, base + ["--ckpt_dir", stop_ck], f"resume/{tag}_resumed")
+    paths[f"resume_{tag}_resumed"] = tuple(run)
+    assert resumed.recorder.data["epoch"] == [last], resumed.recorder.data["epoch"]
+    assert resumed.recorder.data["partition"] == [whole.recorder.data["partition"][last]], \
+        (resumed.recorder.data["partition"], whole.recorder.data["partition"])
+    for (n, p), q in zip(whole.model.named_parameters(), resumed.model.parameters()):
+        assert torch.equal(p, q), f"{name} [{mode}]: parameter {n} differs after the resume"
+        assert torch.equal(whole.optimizer.state[p]["momentum_buffer"],
+                           resumed.optimizer.state[q]["momentum_buffer"]), \
+            f"{name} [{mode}]: momentum of {n} differs after the resume"
+    assert resumed.recorder.data["train_loss"] == [whole.recorder.data["train_loss"][last]]
+    assert resumed.steps_done == whole.steps_done
+    saves = whole.recorder.meta["checkpoint"]["save_s"]
+    restore = resumed.recorder.meta["checkpoint"]["restore_s"]
+    n_params = sum(p.numel() for p in whole.params)
+    log(f"  {name} [{mode}]: epoch {last} resumed bit for bit ({n_params:,} parameters and their "
+        f"momentum, train loss {resumed.recorder.data['train_loss'][0]:.6f}, partition "
+        f"{[round(x, 4) for x in resumed.recorder.data['partition'][0]]}); saves "
+        f"{[round(t * 1e3, 1) for t in saves]} ms, restore {restore * 1e3:.1f} ms")
+    for d in (ck, stop_ck):
+        shutil.rmtree(d, ignore_errors=True)
+    del whole, resumed
+    gc.collect()  # the trainers' step graphs and pools go before the next recipe
+    torch.cuda.empty_cache()
+    return {"saves_s": saves, "restore_s": restore}
+
+
+def check_trace(path_dir, what, mode):
+    """[4i]: a traced run's Chrome trace attributes at least 95% of each
+    epoch's wall to its phases (``scope_cli summarize``), and
+    ``postmortem`` reads its spool. Returns the attribution."""
+    import glob
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.obs import scope_cli
+    from dynamic_load_balance_distributeddnn_tpu_torch.obs.trace import attribution, load_trace
+
+    d = os.path.join(TRACE_DIR, path_dir)
+    (trace,) = glob.glob(os.path.join(d, "*.trace.json"))
+    att = attribution(load_trace(trace))
+    log(f"  {what} (--trace {mode}): {trace}")
+    for line in scope_cli.summarize(trace).splitlines():
+        log("    " + line)
+    covs = [ep["coverage"] for ep in att["epochs"].values()]
+    assert covs and min(covs) >= 0.95, f"{what}: attribution {covs} below 95% of an epoch's wall"
+    pm = json.loads(scope_cli.postmortem(os.path.join(d, "spool"), as_json=True))
+    procs = pm["processes"].values()
+    n_ev = sum(p.get("events", 0) for p in procs)
+    assert procs and n_ev > 0, f"{what}: postmortem read no spooled events: {pm}"
+    log(f"  {what}: postmortem read {len(procs)} process(es), {n_ev} events, "
+        f"torn {[p.get('truncated') for p in procs]}")
+    return att
+
+
+def check_window_spool(series):
+    """[4i]: ``replay`` of [4e]'s spool (``--trace ring``) reproduces every
+    verdict the run's controller recorded."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.balance import replaylab
+    from dynamic_load_balance_distributeddnn_tpu_torch.obs import scope_cli
+
+    spool = os.path.join(TRACE_DIR, "window", "spool")
+    corpus = replaylab.load_corpus(spool)
+    report = replaylab.replay(corpus)
+    ctl = series["_meta"]["rebalance_controller"]
+    assert report["parity"] and report["invariant_violations"] == [], report["mismatches"][:3]
+    assert len(corpus["journal"]) == ctl["evals"], (len(corpus["journal"]), ctl["evals"])
+    assert report["replayed"]["switches"] == sum(series["plan_switches"])
+    text, ok = scope_cli.replay_cmd(spool, {})
+    assert ok, text
+    log(f"  [4e]'s spool: {len(corpus['journal'])} verdicts replayed bit for bit "
+        f"({report['replayed']['switches']} switches)")
+
+
+def check_profile(torch, paths):
+    """[4i]: [4f]'s packed bf16 recipe (``PROFILE_ARGV``) under
+    ``--profile_dir``: its Chrome trace's K1 kernels (``gn_*``), counted,
+    beside those whose correlation is a ``cudaGraphLaunch`` (launched from a
+    graph replay) and the wrappers' launch counts. No K1 kernel from a
+    replay in the trace is a finding about the profiler (CUPTI under CUDA
+    graphs), logged as such, not a fault of the port."""
+    prof_dir = os.path.join(SCRATCH, "profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    run = run_path(torch, PROFILE_ARGV + ["--profile_dir", prof_dir], "run_profile")
+    paths["vision_bf16_profiled"] = run
+    counts, series = run[:2]
+    with open(series["_meta"]["profile_trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    graph_corr = {e["args"]["correlation"] for e in events
+                  if "GraphLaunch" in str(e.get("name", "")) and "correlation" in e.get("args", {})}
+    k1 = [e for e in events if e.get("cat") == "kernel" and "gn_" in str(e.get("name", ""))]
+    k1_graph = [e for e in k1 if e.get("args", {}).get("correlation") in graph_corr
+                or "graph node id" in e.get("args", {})]
+    out = {"trace": series["_meta"]["profile_trace"], "events": len(events),
+           "graph_launches": len(graph_corr), "k1_kernels": len(k1),
+           "k1_from_graphs": len(k1_graph),
+           "k1_wrapper_launches": counts["groupnorm_fwd"] + counts["groupnorm_bwd"],
+           "k1_names": sorted({e["name"] for e in k1})[:8]}
+    log(f"  profiler trace: {out['events']} events, {out['graph_launches']} cudaGraphLaunch calls; "
+        f"K1 kernels {out['k1_kernels']}, of which from graph replays {out['k1_from_graphs']}; "
+        f"the K1 wrappers counted {out['k1_wrapper_launches']} launches (replays included)")
+    assert k1, "the profiler's trace holds no K1 kernel"
+    if not k1_graph:
+        log("  FINDING: the profiler's trace shows no K1 kernel from inside a graph replay "
+            "(CUPTI on this stack does not report graph-node kernels)")
+    with open(os.path.join(OUT, "profile_summary.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def check_mfu(paths):
+    """[4i]: ``flops_per_epoch`` and ``mfu_bf16_peak`` of [4], [4f] and
+    [5], each MFU in (0, 1]."""
+    for tag in ("vision", "vision_bf16", "lm"):
+        if tag not in paths:
+            continue
+        series = paths[tag][1]
+        flops, util = series["flops_per_epoch"], series["mfu_bf16_peak"]
+        assert all(0.0 < u <= 1.0 for u in util), f"{tag}: mfu_bf16_peak {util}"
+        log(f"  {tag}: flops_per_epoch {[f'{x:.4e}' for x in flops]}, mfu_bf16_peak "
+            f"{[round(u, 5) for u in util]} (FLOPs an example "
+            f"{series['_meta']['flops_per_example']:.4e})")
+
 
 def time_kernels(torch, dev):
     """[3]'s timing: K1's route for every GroupNorm call of the four
@@ -1682,7 +1958,7 @@ def time_kernels(torch, dev):
     return timing, gt, gp, gp16, xt, at, shapes, gn_routes
 
 
-PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "4g", "6", "6b")
+PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "4h", "4i", "4g", "6", "6b")
 
 
 def main(argv=None) -> int:
@@ -1753,8 +2029,8 @@ def main(argv=None) -> int:
 
     paths = {}  # tag: (launch counts, series, wall, peak bytes)
     if want("4"):
-        phase("[4] vision path: the defaults (packed epochs, adaptive probes)")
-        paths["vision"] = run_path(torch, MAIN_ARGV, "run")
+        phase("[4] vision path: the defaults (packed epochs, adaptive probes), traced")
+        paths["vision"] = run_path(torch, MAIN_ARGV + traced("vision", "on"), "run")
         check_main_path(*paths["vision"][:2])
 
     if want("4b"):
@@ -1778,12 +2054,16 @@ def main(argv=None) -> int:
         phase("[4e] vision path, window-cadence rebalancing (compute-mode sin straggler)")
         err.setdefault("groupnorm_fwd", 0.0)
         err.setdefault("groupnorm_bwd", 0.0)
-        paths["vision_window"] = run_path(torch, WINDOW_ARGV, "run_window")
+        paths["vision_window"] = run_path(torch, WINDOW_ARGV + traced("window", "ring"),
+                                          "run_window")
         paths["vision_window_epoch"] = run_path(torch, EPOCH_CADENCE_ARGV, "run_window_epoch")
         check_cnn_path(*paths["vision_window_epoch"][:2], "epoch-cadence", path="elastic",
                        epochs=WINDOW_EPOCHS, moved_off=None, repeats=False)
         window_walls = check_window_path(torch, dev, *paths["vision_window"][:2],
                                          paths["vision_window_epoch"][1], err, records)
+        phase("[4e] the same window recipe under --superstep off (eager steps)")
+        paths["vision_window_off"] = run_path(torch, WINDOW_OFF_ARGV, "run_window_off")
+        check_window_off(*paths["vision_window_off"][:2])
 
     if want("4f"):
         phase("[4f] vision path under --precision bfloat16: packed (the defaults), then elastic")
@@ -1811,6 +2091,30 @@ def main(argv=None) -> int:
                                                epoch_walls(paths["lm"][1]))):
                 log(f"  epoch {e} wall: bf16 {w16:.3f}s, f32 ([5]) {w32:.3f}s (for information)")
         torch.cuda.empty_cache()
+    resume = {}
+    if want("4h"):
+        phase("[4h] stop and resume (--ckpt_dir), bit for bit against the whole run")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            for name, argv in RESUME_RECIPES:
+                for mode in ("auto", "off"):
+                    resume[f"{name} [{mode}]"] = check_resume(torch, name, argv, mode, paths)
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+    tracing = {}
+    if want("4i"):
+        phase("[4i] tracing: graftscope attribution, the spools, the profiler, MFU")
+        if "vision" not in paths:  # a phase subset: [4]'s recipe, traced, here
+            paths["vision"] = run_path(torch, MAIN_ARGV + traced("vision", "on"), "run")
+        tracing["vision"] = check_trace("vision", "[4]", "on")
+        if "vision_window" in paths:
+            check_window_spool(paths["vision_window"][1])
+        else:
+            log("  [4e] did not run in this subset: its spool's replay is not checked")
+        tracing["profile"] = check_profile(torch, paths)
+        check_mfu(paths)
     for tag, (_, _, wall, peak) in paths.items():
         log(f"  path {tag}: cli wall {wall:.1f}s, peak device memory {peak / 2**30:.2f} GiB")
 
@@ -1840,6 +2144,7 @@ def main(argv=None) -> int:
     if not every:
         with open(os.path.join(OUT, "phases.json"), "w") as f:
             json.dump({"card": smi, "phases": chosen, "errors": err, "supersteps": supersteps,
+                       "resume": resume, "tracing": tracing,
                        "launches": {tag: p[0] for tag, p in paths.items()},
                        "series": {tag: p[1] for tag, p in paths.items()},
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
@@ -1911,7 +2216,7 @@ def main(argv=None) -> int:
                    "peak_bytes": {tag: p[3] for tag, p in paths.items()},
                    "series": {tag: p[1] for tag, p in paths.items()},
                    "groupnorm_shapes": shapes, "window_walls": window_walls,
-                   "supersteps": supersteps,
+                   "supersteps": supersteps, "resume": resume, "tracing": tracing,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -33,9 +33,9 @@ switch costs (seeded by ``cost_init``), and (spent, credit) the cumulative
 ledgers. Every evaluation, hold or switch, goes into the decision journal
 with the inputs it was decided on, which ``balance/replaylab.py`` replays.
 
-The JAX package also mirrors each decision as a trace instant; this port has
-no tracer yet (``obs/trace.py``, ROADMAP), and the journal carries the same
-record. This port compiles nothing ahead of time, so the engine never
+Each decision is also mirrored as a graftscope ``decision`` instant when
+tracing is on (``obs/trace.py``), so a trace or a ``--trace_spool`` spool
+alone is a replayable corpus. This port compiles nothing ahead of time, so the engine never
 defers a switch; ``note_deferred`` stays for journals recorded elsewhere.
 Everything here is host-side numpy.
 """
@@ -56,6 +56,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.balance.solver import (
     quantize_batches,
     rebalance,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.obs.trace import get_tracer
 
 # decision-journal ring cap: one entry per controller evaluation; a week-long
 # run at window cadence stays bounded, and the postmortem question ("why did
@@ -156,7 +157,8 @@ class OnlineRebalanceController:
         # decision journal: EVERY evaluation's verdict — hold or switch —
         # with the inputs it was decided on, so "why did epoch 7
         # rebalance?" (and "why did it NOT?") is answerable offline.
-        # Ring-bounded.
+        # Ring-bounded; mirrored as graftscope ``decision`` instants when
+        # tracing is enabled.
         self.journal: deque = deque(maxlen=JOURNAL_CAP)
         # ring evictions: a replayed corpus must be honest about truncation —
         # a journal that silently lost its head is not the full history
@@ -164,6 +166,7 @@ class OnlineRebalanceController:
         # engine-owned position tag ({"epoch": e, "window": w}) merged into
         # every journal entry at decision time, so HOLD verdicts carry their
         # epoch too (commit() only annotates executed switches)
+        self._config_traced = False
         self.eval_context: Dict = {}
 
     # ---------------------------------------------------------- replay seam
@@ -171,8 +174,9 @@ class OnlineRebalanceController:
     def journal_config(self) -> Dict:
         """The construction surface a replay needs to rebuild THIS controller
         (balance/replaylab.py): topology + knobs, JSON-safe. Carried in
-        ``snapshot(include_journal=True)``, so a snapshot is a
-        self-describing corpus."""
+        ``snapshot(include_journal=True)`` and (once, lazily) as a
+        ``dbs_config`` trace instant, so snapshots, spools and traces are
+        self-describing corpora."""
         return {
             "world_size": self.world_size,
             "global_batch": self.global_batch,
@@ -260,7 +264,9 @@ class OnlineRebalanceController:
         cur_batches: Optional[np.ndarray] = None,
     ) -> SwitchDecision:
         """Journal one evaluation: verdict + the inputs it was decided on
-        (EMA rates, modeled walls, regret ledgers, hysteresis state)."""
+        (EMA rates, modeled walls, regret ledgers, hysteresis state). Also
+        emitted as a graftscope ``decision`` instant so the flight
+        recorder's spool carries the journal."""
         ev: Dict = {
             "eval": int(self.evals),
             "switch": bool(dec.switch),
@@ -303,6 +309,19 @@ class OnlineRebalanceController:
         if len(self.journal) == self.journal.maxlen:
             self.journal_dropped += 1
         self.journal.append(ev)
+        tracer = get_tracer()
+        if tracer.enabled:
+            if not self._config_traced:
+                # once per controller: the construction surface, so a spool
+                # or trace file alone is a replayable corpus
+                self._config_traced = True
+                tracer.instant("dbs_config", cat="decision", args=self.journal_config())
+            # a COPY: commit/note_deferred annotate the journal entry later,
+            # and the trace must keep the verdict as decided
+            args = dict(ev)
+            if self.journal_dropped:
+                args["journal_dropped"] = self.journal_dropped
+            tracer.instant("dbs_decision", cat="decision", args=args)
         return dec
 
     def decision_journal(self) -> List[Dict]:
@@ -414,6 +433,9 @@ class OnlineRebalanceController:
             for k in ("epoch", "window", "step"):
                 if k in extra:
                     self.journal[-1][k] = extra[k]
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.instant("dbs_switch", cat="decision", args=dict(ev))
         if self.logger is not None:
             self.logger.info(
                 f"online-dbs: switched plan -> {ev['batches']} "
@@ -432,6 +454,9 @@ class OnlineRebalanceController:
         self.deferred += 1
         if self.journal:
             self.journal[-1]["outcome"] = "deferred"
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.instant("dbs_deferred", cat="decision", args={"deferred": self.deferred})
 
     def snapshot(self, include_journal: bool = False) -> Dict:
         """JSON-safe controller observability (the recorder's meta).

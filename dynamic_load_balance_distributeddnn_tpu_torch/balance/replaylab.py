@@ -7,7 +7,8 @@ was decided on, which makes it a dataset for replay:
 
 * **replay** (:func:`load_corpus` + :func:`replay`): load a decision journal
   from a corpus JSON, a controller snapshot (the recorder's
-  ``rebalance_controller`` meta holds one) or a trace file; rebuild a fresh
+  ``rebalance_controller`` meta holds one), a trace file, a spool or a
+  directory of spools and traces; rebuild a fresh
   controller from the recorded ``journal_config()`` (optionally overriding
   ``hysteresis`` / ``margin`` / ``budget_frac`` / ``rate_alpha`` /
   ``cost_init``); drive it with the recorded input stream; report the
@@ -31,9 +32,9 @@ there is no modeled gain, ledger monotonicity and recurrence.
 the recorded ``wall_scale``) over the recorded horizon: a basis for
 comparing knob sets, not a promise about any fleet's seconds.
 
-The JAX package's command line for this lab (``graftscope replay`` /
-``sweep``) and its spool reader live in ``obs/scope_cli.py``, not ported
-yet; a spool or a directory of traces raises ``NotImplementedError``.
+The lab's command line is ``obs/scope_cli.py``'s ``replay`` and ``sweep``,
+which also reads the spools (``python -m
+dynamic_load_balance_distributeddnn_tpu_torch.obs.scope_cli replay <path>``).
 """
 
 from __future__ import annotations
@@ -128,11 +129,11 @@ def load_corpus(path: str) -> Dict:
 
     Accepts a corpus JSON (:func:`harvest`), a controller
     ``snapshot(include_journal=True)`` or a dict holding one under
-    ``controller`` or ``rebalance_controller`` (the recorder's meta), or a
-    Chrome-trace file of decision instants. A ``.spool`` file or a
-    directory raises ``NotImplementedError`` (:func:`_decision_instants`).
-    Raises ``ValueError`` when no decision journal can be reconstructed —
-    an empty corpus is an error, not a clean replay."""
+    ``controller`` or ``rebalance_controller`` (the recorder's meta), a
+    Chrome-trace file of decision instants, a ``.spool`` file, or a
+    directory of spools and traces (``--trace_spool``). Raises
+    ``ValueError`` when no decision journal can be reconstructed — an empty
+    corpus is an error, not a clean replay."""
     if os.path.isdir(path) or path.endswith(".spool"):
         config, journal = _entries_from_decision_instants(
             _decision_instants(path)
@@ -180,15 +181,14 @@ def load_corpus(path: str) -> Dict:
 
 
 def _decision_instants(path: str) -> List[dict]:
-    """Decision instants from a spool file or a directory of spools and
-    traces: the JAX package merges them with its trace CLI
-    (``obs/scope_cli.py``), which this port has not copied yet (ROADMAP
-    queue 1, observability)."""
-    raise NotImplementedError(
-        f"{path}: reading spools or trace directories needs obs/scope_cli.py, "
-        "which this port does not have yet; pass a corpus JSON, a controller "
-        "snapshot or a single trace file"
+    # scope_cli owns the spool/trace merge machinery; imported lazily so
+    # replaylab stays importable without the CLI module loaded (and the
+    # CLI's replay/sweep handlers import replaylab lazily in turn)
+    from dynamic_load_balance_distributeddnn_tpu_torch.obs.scope_cli import (
+        _decision_events,
     )
+
+    return _decision_events(path)
 
 
 def harvest(ctl: OnlineRebalanceController, label: str = "") -> Dict:

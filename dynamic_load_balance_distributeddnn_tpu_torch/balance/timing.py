@@ -6,16 +6,22 @@ and the combine+update time is measured separately by the engine and never
 enters the solver's vector (PARITY contract 4).
 
 :class:`HostOverheadMeter` keeps the host's own cost of driving an elastic
-epoch apart: the seconds spent in launch calls, which the window controller
-subtracts from a window's measured wall.
+epoch apart: the seconds spent in launch calls. On the CPU the window
+controller subtracts them from a window's measured wall, as the JAX package
+does. On the card it reads the windows' time from :class:`DeviceWindowTimer`
+instead: there a launch call blocks while the queue is full, so its wall is
+device time, and subtracting it left the controller's wall feedback at its
+clip floor.
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 
 class TimeKeeper:
@@ -37,15 +43,51 @@ class TimeKeeper:
         self.injected_s[worker] += seconds
 
 
+class DeviceWindowTimer:
+    """The card's own time between the window controller's evaluations.
+
+    ``mark()`` records a timing event at an evaluation boundary on the
+    current stream, the one that runs the steps and the graph replays;
+    ``seconds()``, called after the device synchronize that follows the
+    mark, is the card's time between the last two marks
+    (``Event.elapsed_time``). ``active`` is False on the CPU, where there
+    are no events and the caller keeps the host clock. ``event_factory``
+    replaces ``torch.cuda.Event(enable_timing=True)`` (tests)."""
+
+    def __init__(self, device, event_factory: Optional[Callable] = None):
+        if event_factory is None and torch.device(device).type == "cuda":
+            event_factory = _timing_event
+        self._factory = event_factory
+        self._prev = self._last = None
+
+    @property
+    def active(self) -> bool:
+        return self._factory is not None
+
+    def mark(self) -> None:
+        ev = self._factory()
+        ev.record()
+        self._prev, self._last = self._last, ev
+
+    def seconds(self) -> Optional[float]:
+        """Seconds from the previous mark to the last; None before two."""
+        if self._prev is None:
+            return None
+        return self._prev.elapsed_time(self._last) / 1e3
+
+
+def _timing_event():
+    return torch.cuda.Event(enable_timing=True)
+
+
 class HostOverheadMeter:
     """Per-epoch accounting of the host's cost of driving the card: the
     seconds spent in launch calls (``dispatch()``).
 
     ``dispatch()`` wraps the calls that launch a step's work and nothing
-    that synchronizes: on an asynchronous device the wall of a launch call
-    is host time, and the window controller subtracts it from the measured
-    window wall (which it reads after a synchronize) so that what is left
-    stays device time. The JAX package also counts its host-to-device
+    that synchronizes. On the CPU the window controller subtracts it from
+    the measured window wall, as the JAX package does; on the card it times
+    the windows with :class:`DeviceWindowTimer`. The JAX package also counts its host-to-device
     transfers here; this port's rows live on the card and are gathered
     there by index, so nothing is transferred a step and ``put_s`` stays
     0.0 (the recorder's ``host_put_s`` series keeps the JAX meaning)."""

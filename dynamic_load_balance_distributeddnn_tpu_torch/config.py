@@ -10,12 +10,18 @@ One default differs, because this port has no use for the other value:
 ``--use_pallas false`` with a CUDA device is rejected by the trainer, so the
 card never quietly runs the plain path.
 
+``Config.__post_init__`` runs the JAX package's value checks in its order,
+each raising the JAX package's exception type (``tests/test_torch_config_checks.py``).
 A flag whose feature this port does not implement yet raises
 ``NotImplementedError`` naming the flag when it is set to a non-default
-value. Flags that tune only the JAX package's compile service or device
-cache (``aot_*``, ``speculate_scan``, ``warm_start``, ``device_cache*``)
-have no meaning for an eager PyTorch program; they are accepted and have no
-effect. ``--precision bfloat16`` is the JAX package's compute-dtype policy:
+value; so do ``num_processes`` / ``process_id`` for more than one process.
+Flags that tune only the JAX package's compile service or device cache
+(``aot_*``, ``speculate_scan``, ``warm_start``, ``device_cache*``) have no
+meaning for an eager PyTorch program; they are checked, accepted and have
+no effect. ``--ckpt_dir`` (``train/checkpoint.py``), ``--trace``,
+``--trace_spool`` and ``--trace_annotations`` (``obs/trace.py``,
+``obs/spool.py``) and ``--profile_dir`` (``torch.profiler``) work as in the
+JAX package. ``--precision bfloat16`` is the JAX package's compute-dtype policy:
 each training forward runs on bf16 copies of the f32 master weights
 (``train/steps.py`` ``cast_compute``).
 
@@ -45,7 +51,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 MODELS = [
     "mnistnet",
@@ -78,6 +84,34 @@ def _env_int(name: str, default: int) -> int:
         return int(v)
     except ValueError:
         raise SystemExit(f"env var {name} must be an integer, got {v!r}")
+
+
+def parse_hier_levels(spec: str) -> Tuple[Tuple[str, int], ...]:
+    """A declared topology spec (``--hier_levels host:4,rack:2``) as
+    ``((name, size), ...)`` outermost-first; raises ``ValueError`` on a
+    malformed entry. The JAX package's ``parallel/topology.py`` function,
+    copied for the config check (this port has no hierarchy yet)."""
+    levels: List[Tuple[str, int]] = []
+    seen = set()
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" not in part:
+            raise ValueError(f"hier_levels entry {part!r} must be name:size (e.g. host:4)")
+        name, _, size_s = part.partition(":")
+        name = name.strip()
+        try:
+            size = int(size_s)
+        except ValueError:
+            raise ValueError(f"hier_levels size {size_s!r} is not an integer")
+        if not name or name in seen:
+            raise ValueError(f"hier_levels names must be unique, got {name!r}")
+        if size < 2:
+            raise ValueError(f"hier_levels size for {name!r} must be >= 2")
+        seen.add(name)
+        levels.append((name, size))
+    return tuple(levels)
 
 
 def device_map(v):
@@ -187,6 +221,9 @@ class Config:
     packed: str = "auto"
 
     def __post_init__(self):
+        """The JAX ``Config.__post_init__``'s checks, copied in its order
+        (each raises the JAX package's exception type), then this port's
+        own: ``bucket``, ``precision`` and the flags it does not have yet."""
         if self.model not in MODELS:
             raise ValueError(f"invalid model {self.model!r}; choose from {MODELS}")
         if self.dataset not in DATASETS:
@@ -201,12 +238,65 @@ class Config:
             raise ValueError("probe_mode must be 'adaptive' or 'always'")
         if self.straggler and len(self.straggler_factors()) != self.world_size:
             raise ValueError("straggler factor list length must equal world_size")
+        self._check_comm()
+        if self.device_cache not in ("auto", "on", "off"):
+            raise ValueError("device_cache must be 'auto', 'on' or 'off'")
+        if self.packed not in ("auto", "on", "off"):
+            raise ValueError("packed must be 'auto', 'on' or 'off'")
+        if self.superstep not in ("auto", "on", "off"):
+            raise ValueError("superstep must be 'auto', 'on' or 'off'")
+        if self.elastic not in ("on", "off"):
+            raise ValueError("elastic must be 'on' or 'off'")
+        if self.elastic_detect_misses < 1:
+            raise ValueError("elastic_detect_misses must be >= 1")
+        if self.elastic_readmit not in ("epoch", "off"):
+            raise ValueError("elastic_readmit must be 'epoch' or 'off'")
+        self._check_rebalance()
+        self._check_trace_and_compile()
         if self.bucket < 1:
             raise ValueError("bucket must be >= 1")
         if self.precision not in ("float32", "bfloat16"):
             raise ValueError("precision must be 'float32' or 'bfloat16'")
-        self._check_rebalance()
         self._reject_unported()
+
+    def _check_comm(self) -> None:
+        """The JAX package's checks of the gradient-collective flags. The
+        flags themselves are refused by ``_reject_unported`` when set; a
+        malformed value fails here first, as in the JAX package."""
+        if self.compress_grads not in ("", "int8"):
+            raise ValueError("compress_grads must be '' or 'int8'")
+        if self.grad_comm not in ("flat", "hier"):
+            raise ValueError("grad_comm must be 'flat' or 'hier'")
+        if self.grad_comm_wire not in ("fp32", "int8", "int4"):
+            raise ValueError("grad_comm_wire must be 'fp32', 'int8' or 'int4'")
+        if self.hier_hosts < 0:
+            raise ValueError("hier_hosts must be >= 0 (0 = real topology)")
+        if self.hier_levels:
+            spec = self.hier_levels.strip()
+            if spec == "learned" or spec.startswith("learned,"):
+                spec = spec[len("learned"):].lstrip(",")
+            parse_hier_levels(spec)  # raises on malformed entries
+        if self.grad_comm_wires and self.grad_comm_wires != "auto":
+            for w in self.grad_comm_wires.split(","):
+                if w.strip() not in ("fp32", "int8", "int4"):
+                    raise ValueError(
+                        f"grad_comm_wires entry {w.strip()!r} must be "
+                        "'fp32', 'int8' or 'int4' (or the whole flag 'auto')"
+                    )
+        if not (0.0 < self.dcn_probe_gate <= 1.5):
+            raise ValueError("dcn_probe_gate must be in (0, 1.5]")
+        if self.grad_comm == "hier" and self.compress_grads:
+            raise ValueError(
+                "grad_comm=hier subsumes compress_grads: the cross-host hop "
+                "already rides --grad_comm_wire (the flat int8 collective "
+                "stays available via compress_grads with grad_comm=flat)"
+            )
+        if self.grad_comm == "hier" and self.seq_parallel:
+            raise ValueError(
+                "grad_comm=hier applies to the data-parallel gradient "
+                "combine; the sequence-parallel modes shard the sequence "
+                "axis instead"
+            )
 
     def _check_rebalance(self) -> None:
         """The JAX package's checks of the window-cadence controller and the
@@ -238,6 +328,38 @@ class Config:
                 "dynamic_batch_size on"
             )
 
+        if self.rebalance == "window" and self.fused_dbs:
+            raise ValueError(
+                "rebalance=window retires windows mid-epoch on the elastic "
+                "dispatch paths; the fused-DBS whole-epoch scan has no "
+                "window boundary to act at"
+            )
+
+    def _check_trace_and_compile(self) -> None:
+        """The JAX package's checks of the trace, superstep-window and
+        compile-service flags. Its two last checks (``compress_grads`` and
+        ``grad_accum`` ride a fused path) are ``_reject_unported``'s here:
+        this port refuses both flags, naming them, whatever the balancer's
+        setting."""
+        if self.trace not in ("on", "off", "ring"):
+            raise ValueError("trace must be 'on', 'off' or 'ring'")
+        if self.trace_ring < 1:
+            raise ValueError("trace_ring must be >= 1")
+        if self.trace_spool_flush_s <= 0:
+            raise ValueError("trace_spool_flush_s must be > 0")
+        if self.trace_spool and self.trace == "off":
+            # the flight recorder streams the tracer's events: with tracing
+            # off it would record nothing for the run it was set to protect
+            raise ValueError("trace_spool requires tracing: set --trace ring (or on)")
+        if self.superstep_window < 1:
+            raise ValueError("superstep_window must be >= 1")
+        if self.aot_pool < 0:
+            raise ValueError("aot_pool must be >= 0 (0 = auto)")
+        if self.aot_backend not in ("thread", "process"):
+            raise ValueError("aot_backend must be 'thread' or 'process'")
+        if self.aot_workers < 0:
+            raise ValueError("aot_workers must be >= 0 (0 = auto)")
+
     def _reject_unported(self) -> None:
         """Features of the JAX package that this port does not have yet:
         each raises, naming its flag, instead of being silently ignored."""
@@ -267,11 +389,12 @@ class Config:
             "grad_accum": self.grad_accum != 1,
             "elastic": self.elastic != "off",
             "coordinator": bool(self.coordinator),
-            "trace": self.trace != "off",
+            # one process: the JAX package's defaults (0, -1: from the
+            # environment or the coordinator) or the explicit 1 / 0
+            "num_processes": self.num_processes not in (0, 1),
+            "process_id": self.process_id not in (-1, 0),
             "seq_parallel": bool(self.seq_parallel),
             "remat": self.remat,
-            "ckpt_dir": bool(self.ckpt_dir),
-            "profile_dir": bool(self.profile_dir),
         }
         for flag, set_ in unported.items():
             if set_:

@@ -62,6 +62,14 @@ class MetricsRecorder:
         for k, v in kw.items():
             self.data.setdefault(k, []).append(_pythonize(v))
 
+    def last(self, key: str):
+        """Last recorded value of a series, or None. Optional series
+        (``examples_per_s``, ``host_dispatch_s``, ...) exist only on the
+        paths that emit them, so an absent key is an answerable question
+        (None), not a KeyError."""
+        series = self.data.get(key)
+        return series[-1] if series else None
+
     def save(self, stat_dir: str, base_filename: str, rank: int = 0) -> str:
         os.makedirs(stat_dir, exist_ok=True)
         stem = base_filename.format(rank)

@@ -54,8 +54,10 @@ dispatch windows (``_elastic_ranges``). After every ``rebalance_every``
 windows the online controller (``balance/controller.py``) folds the probe
 anchors, the schedule's factors for the next window
 (``ScheduledStragglerInjector.faults_at``) and the measured wall of the
-windows since its last evaluation (read after a device synchronize, less
-the host's launch time, ``HostOverheadMeter``), and may switch the rest of
+windows since its last evaluation (on the card the time between two CUDA
+events recorded at the evaluations, ``DeviceWindowTimer``; on the CPU the
+host's wall after a synchronize less its launch time, ``HostOverheadMeter``,
+as in the JAX package), and may switch the rest of
 the epoch onto a new plan (``build_remainder_plan``) appended to the
 segment table ``seg_plans``. Under compute-mode injection each window
 re-stages the synthetic-load iterations at the schedule's value in
@@ -84,6 +86,24 @@ and host-overhead reference, on both paths. The probes and the in-step
 calibration stay eager. Each epoch's captures, replays, capture seconds,
 dispatches and host dispatch seconds go to ``_meta["supersteps"]``.
 
+Checkpoints (``--ckpt_dir``, ``train/checkpoint.py``): ``run`` restores the
+latest one before its first epoch (``_maybe_restore``: the parameters and
+momentum buffers copied in place, the step counter, the generators' states
+and the controller's shares, node times and wall totals), saves one after
+every epoch (``_save_checkpoint``) and makes the last durable at the end.
+
+Observability (``--trace``, ``--trace_spool``, ``--profile_dir``): each
+epoch is a graftscope ``epoch`` span tiled by the phases ``plan_solve``,
+``train``, ``validate`` and ``record``, with ``dispatch_window``,
+``probe``, ``sync_probe``, ``warm`` (a step graph's warm-up and capture)
+and ``checkpoint`` spans inside or beside them, as the JAX package names
+them (``obs/trace.py``; ``save_trace`` writes the Chrome trace,
+``--trace_spool`` streams it to a crash-durable spool). ``--profile_dir``
+runs ``torch.profiler`` over the epochs and exports its Chrome trace there.
+The first elastic or packed epoch counts one eager step's FLOPs
+(``obs/flops.py`` ``step_flops``) outside its wall; every epoch then records
+``flops_per_epoch`` and, on a card with a known peak, ``mfu_bf16_peak``.
+
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
 ``_setup_model``, ``_build_plan``, ``_worker_epoch`` and ``validate``.
@@ -91,6 +111,8 @@ overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -106,6 +128,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.balance import (
     quantize_batches,
     rebalance,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.balance.timing import DeviceWindowTimer
 from dynamic_load_balance_distributeddnn_tpu_torch.balance.controller import (
     OnlineRebalanceController,
     step_time,
@@ -131,7 +154,14 @@ from dynamic_load_balance_distributeddnn_tpu_torch.models.common import (
     Dropout,
     init_flax_defaults,
 )
-from dynamic_load_balance_distributeddnn_tpu_torch.obs import MetricsRecorder, init_logger
+from dynamic_load_balance_distributeddnn_tpu_torch.obs import (
+    EPOCH_CAT,
+    MetricsRecorder,
+    MetricsRegistry,
+    get_tracer,
+    init_logger,
+)
+from dynamic_load_balance_distributeddnn_tpu_torch.obs.flops import mfu, step_flops
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.augment import (
     augment_images,
     normalize_images,
@@ -139,6 +169,11 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.augment import (
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.faultload import SyntheticLoad
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import softmax_xent
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.losses import example_weights
+from dynamic_load_balance_distributeddnn_tpu_torch.train.checkpoint import (
+    flush_checkpoints,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from dynamic_load_balance_distributeddnn_tpu_torch.train.schedule import one_cycle_lr
 from dynamic_load_balance_distributeddnn_tpu_torch.train.state import (
     learning_rate,
@@ -204,12 +239,22 @@ class Trainer:
         self.timing_model = timing_model
         self.logger = logger or init_logger(cfg, to_file=log_to_file)
         self.world_size = cfg.world_size
+        # graftscope: the engine owns the process-wide tracer's config, set
+        # unconditionally so a trace="off" run never inherits an earlier
+        # traced run's state in the same process
+        self._trace = get_tracer().configure(
+            cfg.trace, ring_size=cfg.trace_ring, annotations=cfg.trace_annotations
+        )
+        self._spool_writer = None
+        if cfg.trace != "off" and cfg.trace_spool:
+            self._attach_spool()
 
         self._setup_data(bundle)
         self._setup_model()
         # the step executor of --superstep auto/on (train/supersteps.py); the
         # dropout generator is registered with every captured step
-        self.supersteps = StepGraphs(self.device, generators=[self.dropout_gen])
+        self.supersteps = StepGraphs(self.device, generators=[self.dropout_gen],
+                                     tracer=self._trace)
         self._superstep_keys: set = set()
 
         self.injector = injector if injector is not None else self._make_injector()
@@ -259,6 +304,16 @@ class Trainer:
         self._window_rebalance_logged = False
         self._clean_compute_s: Optional[np.ndarray] = None
         self._clean_examples: Optional[np.ndarray] = None
+        # the card's time between window evaluations (CUDA events)
+        self._window_timer = DeviceWindowTimer(self.device)
+        self._packed_epoch = False  # the path of the epoch running
+        # optimizer steps taken (a checkpoint's step counter), FLOPs an
+        # example (counted once, obs/flops.py), and the parameter count
+        self.steps_done = 0
+        self._flops_per_example: Optional[float] = None
+        self._param_elems = int(sum(p.numel() for p in self.params))
+        self.obs = MetricsRegistry(recorder=self.recorder, tracer=self._trace)
+        self.obs.attach(host_meter=self._host_meter)
         self._can_use_packed(None)  # --packed on fails here where it cannot engage
 
     # -------------------------------------------------------------- set-up
@@ -344,15 +399,32 @@ class Trainer:
     # ------------------------------------------------------------------ run
 
     def run(self, epochs: Optional[int] = None) -> MetricsRecorder:
+        """The JAX ``run``: restore from ``--ckpt_dir`` before the first
+        epoch, save after each, make the last durable at the end; the
+        epochs under ``torch.profiler`` with ``--profile_dir``; the metrics
+        and the trace saved at the end."""
         cfg = self.cfg
         epochs = cfg.epoch_size if epochs is None else epochs
         self.logger.info(
             f"Starting: {cfg.model}/{cfg.dataset}, ws={cfg.world_size}, "
             f"B={cfg.batch_size}, device={self.device}, dbs={cfg.dynamic_batch_size}"
         )
-        for epoch in range(epochs):
-            self.run_epoch(epoch)
+        start_epoch = 0
+        if cfg.ckpt_dir:
+            start_epoch = self._maybe_restore()
+        prof = self._start_profiler() if cfg.profile_dir else None
+        try:
+            for epoch in range(start_epoch, epochs):
+                self.run_epoch(epoch)
+                if cfg.ckpt_dir:
+                    self._save_checkpoint(epoch)
+        finally:
+            if prof is not None:
+                self._stop_profiler(prof)
+            if cfg.ckpt_dir:
+                flush_checkpoints(cfg.ckpt_dir)
         self.recorder.save(cfg.stat_dir, cfg.base_filename())
+        self.save_trace()
         self.logger.info(
             f"Total wallclock: {self.total_wallclock:.3f}s"
             + (f" (+{self.total_probe_s:.3f}s probe)" if self.total_probe_s > 0 else "")
@@ -360,24 +432,197 @@ class Trainer:
         return self.recorder
 
     def run_epoch(self, epoch: int) -> Dict[str, float]:
-        plan, faults = self._plan_epoch(epoch)
+        """One epoch in the graftscope ``epoch`` span: every event emitted
+        inside is stamped with this epoch, which is what the offline
+        attribution (``obs/scope_cli.py summarize``) groups by."""
+        tr = self._trace
+        tr.set_epoch(epoch)
+        try:
+            with tr.span("epoch", cat=EPOCH_CAT):
+                return self._run_epoch(epoch)
+        finally:
+            tr.set_epoch(None)
+
+    def _run_epoch(self, epoch: int) -> Dict[str, float]:
+        # the phases tile the epoch span: plan_solve -> train -> validate -> record
+        tr = self._trace
+        with tr.span("plan_solve"):
+            plan, faults = self._plan_epoch(epoch)
         t_epoch = time.perf_counter()
-        train_metrics = self._dispatch_epoch(plan, faults, epoch)
-        # the wall excludes the probes, as the JAX package's does
-        probe_s = train_metrics["dbs_probe_cost"]
+        with tr.span("train"):
+            train_metrics = self._dispatch_epoch(plan, faults, epoch)
+        # the wall excludes the probes and the one-time FLOP count, as the
+        # JAX package's does
+        probe_s = train_metrics["dbs_probe_cost"] + train_metrics.get("probe_overhead", 0.0)
         epoch_wall = time.perf_counter() - t_epoch - probe_s
         self.total_wallclock += epoch_wall
         self.total_probe_s += probe_s
-        val_loss, accuracy = self.validate()
-        self._record_epoch(
-            epoch, plan, faults, train_metrics, epoch_wall, probe_s, val_loss, accuracy
-        )
+        with tr.span("validate"):
+            val_loss, accuracy = self.validate()
+        with tr.span("record"):
+            self._record_epoch(
+                epoch, plan, faults, train_metrics, epoch_wall, probe_s, val_loss, accuracy
+            )
         return {
             "epoch_wall": epoch_wall,
             "loss": train_metrics["loss"],
             "val_loss": val_loss,
             "accuracy": accuracy,
         }
+
+    # ---------------------------------------------------- trace and profile
+
+    def _attach_spool(self) -> None:
+        """The flight recorder: stream the tracer's events into a
+        crash-durable spool (``obs/spool.py``), one file a process, named
+        by its rank and pid as the JAX package names it."""
+        from dynamic_load_balance_distributeddnn_tpu_torch.obs.spool import SpoolWriter
+
+        cfg = self.cfg
+        path = os.path.join(cfg.trace_spool, f"proc0.{os.getpid()}.spool")
+        self._spool_writer = SpoolWriter(
+            path, ident=0, flush_interval_s=cfg.trace_spool_flush_s, fsync=cfg.trace_spool_fsync
+        )
+        self._trace.attach_spool(self._spool_writer)
+        self.logger.info(
+            f"flight recorder: trace spooling to {path} (flush every "
+            f"{cfg.trace_spool_flush_s}s" + (", fsync" if cfg.trace_spool_fsync else "") + ")"
+        )
+        # drain on collection even when run() never completes, without
+        # pinning the trainer
+        import weakref
+
+        weakref.finalize(self, self._spool_writer.close)
+
+    def close_spool(self):
+        """Drain and close the flight-recorder spool (idempotent); returns
+        the closed writer, or None. Callers that drive epochs without
+        ``run()`` call this."""
+        if self._spool_writer is None:
+            return None
+        sp = self._trace.detach_spool()
+        self._spool_writer = None
+        if sp is not None:
+            self.logger.info(f"flight recorder: spool closed ({sp.path}, {sp.bytes_written} bytes)")
+        return sp
+
+    def save_trace(self) -> Optional[str]:
+        """Write the graftscope trace (Chrome-trace JSON under
+        ``--trace_dir``, the config-encoded name) when tracing is on, after
+        closing the spool; returns its path."""
+        if not self._trace.enabled:
+            return None
+        self.close_spool()
+        path = os.path.join(self.cfg.trace_dir, self.cfg.base_filename().format(0) + ".trace.json")
+        self._trace.save(path)
+        self.logger.info(
+            f"graftscope trace saved: {path} ({self._trace.event_count()} events; "
+            "obs/scope_cli.py summarize for the per-phase epoch attribution)"
+        )
+        return path
+
+    def _start_profiler(self):
+        """``torch.profiler`` over the epochs (``--profile_dir``, the JAX
+        package's ``jax.profiler.start_trace``): CPU activity, and CUDA
+        activity on a card. A profiler that fails to start raises."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profiler(self, prof) -> str:
+        """Stop the profiler and export its Chrome trace into
+        ``--profile_dir``; returns the path."""
+        self._sync()
+        prof.__exit__(None, None, None)
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            self.cfg.base_filename().format(0) + ".pt.trace.json")
+        prof.export_chrome_trace(path)
+        self.recorder.meta["profile_trace"] = path
+        self.logger.info(f"profiler trace saved: {path}")
+        return path
+
+    # ----------------------------------------------------------- checkpoints
+
+    def _generators(self) -> Dict[str, torch.Generator]:
+        """The generators a checkpoint carries (the language model has no
+        augmentation generator)."""
+        gens = {"dropout_gen": self.dropout_gen, "aug_gen": getattr(self, "aug_gen", None)}
+        return {k: g for k, g in gens.items() if g is not None}
+
+    def _save_checkpoint(self, epoch: int) -> None:
+        """Epoch ``epoch``'s checkpoint (``train/checkpoint.py``) with the
+        JAX sidecar's controller state; its blocking wall goes to
+        ``_meta["checkpoint"]["save_s"]``."""
+        t0 = time.perf_counter()
+        with self._trace.span("checkpoint", cat="checkpoint", args={"epoch": int(epoch)}):
+            self._sync()
+            save_checkpoint(
+                self.cfg.ckpt_dir, epoch, self.model, self.optimizer,
+                {
+                    "shares": self.shares,
+                    "node_times": self.node_times,
+                    "total_wallclock": self.total_wallclock,
+                    "total_probe_s": self.total_probe_s,
+                    # the JAX key: the fleet the checkpoint was taken at
+                    # (every worker, this port has no elastic fleet yet)
+                    "active_ranks": list(range(self.world_size)),
+                },
+                steps=self.steps_done,
+                generators=self._generators(),
+            )
+        self.recorder.meta.setdefault("checkpoint", {}).setdefault("save_s", []).append(
+            time.perf_counter() - t0)
+
+    def _maybe_restore(self) -> int:
+        """Restore the latest checkpoint under ``--ckpt_dir``; returns the
+        first epoch to run (0 when there is none). The JAX package's
+        single-process branch: the controller's vectors when their length
+        fits the fleet (else uniform, with a warning) and its wall totals.
+        The parameters and momentum buffers are written in place (the
+        buffers made first, ``prepare_step_state``), so their addresses do
+        not move; a step graph captured before the restore is dropped; the
+        generators' states are set last, where ``StepGraphs`` reads them."""
+        t0 = time.perf_counter()
+        with self._trace.span("checkpoint", cat="checkpoint", args={"restore": True}):
+            prepare_step_state(self.optimizer)
+            restored = restore_checkpoint(self.cfg.ckpt_dir, self.model, self.optimizer)
+            if restored is None:
+                return 0
+            epoch, state, controller = restored
+            if self.supersteps.superstep_cache_size():
+                self.supersteps.clear()
+            self.steps_done = state["steps"]
+            for name, g in self._generators().items():
+                if name in state["generators"]:
+                    g.set_state(state["generators"][name])
+        for key, fallback in (
+            ("shares", lambda: initial_partition(self.world_size)),
+            ("node_times", lambda: np.ones(self.world_size, dtype=np.float64)),
+        ):
+            if key in controller:
+                vec = np.asarray(controller[key], dtype=np.float64)
+                if len(vec) == self.world_size:
+                    setattr(self, key, vec)
+                else:
+                    self.logger.warning(
+                        f"Resume: checkpointed {key} has length {len(vec)} but the "
+                        f"fleet is {self.world_size} — resetting to uniform"
+                    )
+                    setattr(self, key, fallback())
+        if "total_wallclock" in controller:
+            self.total_wallclock = float(controller["total_wallclock"])
+        if "total_probe_s" in controller:
+            self.total_probe_s = float(controller["total_probe_s"])
+        self.recorder.meta.setdefault("checkpoint", {})["restore_s"] = time.perf_counter() - t0
+        self.recorder.meta["checkpoint"]["restored_epoch"] = int(epoch)
+        self.logger.info(f"Resumed from checkpoint at epoch {epoch}")
+        return epoch + 1
+
+    # ----------------------------------------------------------------- epoch
 
     def _plan_epoch(self, epoch: int):
         """LR schedule, solver rebalance with the capacity cap and bucket
@@ -395,9 +640,11 @@ class Trainer:
 
         if cfg.dynamic_batch_size:
             max_share = min(1.0, cfg.capacity_factor / self.world_size)
-            self.shares, batch_sizes = rebalance(
-                self.node_times, self.shares, cfg.batch_size, max_share=max_share
-            )
+            # the solver's own span inside plan_solve, as the JAX solver's
+            with self._trace.span("rebalance", cat="solve"):
+                self.shares, batch_sizes = rebalance(
+                    self.node_times, self.shares, cfg.batch_size, max_share=max_share
+                )
             if cfg.snap_to_bucket and self.SNAP_BATCHES:
                 batch_sizes = quantize_batches(batch_sizes, cfg.bucket, cfg.batch_size)
                 self.shares = batch_sizes.astype(np.float64) / batch_sizes.sum()
@@ -616,6 +863,7 @@ class Trainer:
                 "force the elastic path)"
             )
         self.recorder.meta.setdefault("paths", []).append("packed" if packed else "elastic")
+        self._packed_epoch = packed
         before = self.supersteps.stats()
         if packed:
             out = self._train_epoch_packed(plan, faults, epoch)
@@ -767,7 +1015,7 @@ class Trainer:
             ranges = [(s, min(s + chunk, num_steps)) for s in range(0, num_steps, chunk)]
         if self.cfg.superstep == "off":
             return ranges
-        win = max(int(self.cfg.superstep_window), 1)
+        win = int(self.cfg.superstep_window)  # >= 1, config.py checks it
         return [(s, min(s + win, s1)) for s0, s1 in ranges for s in range(s0, s1, win)]
 
     @staticmethod
@@ -800,7 +1048,8 @@ class Trainer:
             controller=self._window_controller(),
         )
         self._sync()
-        out = self._finish_epoch(plan, faults, epoch, acc["loss"], acc["count"], lambda: first)
+        out = self._finish_epoch(plan, faults, epoch, acc["loss"], acc["count"], lambda: first,
+                                 acc.get("rows", 0))
         out["host_dispatch_s"] = meter.dispatch_s
         out["host_put_s"] = meter.put_s
         out["host_overhead_per_step_s"] = meter.per_step(plan.num_steps)
@@ -837,6 +1086,8 @@ class Trainer:
                 b, n = supply(s - off)
                 batches.append(b)
                 acc["count"] += n
+                if b is not None:
+                    acc["rows"] = acc.get("rows", 0) + int(b[0].shape[0])
             return batches
 
         for i, (w0, w1) in enumerate(ranges):
@@ -852,25 +1103,28 @@ class Trainer:
                     slow = [int(v) for v in wf.slow_iters_per_step]
             if self.augment:
                 self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
-            if scan:
-                with meter.dispatch():  # the window's steps: one dispatch
+            # one span a window (not a step), as the JAX package's
+            with self._trace.span("dispatch_window", cat="dispatch"):
+                if scan:
+                    with meter.dispatch():  # the window's steps: one dispatch
+                        for s in range(w0, w1):
+                            batches = gather(s)
+                            self._superstep("elastic", batches, slow, body, warm)
+                            if first is None:
+                                first = batches
+                else:
                     for s in range(w0, w1):
-                        batches = gather(s)
-                        self._superstep("elastic", batches, slow, body, warm)
+                        with meter.dispatch():
+                            batches = gather(s)
+                            step_loss = elastic_step(
+                                self.model, self.optimizer, batches, self.grad_clip, self.load,
+                                slow, self.compute_dtype,
+                            )
+                            if step_loss is not None:
+                                acc["loss"] += step_loss
                         if first is None:
                             first = batches
-            else:
-                for s in range(w0, w1):
-                    with meter.dispatch():
-                        batches = gather(s)
-                        step_loss = elastic_step(
-                            self.model, self.optimizer, batches, self.grad_clip, self.load, slow,
-                            self.compute_dtype,
-                        )
-                        if step_loss is not None:
-                            acc["loss"] += step_loss
-                    if first is None:
-                        first = batches
+            self.steps_done += w1 - w0
             if controller is not None and (i + 1) % cfg.rebalance_every == 0:
                 self._maybe_window_rebalance(
                     controller, plan, seg_plans, ranges, i, epoch, eval_state, suppliers
@@ -923,6 +1177,7 @@ class Trainer:
                 rate_alpha=cfg.rebalance_rate_alpha,
                 logger=self.logger,
             )
+            self.obs.attach(controller=self._rebalance_ctl)
         self._rebalance_ctl.comm_step_s = self._modeled_comm_step_s()
         return self._rebalance_ctl
 
@@ -1009,11 +1264,13 @@ class Trainer:
         wf = self._window_faults_at(t_next, cur_pl)
         rates = ctl.rates if ctl.rates is not None else np.ones(self.world_size)
         eff = self._effective_rates(rates, wf, cur_batches)
+        measured = modeled = None
         if self.timing_model is None:
-            # wall feedback: the card's wall of the steps since the last
-            # evaluation, read after a synchronize (the launches are
-            # asynchronous), less the host's launch time over them, against
-            # the prediction stored at that evaluation for the same steps
+            # wall feedback: the wall of the steps since the last
+            # evaluation (_window_wall) against the prediction stored at
+            # that evaluation for the same steps
+            if self._window_timer.active:
+                self._window_timer.mark()
             t_sync = time.perf_counter()
             self._sync()
             now = time.perf_counter()
@@ -1021,9 +1278,9 @@ class Trainer:
             host_s, _, _ = self._host_meter.mark_window()
             done = ranges[i][1] - eval_state["step"]
             if eval_state["step"] > 0 and done > 0 and eval_state.get("pred_step"):
-                ctl.observe_wall(
-                    max(now - eval_state["t"] - host_s, 1e-9), eval_state["pred_step"] * done
-                )
+                wall = self._window_wall(now, eval_state["t"], host_s)
+                measured, modeled = max(wall, 1e-9), eval_state["pred_step"] * done
+                ctl.observe_wall(measured, modeled)
             eval_state["t"] = now
             eval_state["step"] = ranges[i][1]
         ctl.eval_context = {"epoch": int(epoch), "window": int(j)}
@@ -1051,7 +1308,22 @@ class Trainer:
         self.recorder.meta.setdefault("rebalance_evals", []).append({
             "epoch": int(epoch), "window": int(j), "switch": bool(dec.switch),
             "wall_s": time.perf_counter() - t_eval0, "sync_s": sync_s,
+            # the feedback this evaluation folded (None: none yet this
+            # epoch) and the controller's scale after it
+            "measured_s": measured, "modeled_s": modeled, "wall_scale": float(ctl.wall_scale),
         })
+
+    def _window_wall(self, now: float, since: float, host_s: float) -> float:
+        """The measured wall of the windows since the last evaluation. On
+        the card: the card's own time between the two evaluations' CUDA
+        events (``DeviceWindowTimer``); there a launch call blocks while the
+        queue is full, so the host's launch time is device time and must not
+        be subtracted. On the CPU: the JAX formula, the host's wall from
+        ``since`` to ``now`` (after a synchronize) less its launch seconds
+        ``host_s`` over the windows."""
+        if self._window_timer.active:
+            return self._window_timer.seconds()
+        return now - since - host_s
 
     def _train_epoch_packed(self, plan, faults: EpochFaults, epoch: int) -> Dict[str, float]:
         """One step a plan step over the workers' concatenated real rows
@@ -1093,27 +1365,36 @@ class Trainer:
                 with meter.dispatch():
                     loss_sum += packed_step(self.model, self.optimizer, batch(s), self.load, slow,
                                             self.compute_dtype)
+        self.steps_done += plan.num_steps
         self._sync()
 
         def first():
             return [self._worker_epoch(plan, r)(0)[0] for r in range(self.world_size)]
 
-        return self._finish_epoch(plan, faults, epoch, loss_sum, offs[-1], first)
+        out = self._finish_epoch(plan, faults, epoch, loss_sum, offs[-1], first, offs[-1])
+        out["host_dispatch_s"] = meter.dispatch_s
+        return out
 
     def _finish_epoch(self, plan, faults: EpochFaults, epoch: int, loss_sum, count: int,
-                      first_batches) -> Dict[str, float]:
+                      first_batches, rows: int) -> Dict[str, float]:
         """The balancer's signal after the epoch's steps: the probes when
         this epoch takes them (on ``first_batches()``), or the timing
-        model; the virtual injected seconds; the epoch's train metrics."""
+        model; the virtual injected seconds; the one-time FLOP count
+        (``_count_flops``); the epoch's train metrics, with the rows its
+        steps ran (``padded_examples``: the port runs every worker at its
+        true width, so its padded examples are its examples)."""
         cfg = self.cfg
         dbs_probe_cost = 0.0
+        batches = None
         if (
             self.timing_model is None
             and self._probe_this_epoch
             and (cfg.dynamic_batch_size or self._needs_iter_cost)
         ):
             t0 = time.perf_counter()
-            self._sync_per_step = self._probe_workers(plan, first_batches(), faults, epoch)
+            batches = first_batches()
+            with self._trace.span("probe", cat="probe"):
+                self._sync_per_step = self._probe_workers(plan, batches, faults, epoch)
             dbs_probe_cost = time.perf_counter() - t0
         if self.timing_model is not None:
             modeled = np.asarray(self.timing_model(plan), dtype=np.float64)
@@ -1121,11 +1402,40 @@ class Trainer:
                 self.timekeeper.add_compute(r, modeled[r])
         for r in range(self.world_size):
             self.timekeeper.add_injected(r, float(faults.virtual_seconds[r]))
+        probe_overhead = 0.0
+        if self._flops_per_example is None:
+            t0 = time.perf_counter()
+            self._count_flops(batches if batches is not None else first_batches())
+            probe_overhead = time.perf_counter() - t0
         return {
             "loss": float(loss_sum) / max(count, 1),
             "sync_time": self._sync_per_step * plan.num_steps,
             "dbs_probe_cost": dbs_probe_cost,
+            # the one-time FLOP count, kept out of the wall as the JAX
+            # package keeps its flops_probe_overhead
+            "probe_overhead": probe_overhead,
+            "padded_examples": float(rows),
         }
+
+    def _count_flops(self, batches) -> None:
+        """FLOPs an example, counted once (``obs/flops.py`` ``step_flops``):
+        one eager forward and backward of the first worker with rows, its
+        clip included and no load, after the epoch's steps, so never inside
+        a step graph's capture, and outside the epoch wall. The gradients
+        are returned, not applied, and the dropout generator's state is put
+        back, so no training state moves."""
+        b = next((b for b in batches if b is not None), None)
+        if b is None:
+            return
+        state = self.dropout_gen.get_state()
+        try:
+            f = step_flops(lambda: probe_grads(self.model, self.params, b, self.grad_clip,
+                                               None, 0, self.compute_dtype))
+        finally:
+            self.dropout_gen.set_state(state)
+        self._sync()
+        self._flops_per_example = f / max(int(b[0].shape[0]), 1) if f else -1.0
+        self.recorder.meta["flops_per_example"] = self._flops_per_example
 
     def _probe_workers(self, plan, batches, faults: EpochFaults, epoch: int,
                        reps: int = 3) -> float:
@@ -1206,12 +1516,17 @@ class Trainer:
         if self._needs_iter_cost and not self._iter_cost_calibrated and max(slow) == 0:
             self._calibrate_iter_cost(plan, batches, timed)
             self._iter_cost_calibrated = True
-        combine_probe(self.optimizer, grads)  # warm
-        self._sync()
-        t0 = time.perf_counter()
-        combine_probe(self.optimizer, grads)
-        self._sync()
-        return time.perf_counter() - t0
+        # the packed path's sync probe is a span of its own, as the JAX
+        # package's fused-path sync probe; the elastic one is the probe's
+        span = (self._trace.span("sync_probe", cat="probe") if self._packed_epoch
+                else contextlib.nullcontext())
+        with span:
+            combine_probe(self.optimizer, grads)  # warm
+            self._sync()
+            t0 = time.perf_counter()
+            combine_probe(self.optimizer, grads)
+            self._sync()
+            return time.perf_counter() - t0
 
     def _calibrate_iter_cost(self, plan, batches, timed) -> None:
         """Fixed-point iteration for the in-step synthetic-load cost: probe
@@ -1315,9 +1630,24 @@ class Trainer:
             extras["plan_switches"] = float(ctl.switches - self._switches_last)
             self._switches_last = ctl.switches
             self.recorder.meta["rebalance_controller"] = ctl.snapshot(include_journal=True)
+        # bytes on the wire a combine moves, the JAX package's one-device
+        # flat accounting: the f32 gradient over the in-host link, none
+        # across hosts
+        extras["comm_bytes_ici"] = float(self._param_elems * 4) * plan.num_steps
+        extras["comm_bytes_dcn"] = 0.0
         for k in ("host_dispatch_s", "host_put_s", "host_overhead_per_step_s"):
-            if k in train_metrics:  # the elastic path's host walls
+            if k in train_metrics:  # the host walls (packed: dispatch only)
                 extras[k] = train_metrics[k]
+        ppe = self._flops_per_example
+        if ppe is not None and ppe > 0:
+            # MFU against the card's bf16 peak, from the counted FLOPs an
+            # example times the rows the epoch ran (obs/flops.py)
+            epoch_flops = ppe * train_metrics["padded_examples"]
+            extras["flops_per_epoch"] = epoch_flops
+            if epoch_wall > 0:
+                u = mfu(epoch_flops / epoch_wall, 1, self.device)
+                if u is not None:
+                    extras["mfu_bf16_peak"] = u
         self.recorder.record_epoch(
             epoch=epoch,
             train_loss=train_metrics["loss"],

@@ -119,8 +119,10 @@ class StepGraphs:
     ``capture(fn)`` and ``replay()``; the default is :class:`CudaStepGraph`
     on a CUDA device and none on the CPU, where the body runs eagerly."""
 
-    def __init__(self, device, generators: Sequence[torch.Generator] = (), graph_factory=None):
+    def __init__(self, device, generators: Sequence[torch.Generator] = (), graph_factory=None,
+                 tracer=None):
         self.device = torch.device(device)
+        self.tracer = tracer  # each warm-up and capture: a graftscope "warm" span
         self.loss = torch.zeros((), device=self.device)  # the steps' loss sums, added in order
         self.generators = list(generators)
         if graph_factory is None and self.device.type == "cuda":
@@ -133,6 +135,12 @@ class StepGraphs:
         self.capture_s = 0.0
         self.replays = 0  # steps replayed from a graph
         self.eager_runs = 0  # steps run eagerly from the slots (no graphs: the CPU)
+
+    def clear(self) -> None:
+        """Drop every captured step (a restore that rewrote the state the
+        graphs read must not replay an older capture); the next run of each
+        key captures anew."""
+        self._entries.clear()
 
     def superstep_cache_size(self) -> int:
         """Keys with a prepared step (a captured graph on the card, the
@@ -159,7 +167,11 @@ class StepGraphs:
             return
         if new:
             try:
-                self._capture(key, entry, body, warmup)
+                if self.tracer is not None:
+                    with self.tracer.span("warm", cat="warm"):
+                        self._capture(key, entry, body, warmup)
+                else:
+                    self._capture(key, entry, body, warmup)
             except Exception:
                 del self._entries[key]  # no half-made entry: the next run captures anew
                 raise

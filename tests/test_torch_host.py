@@ -61,14 +61,14 @@ BASE = dict(model="densenet", dataset="cifar10")
 
 
 @pytest.mark.parametrize("override", [
-    {"profile_dir": "prof"}, {"fused_dbs": True}, {"shard_update": True},
+    {"num_processes": 2}, {"fused_dbs": True}, {"shard_update": True},
     {"grad_comm": "hier"}, {"compress_grads": "int8"},
-    {"grad_accum": 2}, {"ckpt_dir": "ck", "rebalance": "window"},
-    {"elastic": "on"}, {"coordinator": "localhost:1"}, {"trace": "on"},
+    {"grad_accum": 2}, {"process_id": 1, "rebalance": "window"},
+    {"elastic": "on"}, {"coordinator": "localhost:1"}, {"elastic": "on", "trace": "on"},
     {"remat": True, "fault_schedule": "sin", "straggler": "2,1,1,1"},
     {"seq_parallel": "ulysses"}, {"remat": True},
-    {"ckpt_dir": "ck"},
-    {"trace": "ring"}, {"seq_parallel": "ring"},
+    {"shard_update": True, "ckpt_dir": "ck"},
+    {"remat": True, "trace": "ring"}, {"seq_parallel": "ring"},
     {"device": [0, 1], "world_size": 2},
 ])
 def test_unported_settings_raise_naming_the_flag(override):

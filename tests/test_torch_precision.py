@@ -481,8 +481,8 @@ def test_cli_trains_in_bf16(tmp_path, spies, recipe):
 STILL_UNPORTED = [
     {"fused_dbs": True}, {"shard_update": True}, {"grad_comm": "hier"},
     {"compress_grads": "int8"}, {"grad_accum": 2}, {"elastic": "on"},
-    {"coordinator": "localhost:1"}, {"trace": "on"}, {"seq_parallel": "ring"},
-    {"remat": True}, {"ckpt_dir": "ck"}, {"profile_dir": "prof"},
+    {"coordinator": "localhost:1"}, {"num_processes": 2}, {"seq_parallel": "ring"},
+    {"remat": True}, {"process_id": 1}, {"seq_parallel": "ulysses"},
 ]
 
 

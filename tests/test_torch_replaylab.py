@@ -166,6 +166,7 @@ def test_load_corpus_rejects_empty_foreign_and_spools(tmp_path):
         with pytest.raises(ValueError):
             replaylab.load_corpus(str(p))
     (tmp_path / "x.spool").write_text("")
-    for p in (tmp_path, tmp_path / "x.spool"):
-        with pytest.raises(NotImplementedError, match="scope_cli"):
-            replaylab.load_corpus(str(p))
+    for p in (tmp_path, tmp_path / "x.spool"):  # no decision journal in them
+        for lab in (replaylab, jax_lab):
+            with pytest.raises(ValueError):
+                lab.load_corpus(str(p))
