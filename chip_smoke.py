@@ -23,7 +23,9 @@ phase runs.
    (K3) on its short route (T <= 64: forward and fused backward) at every
    shape of the language-model path, the validation chunk and T in {1, 17,
    35, 64}, on the model's strided views and on contiguous tensors, and on
-   its tiled route (forward, dK/dV, dQ) at a long-context shape. K1 also
+   its tiled route (forward, dK/dV, dQ; 3xTF32 on the tensor cores) at a
+   long-context shape, causal and not, and at [5c]'s shapes, the backward's
+   bits repeating, with the blocks and warps an SM holds. K1 also
    at every distinct GroupNorm shape of DenseNet-121, ResNet-101, GoogLeNet
    and RegNetY-400MF at a packed step's b = 512, f32 and bf16, on the route
    and cluster ``plan`` picks; its route for every GroupNorm call of those
@@ -38,7 +40,9 @@ phase runs.
    activations; K1's route for every GroupNorm call of the four families at
    b = 512 in bf16 (the tiled one: C in whole 8-element vectors); K2
    and K3 at every shape the language-model path gives them (below), K3
-   beside its tiled route.
+   beside its tiled route; K3's tiled route at the long-context shape and
+   at [5c]'s largest training and validation shapes, beside SDPA and two
+   bounds (the f32 FMA peak's and the 3xTF32 one it computes in).
 3b. The compute-mode straggler's synthetic load (``ops/faultload.py``): its
    kernel (``csrc/faultload.cu``, the whole chain in one cooperative
    launch) against the plain chain, its calibrated cost an iteration, its
@@ -99,6 +103,12 @@ phase runs.
 5b. The same under ``--precision bfloat16``, 2 epochs: K3's short route and
    K2 ran with f32 operands (the embedding runs in bf16, ``+ pe`` promotes
    to f32, as in the JAX package), share moved, finite losses.
+5c. [5]'s recipe at ``--bptt 256``: 11 windows of 256 tokens an epoch (the
+   last with 159 real ones, the rest weighted 0), above the short route, so
+   every K3 launch takes the tiled kernels (the short route's counters stay
+   0), inside the step graphs in training and eagerly in validation (the
+   test stream's 960 rows of 256 in chunks of 457, ``lm_engine.eval_rows``);
+   share moved, finite losses; each (B*H, T, D) the tiled forward saw.
 4h. Stop and resume (``--ckpt_dir``): [4]'s packed DenseNet-121 and [4b]'s
    elastic compute-mode run at 1,024 examples, and [5]'s LM, each 3 epochs
    with ``--probe_mode always`` under ``--superstep auto`` and ``off``,
@@ -114,7 +124,7 @@ phase runs.
    Chrome trace's K1 kernels, counted, and those launched from graph
    replays; ``flops_per_epoch`` and ``mfu_bf16_peak`` of [4], [4f] and [5],
    each in (0, 1].
-   Every path of [4]-[5b] runs under the default ``--superstep auto``: each
+   Every path of [4]-[5c] runs under the default ``--superstep auto``: each
    training step replayed from a captured CUDA graph
    (``train/supersteps.py``); every epoch's steps are replays, one dispatch
    a window (the packed epoch: one), and an epoch on a repeated plan
@@ -124,7 +134,8 @@ phase runs.
    at a path shape and replayed, against its plain version (the tolerances
    of [3]) and the eager launch's bits: K1 at every DenseNet-121 call at
    b = 512, f32 and bf16; K2 at [512, 10] and [1400, 18328]; K3's short
-   route at (40, 2, 35, 100); the load with a device count, replayed at 0,
+   route at (40, 2, 35, 100) and its tiled route at (26, 2, 256, 100), [5c]'s
+   largest training step; the load with a device count, replayed at 0,
    3 and 300 iterations. (ii) From one state, two graphed steps (a capture,
    then a replay) against two eager steps, cuDNN deterministic: the
    parameters, momentum buffers and loss sums bit for bit, for DenseNet-121
@@ -165,6 +176,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.obs.kernel_timing import (
     attn_work,
     attn_yardsticks,
     bound,
+    bound_3xtf32,
     card,
     cuda_ms,
     device_ms,
@@ -226,6 +238,11 @@ LM_ARGV = (
     "--grad_clip 0.25 --straggler 3,1,1,1 --fault_mode virtual "
     "--use_flash_attention true -e 3"
 ).split()
+# [5c]: the same recipe at --bptt 256, above K3's short route (T <= 64):
+# 2,720 tokens a column make 11 windows of 256 an epoch (the last one with
+# 159 real tokens, padded with zero weights, as in the JAX package)
+LM_LONG_ARGV = LM_ARGV[:LM_ARGV.index("--bptt") + 1] + ["256"] + LM_ARGV[LM_ARGV.index("--bptt") + 2:]
+LM_LONG_STEPS = 11
 
 
 def with_epochs(argv, epochs: int):
@@ -292,6 +309,12 @@ ATTN_PATH_SHAPE, ATTN_LONG_SHAPE = (40, 2, 35, 100), (4, 4, 2048, 128)
 ATTN_PATH_SHAPES = ((3, 2, 35, 100), (20, 2, 35, 100), (26, 2, 35, 100), ATTN_PATH_SHAPE)
 ATTN_VAL_SHAPE = (1024, 2, 35, 100)
 ATTN_TILED = ("attn_fwd_tiled", "attn_bwd_dkv", "attn_bwd_dq")
+# K3 at [5c] (the tiled route): a worker's step at 3 and 26 columns of 256
+# tokens (the straggler's and the others' after rebalancing), and the
+# validation chunk: 457 of the test stream's 960 rows of 256 (the most
+# whose logits over 18,328 words one K2 call takes, lm_engine.eval_rows)
+ATTN_LM_LONG_SHAPES = ((3, 2, 256, 100), (26, 2, 256, 100))
+ATTN_LM_LONG_VAL_SHAPE = (457, 2, 256, 100)
 # K2 on the language model's path, over the 18,328-word vocabulary of the
 # committed wikitext-2 files: 80 columns x 35 tokens split over 4 workers
 # give 700 rows a worker under the first (uniform) plan; after rebalancing
@@ -742,10 +765,13 @@ def check_flash(torch, dev, records):
     model shape, causal; the forward at the validation chunk; both at
     T in {1, 17, 35, 64}, causal and not; the backward twice, bit for bit;
     the autograd route through ``flash_attention`` against plain softmax
-    attention. Tiled route: at the language model's shape and at the
+    attention. Tiled route: at the language model's shape, at [5c]'s
+    shapes (T = 256: two worker steps, the validation chunk) and at the
     long-context shape, causal and not, the long one at forward 1e-4 and
-    gradients 1e-3 (each output sums 2,048 products, in 64-wide tiles in
-    another order than cuBLAS's for the plain version)."""
+    gradients 1e-3 (each output sums 2,048 products, in tiles in another
+    order than cuBLAS's for the plain version); the backward twice at a
+    [5c] shape, bit for bit; the blocks and warps an SM holds of each tiled
+    kernel at D = 100 and 128 (for information)."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
         attention_ref,
         attn_bwd_dkv,
@@ -757,6 +783,7 @@ def check_flash(torch, dev, records):
         attn_fwd_ref,
         attn_fwd_short,
         flash_attention,
+        tiled_occupancy,
     )
 
     err = {k: 0.0 for k in ("attn_fwd", "attn_bwd") + ATTN_TILED}
@@ -802,7 +829,11 @@ def check_flash(torch, dev, records):
         torch.testing.assert_close(got, want, atol=5e-4, rtol=0)
     del q, k, v, do, o, lse, first, again, qs, ks, vs, qp, kp, vp, out, ref
 
-    for shape, causal, tf, tg in [(ATTN_PATH_SHAPE, True, 2e-5, 5e-4)] + [
+    for d in (100, 128):
+        log(f"  flash attention tiled, D={d}: (blocks an SM, warps an SM, shared bytes a block, "
+            f"columns a row) {tiled_occupancy(d)}")
+    path_shapes = (ATTN_PATH_SHAPE,) + ATTN_LM_LONG_SHAPES + (ATTN_LM_LONG_VAL_SHAPE,)
+    for shape, causal, tf, tg in [(sh, True, 2e-5, 5e-4) for sh in path_shapes] + [
         (ATTN_LONG_SHAPE, causal, 1e-4, 1e-3) for causal in (True, False)
     ]:
         b, h, t, d = shape
@@ -822,10 +853,16 @@ def check_flash(torch, dev, records):
         }
         log(f"  flash attention tiled {shape} causal={causal}: |o, lse| {e['attn_fwd_tiled']:.2e}  "
             f"|dk, dv| {e['attn_bwd_dkv']:.2e}  |dq| {e['attn_bwd_dq']:.2e}")
-        if shape == ATTN_LONG_SHAPE:  # the JSON line's tiled rows are at their route's shape
-            for key, val in e.items():
-                err[key] = max(err[key], val)
+        for key, val in e.items():
+            err[key] = max(err[key], val)
         records.append({"kernel": "flash_attention_tiled", "shape": shape, "causal": causal, **e})
+        if shape == ATTN_LM_LONG_SHAPES[1]:  # no float atomics: the same bits on every run
+            again = attn_bwd_dkv(q, k, v, do, lse, delta, causal)
+            again += (attn_bwd_dq(q, k, v, do, lse, delta, causal),)
+            assert all(torch.equal(a, b) for a, b in zip((dk, dv, dq), again)), \
+                f"tiled backward {shape}: bits differ between runs"
+            log("  flash attention tiled backward: identical bits on two calls")
+            del again
         del q, k, v, do, o, lse, delta, dk, dv, dq, o_r, lse_r, dk_r, dv_r, dq_r
         torch.cuda.empty_cache()
     return err
@@ -839,17 +876,17 @@ def time_flash(torch, dev):
     backward call computes dq, dk and dv) and the bound, and beside the tiled
     kernels on contiguous [B*H, T, D] copies of the same inputs (the route
     these shapes took before; their backward is dK/dV plus dQ from a
-    precomputed delta). Tiled route at the long-context shape, as before."""
-    from torch.nn import functional as F
-
+    precomputed delta). Tiled route at the long-context shape (the JSON
+    line's rows) and at [5c]'s largest training step (26, 2, 256, 100) and
+    its validation chunk (457, 2, 256, 100, forward only): each kernel
+    beside its plain version, SDPA (forward, and its one backward call) and
+    two bounds, ``bound_ms`` the 3xTF32 one the kernels compute in and
+    ``bound_f32_ms`` the f32 FMA peak's."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
         attn_bwd_dkv,
-        attn_bwd_dkv_ref,
         attn_bwd_dq,
-        attn_bwd_dq_ref,
         attn_bwd_short,
         attn_fwd,
-        attn_fwd_ref,
         attn_fwd_short,
     )
 
@@ -874,39 +911,53 @@ def time_flash(torch, dev):
         del q, k, v, do, o, lse, flat, o_t, lse_t, delta
         torch.cuda.empty_cache()
 
-    b, h, t, d = ATTN_LONG_SHAPE
-    q, k, v, do = (x.reshape(b * h, t, d) for x in attn_inputs(ATTN_LONG_SHAPE, dev, 12, "contiguous"))
+    for shape, backward in ((ATTN_LONG_SHAPE, True), (ATTN_LM_LONG_SHAPES[1], True),
+                            (ATTN_LM_LONG_VAL_SHAPE, False)):
+        out[shape] = time_tiled(torch, dev, shape, backward)
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_tiled(torch, dev, shape, backward):
+    """K3's tiled kernels at ``shape``, causal: {kernel: timing row} (see
+    ``time_flash``)."""
+    from torch.nn import functional as F
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
+        attn_bwd_dkv,
+        attn_bwd_dkv_ref,
+        attn_bwd_dq,
+        attn_bwd_dq_ref,
+        attn_fwd,
+        attn_fwd_ref,
+    )
+
+    b, h, t, d = shape
+    q, k, v, do = (x.reshape(b * h, t, d) for x in attn_inputs(shape, dev, 12, "contiguous"))
     o, lse = attn_fwd(q, k, v, True)
     delta = (do * o).sum(-1)
     args = (q, k, v, do, lse, delta, True)
     ql, kl, vl = (x.view(b, h, t, d).clone().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    lib_bwd = device_ms(lambda: torch.autograd.grad(
-        lib_out, (ql, kl, vl), do.view(b, h, t, d), retain_graph=True))
-    row = {
-        "attn_fwd_tiled": dict(
-            timed(lambda: attn_fwd(q, k, v, True)),
-            plain_ms=device_ms(lambda: attn_fwd_ref(q, k, v, True)),
-            library_ms=device_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)),
-        ),
-        "attn_bwd_dkv": dict(
-            timed(lambda: attn_bwd_dkv(*args)),
-            plain_ms=device_ms(lambda: attn_bwd_dkv_ref(*args)),
-            library_ms=lib_bwd,
-        ),
-        "attn_bwd_dq": dict(
-            timed(lambda: attn_bwd_dq(*args)),
-            plain_ms=device_ms(lambda: attn_bwd_dq_ref(*args)),
-            library_ms=lib_bwd,
-        ),
-    }
-    for name, (nbytes, flops) in attn_work(ATTN_LONG_SHAPE, True).items():
+    row = {"attn_fwd_tiled": dict(
+        timed(lambda: attn_fwd(q, k, v, True)),
+        plain_ms=device_ms(lambda: attn_fwd_ref(q, k, v, True)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)),
+    )}
+    if backward:
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        lib_bwd = device_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do.view(b, h, t, d), retain_graph=True))
+        row["attn_bwd_dkv"] = dict(timed(lambda: attn_bwd_dkv(*args)),
+                                   plain_ms=device_ms(lambda: attn_bwd_dkv_ref(*args)), library_ms=lib_bwd)
+        row["attn_bwd_dq"] = dict(timed(lambda: attn_bwd_dq(*args)),
+                                  plain_ms=device_ms(lambda: attn_bwd_dq_ref(*args)), library_ms=lib_bwd)
+        del lib_out
+    for name, work in attn_work(shape, True).items():
         if name in row:
-            row[name]["bound_ms"], row[name]["bound_by"] = bound(nbytes, flops)
-    out[ATTN_LONG_SHAPE] = row
-    del q, k, v, do, o, lse, delta, args, ql, kl, vl, lib_out
-    torch.cuda.empty_cache()
-    return out
+            row[name]["bound_ms"], row[name]["bound_by"] = bound_3xtf32(*work)
+            row[name]["bound_f32_ms"] = bound(*work)[0]
+    del q, k, v, do, o, lse, delta, args, ql, kl, vl
+    return row
 
 
 def run_path(torch, argv, tag):
@@ -1177,6 +1228,52 @@ def check_lm_path(counts, series, epochs=EPOCHS):
     log(f"  launches: {counts}")
 
 
+def run_lm_long(torch):
+    """[5c]: [5]'s recipe at ``--bptt 256`` through ``run_path``, recording
+    each ``[B*H, T, D]`` the tiled forward is handed (the recording runs
+    where the wrapper does: each eager call and each capture, not the
+    replays). Returns run_path's result and the shapes."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import flash_attention as fa
+
+    shapes, launch = set(), fa.attn_fwd
+
+    def recorded(q, k, v, causal):
+        shapes.add(tuple(q.shape))
+        return launch(q, k, v, causal)
+
+    fa.attn_fwd = recorded
+    try:
+        return run_path(torch, LM_LONG_ARGV, "run_lm_long"), shapes
+    finally:
+        fa.attn_fwd = launch
+
+
+def check_lm_long_path(counts, series, shapes):
+    """[5c]: the LM path's checks; every K3 launch on the tiled kernels (the
+    forward, dK/dV and dQ once per layer of each worker's step, the short
+    route's counters 0), all at T = 256 (the windows' and the validation
+    chunks')."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import SHORT_T
+
+    check_series(series, "tokens", EPOCHS)
+    check_supersteps(series["_meta"], "LM at bptt 256")
+    assert series["accuracy"] == [1.0 - v for v in series["val_loss"]], "accuracy != 1 - val_loss"
+    need = LM_LAYERS * WORKERS * LM_LONG_STEPS * EPOCHS
+    for k in ATTN_TILED:
+        assert counts[k] >= need, f"kernel {k}: {counts[k]} launches on the LM path at bptt 256 < {need}"
+    for k in ("attn_fwd", "attn_bwd"):
+        assert counts[k] == 0, f"kernel {k} (the short route): {counts[k]} launches at bptt 256, want 0"
+    for k in ("xent_fwd", "xent_bwd"):
+        assert counts[k] > 0, f"kernel {k} never launched on the LM path at bptt 256"
+    ts = {t for _, t, _ in shapes}
+    assert ts == {256} and min(ts) > SHORT_T, sorted(shapes)
+    b, h, t, d = ATTN_LM_LONG_VAL_SHAPE  # the validation chunk [3] checks and times
+    assert (b * h, t, d) in shapes, f"no validation chunk of {b} rows among {sorted(shapes)}"
+
+    log(f"  K3 tiled forward's (B*H, T, D): {sorted(shapes)}")
+    log(f"  launches: {counts}")
+
+
 def check_bf16_vision_path(counts, series, path, epochs):
     """[4f]: a vision path under ``--precision bfloat16``: the series, share
     moved off worker 0, every epoch on ``path``; K1 launched on its tiled
@@ -1406,12 +1503,19 @@ def check_kernels_in_graphs(torch, dev, err):
     every distinct GroupNorm call of DenseNet-121 at the packed b = 512, f32
     and bf16; K2 forward and backward at [512, 10] and [1400, 18328]; K3's
     short route forward and fused backward at (40, 2, 35, 100) on the
-    model's views; the synthetic load captured once with a device count and
-    replayed at 0, 3 and 300 iterations. The errors join the JSON line's."""
+    model's views; K3's tiled route (forward, dK/dV, dQ, delta between
+    them as the autograd function forms it) at (26, 2, 256, 100), [5c]'s
+    largest training step, within [3]'s path tolerances; the synthetic load
+    captured once with a device count and replayed at 0, 3 and 300
+    iterations. The errors join the JSON line's."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.faultload import SyntheticLoad, synthetic_load
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
+        attn_bwd_dkv,
+        attn_bwd_dq,
+        attn_bwd_ref,
         attn_bwd_short,
         attn_bwd_short_ref,
+        attn_fwd,
         attn_fwd_ref,
         attn_fwd_short,
     )
@@ -1497,6 +1601,28 @@ def check_kernels_in_graphs(torch, dev, err):
     for n, a, b in zip("qkv", got[2:], attn_bwd_short_ref(q, k, v, do, o, lse, True)):
         err["attn_bwd"] = max(err["attn_bwd"], _close(torch, a, b, 5e-4, f"attn_bwd d{n} in a graph"))
     log(f"  K3 {ATTN_PATH_SHAPE} in a graph: forward and backward within tolerance and the eager bits")
+    b, h, t, d = shape = ATTN_LM_LONG_SHAPES[1]
+    q, k, v, do = (x.reshape(b * h, t, d) for x in attn_inputs(shape, dev, 11, "contiguous"))
+
+    def tiled():
+        o, lse = attn_fwd(q, k, v, True)
+        delta = (do * o).sum(-1)
+        dk, dv = attn_bwd_dkv(q, k, v, do, lse, delta, True)
+        return o, lse, delta, dk, dv, attn_bwd_dq(q, k, v, do, lse, delta, True)
+
+    graph, got = replay_graph(torch, tiled)
+    same(got, tiled(), f"tiled attention {shape}")
+    o, lse, delta, dk, dv, dq = got
+    o_r, lse_r = attn_fwd_ref(q, k, v, True)
+    err["attn_fwd_tiled"] = max(err["attn_fwd_tiled"],
+                                _close(torch, o, o_r, 2e-5, "attn_fwd_tiled in a graph"),
+                                _close(torch, lse, lse_r, 2e-5, "attn_fwd_tiled lse in a graph"))
+    dq_r, dk_r, dv_r = attn_bwd_ref(q, k, v, do, lse, delta, True)
+    err["attn_bwd_dkv"] = max(err["attn_bwd_dkv"], _close(torch, dk, dk_r, 5e-4, "attn_bwd_dkv dk in a graph"),
+                              _close(torch, dv, dv_r, 5e-4, "attn_bwd_dkv dv in a graph"))
+    err["attn_bwd_dq"] = max(err["attn_bwd_dq"], _close(torch, dq, dq_r, 5e-4, "attn_bwd_dq in a graph"))
+    log(f"  K3 tiled {shape} in a graph: forward, dK/dV and dQ within tolerance and the eager bits")
+    del graph, got, q, k, v, do, o, lse, delta, dk, dv, dq, o_r, lse_r, dq_r, dk_r, dv_r
     load = SyntheticLoad()
     seed = torch.tensor(1.7, device=dev)
     count = torch.zeros((), dtype=torch.int32, device=dev)
@@ -1936,9 +2062,10 @@ def time_kernels(torch, dev):
     rows += [(f"{sh} causal", k, t) for sh, row in at.items() for k, t in row.items()]
     for where, k, t in rows:
         tiled = f", tiled route {t['tiled_ms']:.4f} ms" if "tiled_ms" in t else ""
+        f32 = f", f32 FMA bound {t['bound_f32_ms']:.6f} ms" if "bound_f32_ms" in t else ""
         log(f"  {k} {where}: kernel {t['ms']:.4f} ms (event wall {t['wall_ms']:.4f}){tiled}, "
             f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}{', 3xTF32' if f32 else ''}){f32}")
     for b, row in gt.items():
         for k in ("groupnorm_fwd", "groupnorm_bwd"):
             t = row[k]
@@ -1958,7 +2085,7 @@ def time_kernels(torch, dev):
     return timing, gt, gp, gp16, xt, at, shapes, gn_routes
 
 
-PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "4h", "4i", "4g", "6", "6b")
+PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4i", "4g", "6", "6b")
 
 
 def main(argv=None) -> int:
@@ -2091,6 +2218,12 @@ def main(argv=None) -> int:
                                                epoch_walls(paths["lm"][1]))):
                 log(f"  epoch {e} wall: bf16 {w16:.3f}s, f32 ([5]) {w32:.3f}s (for information)")
         torch.cuda.empty_cache()
+
+    if want("5c"):
+        phase("[5c] language-model path at --bptt 256 (K3's tiled route)")
+        paths["lm_long"], attn_shapes = run_lm_long(torch)
+        check_lm_long_path(*paths["lm_long"][:2], attn_shapes)
+        torch.cuda.empty_cache()
     resume = {}
     if want("4h"):
         phase("[4h] stop and resume (--ckpt_dir), bit for bit against the whole run")
@@ -2122,7 +2255,7 @@ def main(argv=None) -> int:
     if want("4g"):
         phase("[4g] --superstep as captured CUDA graphs: (i) each kernel replayed alone")
         for k in ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd", "attn_fwd", "attn_bwd",
-                  "synthetic_load") + GN_BF16:
+                  "synthetic_load") + GN_BF16 + ATTN_TILED:
             err.setdefault(k, 0.0)
         check_kernels_in_graphs(torch, dev, err)
         phase("[4g] (ii) one graphed step against one eager step, from the same state")
@@ -2203,6 +2336,8 @@ def main(argv=None) -> int:
             "library_ms": t["library_ms"],
             "shape": shape,
         })
+        if "bound_f32_ms" in t:  # K3's tiled route: bound_ms is its 3xTF32 bound
+            kernels[-1]["bound_f32_ms"] = t["bound_f32_ms"]
     with open(os.path.join(OUT, "kernels.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "checks": records,
                    "groupnorm_timing": gt, "groupnorm_packed_timing": gp,

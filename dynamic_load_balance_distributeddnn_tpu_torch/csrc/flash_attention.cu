@@ -7,16 +7,17 @@
 //   and t given), so the projections' [B, T, H, D] memory is read in place
 //   and o, dq, dk, dv are written in whatever layout the caller allocated.
 //   See "Short route" below.
-// - T > 64, the tiled route: the streaming-softmax kernels below, on
+// - T > 64, the tiled route (the language model at --bptt 256, longer
+//   contexts): the streaming-softmax kernels of "Tiled route" below, on
 //   row-contiguous [BH, T, D] (BH = batch * heads), with the per-row
 //   log-sum-exp lse[BH, T] f32 saved by the forward and delta[BH, T] =
 //   rowsum(dO * O) computed by the caller.
 //
 // Replaces the TPU kernels of dynamic_load_balance_distributeddnn_tpu/ops/
 // pallas/flash_attention.py:
-//   _attn_fwd_kernel (:58)      -> attn_fwd_short_kernel, attn_fwd_kernel
-//   _attn_bwd_dkv_kernel (:106) -> attn_bwd_short_kernel, attn_bwd_dkv_kernel
-//   _attn_bwd_dq_kernel (:153)  -> attn_bwd_short_kernel, attn_bwd_dq_kernel
+//   _attn_fwd_kernel (:58)      -> attn_fwd_short_kernel, attn_fwd_tc_kernel
+//   _attn_bwd_dkv_kernel (:106) -> attn_bwd_short_kernel, attn_bwd_dkv_tc_kernel
+//   _attn_bwd_dq_kernel (:153)  -> attn_bwd_short_kernel, attn_bwd_dq_tc_kernel
 // with the same math: scores s = scale * q.k (scale = 1/sqrt(D)), keys at or
 // past T and, if causal, keys after the query masked to -1e30; the forward
 // takes each row's max m, sum l of exp(s - m) and accumulator acc = sum of
@@ -39,17 +40,64 @@
 // Tiled route (T > 64). The TPU's sequential grid axis over key tiles
 // (forward, dQ) or query tiles (dK/dV) carries its running sums in VMEM
 // scratch between grid steps. Blocks on a GPU run in no order and carry
-// nothing, so that axis is a loop inside the block: one block per (bh,
-// 64-row tile), the accumulators in registers. Causally dead tiles are not
-// visited: the forward and dQ loops stop at the diagonal tile, the dK/dV
-// loop starts at it. At long T the work is O(T^2 D) against O(T D) bytes, so
-// it is bound by operations. These kernels compute in f32 on the CUDA cores
-// (67 TFLOP/s peak), not on the tensor cores: 256 threads per block, each
-// owning a 4 x 4 patch of the 64 x 64 score tile and a 4 x 8 patch of the
-// 64 x D output tile in registers, with q, k, v and dO tiles staged in shared
-// memory (rows padded to an odd stride so the 16 threads reading 16
-// different rows hit 16 different banks). A later redesign would move the
-// products to wgmma.
+// nothing, so that axis is a loop inside the block, over tiles that stream
+// through a ring in shared memory. At long T the work is O(T^2 D) against
+// O(T D) bytes, so it is bound by operations. The design:
+// - Products on the tensor cores in 3xTF32, the arithmetic of PyTorch's own
+//   f32 memory-efficient attention (CUTLASS's OpMultiplyAddFastF32): each
+//   f32 operand x is split into hi = x rounded to TF32 (to nearest, as
+//   cvt.rna.tf32 rounds, but by two integer operations: cvt runs on the
+//   conversion unit, and with it the split, not the products, bound the
+//   kernels) and lo = x - hi (which the unit reads to TF32 by dropping its
+//   low bits), and mma.sync.m16n8k8 (tf32 in, f32 accumulate) sums lo*hi +
+//   hi*lo + hi*hi. That keeps f32-level accuracy (one TF32 term alone keeps
+//   about three digits and fails the tolerances; tests/test_torch_flash.py
+//   emulates both) at up to 494.7 / 3 = 165 TFLOP/s of f32 work, against 67
+//   for f32 FMAs. Bound: 3 x the product flops over 494.7 TFLOP/s. mma.sync
+//   rather than wgmma, chosen by argument (no wgmma version was built or
+//   timed): wgmma's tf32 operands must be K-major in shared
+//   memory, which for P V, dV += P^T dO, dK += dS^T Q and dQ += dS K means
+//   staging P or dS and transposing V, dO, Q or K tiles through shared
+//   memory, and the hi / lo split of a shared operand would need a second
+//   copy of each tile; mma.sync takes P and dS from registers and splits
+//   each operand as it is loaded.
+// - Flash-attention-2 warp layout. A warp owns 16 rows: of queries
+//   (forward, dQ) or keys (dK/dV). Scores and outputs stay in registers
+//   (mma accumulator fragments); row max and row sum take two quad
+//   shuffles. P and dS go from accumulator fragments straight to A operands:
+//   the fragment holds keys 2t and 2t+1 of an 8-key step where the A operand
+//   wants t and t+4, so the B operand's rows are read in the same permuted
+//   order and nothing moves.
+// - An asynchronous tile ring. Tiles come by 16-byte cp.async (4-byte where
+//   D is not a multiple of 4 or the base is misaligned) and the next tile's
+//   copy is in flight behind this tile's products. Shared rows are D padded
+//   with zeros to the kernel's class of D (64, 104 or 128 columns: a
+//   multiple of 8; in shared memory only) plus 4 floats: a row stride of 4
+//   mod 8 words puts the 32 lanes of every fragment load on 32 banks.
+// - Occupancy. The forward is 4 warps (64 query rows) with Q staged once
+//   and K and V of each 32-key tile passing through 3 slots in turn (K of
+//   tile j, V of tile j, ...; 2 copies in flight): 3 blocks (12 warps) an SM
+//   up to D = 104, 2 (8 warps) at D = 128. Two slots would let 3 blocks
+//   share an SM at D = 128 as well, but with one copy in flight the 12
+//   warps measured slower than the 8 (scripts/flash_bench.py on an H100),
+//   so the slots are fixed at 3 for every D. The backward kernels are 8 warps in 4
+//   pairs, 2 blocks (16 warps) an SM, streaming 16-row stages: in dK/dV a
+//   pair owns 16 keys, one warp builds P^T and accumulates dV, the other
+//   builds dP^T, takes P^T from its partner through shared memory (a named
+//   barrier for the two warps) to form dS^T and accumulates dK; in dQ a
+//   pair owns 16 query rows, one warp builds P, the other dP and dS, and
+//   each accumulates half of dQ's columns from the shared dS. So each warp
+//   holds one 16 x D accumulator (dQ: half of one), no score tile is
+//   computed twice, and the two warps of a pair do equal products. Each
+//   kernel is compiled for a class of D (up to 64, 104 or 128 columns):
+//   its loops over D unroll with no test, and the products of a k-step are
+//   independent, so the tensor cores are kept fed.
+// - Causal order. A block's index runs over (tile, bh) with the heaviest
+//   tiles first (the forward's and dQ's last query tiles, dK/dV's first key
+//   tiles), so the long blocks start in the first wave and the short ones
+//   fill the tail. Tiles no row of a warp can see are skipped (the block's
+//   loop stops at the diagonal); only tiles that cross the diagonal or T are
+//   masked element by element.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,294 +109,12 @@
 
 namespace {
 
-constexpr int kTile = 64;      // rows of a query or key tile
-constexpr int kThreads = 256;  // 16 x 16 threads: ty = tid / 16, tx = tid % 16
 constexpr int kMaxD = 128;
-constexpr int kPStride = kTile + 1;  // [64][65] score-tile scratch
-constexpr float kNegInf = -1e30f;    // the TPU kernel's mask value
-
-// Odd row stride for a [64][D] tile in shared memory: thread tx reads row
-// tx (+16 j) at column d, and an odd stride puts the 16 rows on 16 banks.
-__host__ __device__ __forceinline__ int row_stride(int D) { return (D & 1) ? D : D + 1; }
-
-// Rows r0 .. r0+63 of a row-contiguous [T, D] matrix into dst[64][ld], zero
-// past row T. The tile is one contiguous run of memory, read coalesced.
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
-                                          int r0, int T, int D, int ld) {
-  const int n = kTile * D;
-  const float* s = src + (size_t)r0 * D;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    dst[r * ld + c] = (r0 + r < T) ? s[idx] : 0.f;
-  }
-}
-
-// Rows r0 .. r0+63 of a [T] vector into dst[64], zero past T.
-__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
-                                          int r0, int T) {
-  if (threadIdx.x < kTile) dst[threadIdx.x] = (r0 + threadIdx.x < T) ? src[r0 + threadIdx.x] : 0.f;
-}
-
-// Max / sum over the 16 threads of one half-warp (the threads sharing ty).
-__device__ __forceinline__ float group16_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float group16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 
 template <bool kCausal>
 __device__ __forceinline__ bool visible(int qi, int kj, int T) {
   return qi < T && kj < T && (!kCausal || kj <= qi);
-}
-
-// acc[i][j] += sum_d A[ra_i][d] * B[rb_j][d]: rows ra_i = ty*4 + i of A and
-// rb_j = tx + 16 j of B, both [64][ld] tiles in shared memory.
-__device__ __forceinline__ void dot_patch(const float* __restrict__ A, const float* __restrict__ B,
-                                          int D, int ld, int ty, int tx, float acc[4][4]) {
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// out[i][c] += sum_r P[ty*4 + i][r] * M[r][tx + 16 c] over r < n: a [64][65]
-// score tile times a [64][ld] tile, columns past D skipped.
-__device__ __forceinline__ void pm_patch(const float* __restrict__ P, const float* __restrict__ M,
-                                         int n, int D, int ld, int ty, int tx, float out[4][8]) {
-#pragma unroll 2
-  for (int r = 0; r < n; ++r) {
-    float p[4], m[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty * 4 + i) * kPStride + r];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = tx + 16 * c;
-      m[c] = col < D ? M[r * ld + col] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) out[i][c] = fmaf(p[i], m[c], out[i][c]);
-  }
-}
-
-// One block per (query tile, bh). Shared: Q, K, V tiles [64][ld], P [64][65].
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o,
-                float* __restrict__ lse, int T, int D, float scale) {
-  extern __shared__ float smem[];
-  const int ld = row_stride(D);
-  float* Qs = smem;
-  float* Ks = Qs + kTile * ld;
-  float* Vs = Ks + kTile * ld;
-  float* Ps = Vs + kTile * ld;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)bh * T * D;
-
-  load_tile(Qs, q + base, q0, T, D, ld);
-  float acc[4][8], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  }
-  // causal: key tiles past the last query row of this tile are all masked
-  const int k_end = kCausal ? min(q0 + kTile, T) : T;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous iteration is done with Ks, Vs, Ps
-    load_tile(Ks, k + base, k0, T, D, ld);
-    load_tile(Vs, v + base, k0, T, D, ld);
-    __syncthreads();
-    float s[4][4] = {};
-    dot_patch(Qs, Ks, D, ld, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = visible<kCausal>(qi, k0 + tx + 16 * j, T) ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group16_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible<kCausal>(qi, k0 + tx + 16 * j, T) ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * 4 + i) * kPStride + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * corr + group16_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-    pm_patch(Ps, Vs, min(kTile, T - k0), D, ld, ty, tx, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= T) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) o[base + (size_t)qi * D + col] = acc[i][c] / ls;
-    }
-    if (tx == 0) lse[(size_t)bh * T + qi] = m[i] + logf(ls);
-  }
-}
-
-// One block per (key tile, bh); loops over query tiles from the diagonal on.
-// Shared: K, V, Q, dO tiles [64][ld], P^T and dS^T [64][65], lse and delta
-// of the query tile [64] each.
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dk, float* __restrict__ dv, int T, int D, float scale) {
-  extern __shared__ float smem[];
-  const int ld = row_stride(D);
-  float* Ks = smem;
-  float* Vs = Ks + kTile * ld;
-  float* Qs = Vs + kTile * ld;
-  float* dOs = Qs + kTile * ld;
-  float* Pt = dOs + kTile * ld;
-  float* dSt = Pt + kTile * kPStride;
-  float* Ls = dSt + kTile * kPStride;
-  float* Dl = Ls + kTile;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.y, k0 = blockIdx.x * kTile;
-  const size_t base = (size_t)bh * T * D;
-  const float* lse_b = lse + (size_t)bh * T;
-  const float* delta_b = delta + (size_t)bh * T;
-
-  load_tile(Ks, k + base, k0, T, D, ld);
-  load_tile(Vs, v + base, k0, T, D, ld);
-  float dk_acc[4][8] = {}, dv_acc[4][8] = {};
-  // causal: query tiles before the diagonal see none of these keys
-  for (int q0 = kCausal ? k0 : 0; q0 < T; q0 += kTile) {
-    __syncthreads();
-    load_tile(Qs, q + base, q0, T, D, ld);
-    load_tile(dOs, dout + base, q0, T, D, ld);
-    load_rows(Ls, lse_b, q0, T);
-    load_rows(Dl, delta_b, q0, T);
-    __syncthreads();
-    // transposed tiles: row = key ty*4 + i, column = query tx + 16 j
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_patch(Ks, Qs, D, ld, ty, tx, s);
-    dot_patch(Vs, dOs, D, ld, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        const float p = visible<kCausal>(q0 + qc, kj, T) ? expf(s[i][j] * scale - Ls[qc]) : 0.f;
-        Pt[(ty * 4 + i) * kPStride + qc] = p;
-        dSt[(ty * 4 + i) * kPStride + qc] = p * (dp[i][j] - Dl[qc]);
-      }
-    }
-    __syncthreads();
-    const int n = min(kTile, T - q0);
-    pm_patch(Pt, dOs, n, D, ld, ty, tx, dv_acc);
-    pm_patch(dSt, Qs, n, D, ld, ty, tx, dk_acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty * 4 + i;
-    if (kj >= T) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) {
-        dk[base + (size_t)kj * D + col] = scale * dk_acc[i][c];
-        dv[base + (size_t)kj * D + col] = dv_acc[i][c];
-      }
-    }
-  }
-}
-
-// One block per (query tile, bh); loops over key tiles up to the diagonal.
-// Shared: Q, dO, K, V tiles [64][ld], dS [64][65], lse and delta [64].
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dq, int T, int D, float scale) {
-  extern __shared__ float smem[];
-  const int ld = row_stride(D);
-  float* Qs = smem;
-  float* dOs = Qs + kTile * ld;
-  float* Ks = dOs + kTile * ld;
-  float* Vs = Ks + kTile * ld;
-  float* dS = Vs + kTile * ld;
-  float* Ls = dS + kTile * kPStride;
-  float* Dl = Ls + kTile;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)bh * T * D;
-
-  load_tile(Qs, q + base, q0, T, D, ld);
-  load_tile(dOs, dout + base, q0, T, D, ld);
-  load_rows(Ls, lse + (size_t)bh * T, q0, T);
-  load_rows(Dl, delta + (size_t)bh * T, q0, T);
-  float dq_acc[4][8] = {};
-  const int k_end = kCausal ? min(q0 + kTile, T) : T;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile(Ks, k + base, k0, T, D, ld);
-    load_tile(Vs, v + base, k0, T, D, ld);
-    __syncthreads();
-    // row = query ty*4 + i, column = key tx + 16 j
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_patch(Qs, Ks, D, ld, ty, tx, s);
-    dot_patch(dOs, Vs, D, ld, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = tx + 16 * j;
-        const float p = visible<kCausal>(q0 + qr, k0 + kc, T) ? expf(s[i][j] * scale - Ls[qr]) : 0.f;
-        dS[qr * kPStride + kc] = p * (dp[i][j] - Dl[qr]);
-      }
-    }
-    __syncthreads();
-    pm_patch(dS, Ks, min(kTile, T - k0), D, ld, ty, tx, dq_acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= T) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) dq[base + (size_t)qi * D + col] = scale * dq_acc[i][c];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -736,19 +502,532 @@ attn_bwd_short_kernel(View q, View k, View v, View dout, View o, const float* __
   }
 }
 
-size_t fwd_smem(int D) { return sizeof(float) * (3 * kTile * row_stride(D) + kTile * kPStride); }
-size_t dkv_smem(int D) {
-  return sizeof(float) * (4 * kTile * row_stride(D) + 2 * kTile * kPStride + 2 * kTile);
-}
-size_t dq_smem(int D) {
-  return sizeof(float) * (4 * kTile * row_stride(D) + kTile * kPStride + 2 * kTile);
+
+// ---------------------------------------------------------------------------
+// Tiled route (T > 64), on the tensor cores. See the header for the design.
+
+constexpr int kRows = 64;          // query rows (forward, dQ) or key rows (dK/dV) of a block
+constexpr int kFwdTile = 32;       // keys of a forward slot
+constexpr int kFwdSlots = 3;       // slots of the forward's ring (2 copies in flight)
+constexpr int kBwdTile = 16;       // query (dK/dV) or key (dQ) rows of a backward stage
+constexpr int kFwdThreads = 128;   // 4 warps of 16 rows
+constexpr int kBwdThreads = 256;   // 4 pairs of warps, a pair per 16 rows
+constexpr int kMaxSmem = 232448;   // the most dynamic shared memory a block may take
+
+// Head dims by class: a kernel is compiled for ND 8-column groups (D <= 8
+// ND), so its loops over D unroll with no test; columns D .. 8 ND - 1 of
+// every staged row are zero.
+__host__ __device__ __forceinline__ int nd_class(int D) { return D <= 64 ? 8 : D <= 104 ? 13 : 16; }
+// Row stride (floats) of a staged tile: 8 ND plus 4 (4 mod 8 words).
+__host__ __device__ __forceinline__ int tc_ld(int D) { return 8 * nd_class(D) + 4; }
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Barrier `id` (1..15) for the two warps of a pair: the writer arrives, the
+// reader waits. The fence makes the writer's shared stores visible first.
+__device__ __forceinline__ void pair_arrive(int id) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) { asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory"); }
+
+// x = hi + lo for the TF32 tensor cores: hi is x rounded to nearest (ties
+// away from zero, cvt.rna.tf32.f32's rounding) by adding half a TF32 unit to
+// the bits and clearing the 13 below; lo = x - hi exactly, whose low 13 bits
+// the unit ignores. Two integer operations and one add: cvt to TF32 runs on
+// the conversion unit at a sixteenth of the FMA rate.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the two small terms first, then hi * hi.
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ahi[4], const uint32_t alo[4],
+                                     const uint32_t bhi[2], const uint32_t blo[2]) {
+  mma_tf32(c, alo, bhi);
+  mma_tf32(c, ahi, blo);
+  mma_tf32(c, ahi, bhi);
+}
+
+// Fragments (lane = 4 g + t): an accumulator c[4] of a 16 x 8 tile holds
+// rows g (c0, c1) and g + 8 (c2, c3), columns 2t (c0, c2) and 2t + 1 (c1, c3).
+
+// acc[n] += A B_n^T over the padded head dim: A the warp's 16 rows, B_n rows
+// 8n .. 8n+7 of a tile, both staged [rows][8 ND + 4]. The two small terms
+// add into their own accumulators, so each k-step's products form 2 NT
+// independent chains rather than NT chains of three.
+template <int NT, int ND>
+__device__ __forceinline__ void mma_rows(const float* __restrict__ A, const float* __restrict__ B,
+                                         float acc[NT][4]) {
+  constexpr int ld = 8 * ND + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a = A + g * ld + t;
+  const float* b = B + g * ld + t;
+  float small[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) small[n][0] = small[n][1] = small[n][2] = small[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < ND; ++kk) {
+    uint32_t ahi[4], alo[4];
+    split_tf32(a[8 * kk], ahi[0], alo[0]);
+    split_tf32(a[8 * kk + 8 * ld], ahi[1], alo[1]);
+    split_tf32(a[8 * kk + 4], ahi[2], alo[2]);
+    split_tf32(a[8 * kk + 8 * ld + 4], ahi[3], alo[3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t bhi[2], blo[2];
+      split_tf32(b[8 * n * ld + 8 * kk], bhi[0], blo[0]);
+      split_tf32(b[8 * n * ld + 8 * kk + 4], bhi[1], blo[1]);
+      mma_tf32(small[n], alo, bhi);
+      mma_tf32(small[n], ahi, blo);
+      mma_tf32(acc[n], ahi, bhi);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += small[n][i];
+}
+
+// acc[j] += P M_j: P the warp's 16 x 8NK weights in accumulator fragments
+// (p[kk] the 8 columns 8kk .. 8kk+7), M a staged [8NK][8 ND + 4] tile, M_j
+// its columns 8n .. 8n+7 for n = first + j (a group past ND - 1 reads group
+// ND - 1 again, into an accumulator no one stores). No test inside: every
+// product of a k-step is independent of the others. The A operand takes
+// P's columns 2t, 2t+1 where it expects t, t+4, so M's rows are read in
+// that order too.
+template <int NK, int NJ, int ND>
+__device__ __forceinline__ void mma_pm(const float p[NK][4], const float* __restrict__ M, int first,
+                                       float acc[NJ][4]) {
+  constexpr int ld = 8 * ND + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* m = M + 2 * t * ld + g;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t ahi[4], alo[4];
+    split_tf32(p[kk][0], ahi[0], alo[0]);
+    split_tf32(p[kk][2], ahi[1], alo[1]);
+    split_tf32(p[kk][1], ahi[2], alo[2]);
+    split_tf32(p[kk][3], ahi[3], alo[3]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = 8 * (NJ == ND ? j : min(first + j, ND - 1));
+      uint32_t bhi[2], blo[2];
+      split_tf32(m[8 * kk * ld + col], bhi[0], blo[0]);
+      split_tf32(m[(8 * kk + 1) * ld + col], bhi[1], blo[1]);
+      mma3(acc[j], ahi, alo, bhi, blo);
+    }
+  }
+}
+
+// Whether a head's rows can go by 16-byte copies.
+__device__ __forceinline__ bool rows16(const float* p, int D) {
+  return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && ((D & 3) == 0);
+}
+
+// Issue the copies of rows r0 .. r0+n-1 of a row-contiguous [T, D] head into
+// dst[n][ld]; rows at or past T are zeroed (columns below dp). A warp a row,
+// a lane 4 (or 1) columns. Nothing waits here.
+__device__ __forceinline__ void stage_tile(float* dst, const float* head, int r0, int n, int T,
+                                           int D, int ld, int dp, bool vec) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < n; r += nw) {
+    float* drow = dst + r * ld;
+    if (r0 + r >= T) {
+      for (int c = lane; c < dp; c += 32) drow[c] = 0.f;
+      continue;
+    }
+    const float* srow = head + (size_t)(r0 + r) * D;
+    if (vec) {
+      for (int c = 4 * lane; c < D; c += 128) cp_async16(drow + c, srow + c);
+    } else {
+      for (int c = lane; c < D; c += 32) cp_async4(drow + c, srow + c);
+    }
+  }
+}
+
+// Entries r0 .. r0+n-1 of a [T] row vector into dst[n], zero past T.
+__device__ __forceinline__ void stage_vec(float* dst, const float* src, int r0, int n, int T) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (r0 + i < T) cp_async4(dst + i, src + r0 + i);
+    else dst[i] = 0.f;
+  }
+}
+
+// Columns D .. dp - 1 of the first `rows` staged rows, which no copy writes,
+// to zero: once a kernel.
+__device__ __forceinline__ void zero_pad_columns(float* buf, int rows, int D, int ld, int dp) {
+  const int w = dp - D;
+  if (w == 0) return;
+  for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+    const int r = i / w;
+    buf[r * ld + D + (i - r * w)] = 0.f;
+  }
+}
+
+// The fragment exchange of a pair: [NT][32 lanes][4], each lane its own
+// float4s (conflict-free).
+template <int NT>
+__device__ __forceinline__ void put_frag(float* x, const float s[NT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    *reinterpret_cast<float4*>(x + (n * 32 + lane) * 4) = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+}
+template <int NT>
+__device__ __forceinline__ void get_frag(const float* x, float s[NT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float4 f = *reinterpret_cast<const float4*>(x + (n * 32 + lane) * 4);
+    s[n][0] = f.x;
+    s[n][1] = f.y;
+    s[n][2] = f.z;
+    s[n][3] = f.w;
+  }
+}
+
+// A warp's 16 x 8NJ accumulator out to rows r0 .. r0+15 of [T, D] memory,
+// times mul: acc[j] holds columns 8 (first + j) .. +7.
+template <int NJ>
+__device__ __forceinline__ void store_rows(float* __restrict__ head, const float acc[NJ][4], int r0,
+                                           int T, int D, int first, float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= T) continue;
+    float* row = head + (size_t)r * D;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * (first + j) + 2 * t + e;
+        if (col < D) row[col] = mul * acc[j][2 * h + e];
+      }
+  }
+}
+
+// Grid: (query tiles) x BH blocks, block i on query tile (nqt - 1 - i / BH)
+// under causal (heaviest first), i / BH otherwise, head i % BH. Shared: Q
+// [64][ld], then kFwdSlots slots [32][ld] that K and V of each key tile
+// pass through in turn (load i: K of tile i / 2 if i is even, V if odd, into
+// slot i % kFwdSlots; kFwdSlots - 1 loads in flight behind the products).
+template <int ND, bool kCausal>
+__global__ void __launch_bounds__(kFwdThreads, 3)
+attn_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                   int BH, int T, int D, float scale) {
+  constexpr int BC = kFwdTile, NT = BC / 8, ld = 8 * ND + 4, dp = 8 * ND, SLOTS = kFwdSlots;
+  extern __shared__ __align__(16) float tc_smem[];
+  const int nqt = (T + kRows - 1) / kRows, tile = blockIdx.x / BH, bh = blockIdx.x - tile * BH;
+  const int q0 = (kCausal ? nqt - 1 - tile : tile) * kRows;
+  const size_t base = (size_t)bh * T * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* Qs = tc_smem;
+  float* ring = Qs + kRows * ld;
+  const bool vk = rows16(k, D), vv = rows16(v, D);
+
+  zero_pad_columns(tc_smem, kRows + SLOTS * BC, D, ld, dp);
+  const int k_end = kCausal ? min(q0 + kRows, T) : T;
+  const int loads = 2 * ((k_end + BC - 1) / BC);
+  auto issue = [&](int i) {
+    stage_tile(ring + (i % SLOTS) * BC * ld, ((i & 1) ? v : k) + base, (i >> 1) * BC, BC, T, D, ld,
+               dp, (i & 1) ? vv : vk);
+  };
+  stage_tile(Qs, q + base, q0, kRows, T, D, ld, dp, rows16(q, D));
+#pragma unroll
+  for (int i = 0; i < SLOTS - 1; ++i) {  // loads >= 2: K and V of the first tile
+    issue(i);
+    cp_async_commit();
+  }
+
+  float acc[ND][4], s[NT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int w0 = q0 + 16 * warp;  // the warp's first query row
+  const float* Qw = Qs + 16 * warp * ld;
+  for (int i = 0; i < loads; ++i) {
+    cp_async_wait<SLOTS - 2>();  // load i has landed (the SLOTS - 2 after it may be in flight)
+    __syncthreads();             // ... for every thread; and slot (i - 1) % SLOTS is read by no one
+    if (i + SLOTS - 1 < loads) issue(i + SLOTS - 1);
+    cp_async_commit();
+    const float* tl = ring + (i % SLOTS) * BC * ld;
+    const int k0 = (i >> 1) * BC;
+    if (kCausal && k0 > w0 + 15) continue;  // no row of this warp sees the tile
+    if ((i & 1) == 0) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      mma_rows<NT, ND>(Qw, tl, s);
+      const bool edge = k0 + BC > T || (kCausal && k0 + BC - 1 > w0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = w0 + g + 8 * h;
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = s[n][2 * h + e] * scale;
+            if (edge && !visible<kCausal>(r, k0 + 8 * n + 2 * t + e, T)) x = kNegInf;
+            s[n][2 * h + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx), corr = expf(m[h] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool vis = !edge || visible<kCausal>(r, k0 + 8 * n + 2 * t + e, T);
+            const float p = vis ? expf(s[n][2 * h + e] - m_new) : 0.f;
+            s[n][2 * h + e] = p;
+            rs += p;
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l[h] = l[h] * corr + rs;
+        m[h] = m_new;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[n][2 * h] *= corr;
+          acc[n][2 * h + 1] *= corr;
+        }
+      }
+    } else {
+      mma_pm<NT, ND, ND>(s, tl, 0, acc);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = w0 + g + 8 * h;
+    if (r >= T) continue;
+    const float ls = fmaxf(l[h], 1e-30f);
+    float* row = o + base + (size_t)r * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < D) row[col] = acc[n][2 * h + e] / ls;
+      }
+    if (t == 0) lse[(size_t)bh * T + r] = m[h] + logf(ls);
+  }
+}
+
+// Grid: (key tiles) x BH blocks, block i on key tile i / BH (under causal
+// the first key tiles see the most queries: heaviest first), head i % BH;
+// loops over query tiles of BQ rows from the diagonal on. Pair p = warp % 4
+// owns keys k0 + 16p .. +15; warp p builds P^T and accumulates dV, warp p + 4
+// builds dP^T and dS^T and accumulates dK. Shared: K, V [64][ld]; 2 stages
+// of Q, dO [BQ][ld]; 2 stages of lse, delta [BQ]; the pairs' exchange.
+template <int ND, bool kCausal>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+attn_bwd_dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv, int BH, int T, int D,
+                       float scale) {
+  constexpr int BQ = kBwdTile, NT = BQ / 8, ld = 8 * ND + 4, dp = 8 * ND;
+  extern __shared__ __align__(16) float tc_smem[];
+  const int kt = blockIdx.x / BH, bh = blockIdx.x - kt * BH, k0 = kt * kRows;
+  const size_t base = (size_t)bh * T * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int pair = warp & 3, role = warp >> 2;
+  float* Ks = tc_smem;
+  float* Vs = Ks + kRows * ld;
+  float* ring = Vs + kRows * ld;     // stage st: Q at ring + 2 st BQ ld, dO BQ ld after
+  float* rows = ring + 4 * BQ * ld;  // stage st: lse at rows + 2 st BQ, delta BQ after
+  float* xw = rows + 4 * BQ + pair * NT * 128;
+  const bool vq = rows16(q, D), vdo = rows16(dout, D);
+
+  zero_pad_columns(tc_smem, 2 * kRows + 4 * BQ, D, ld, dp);
+  const int q_begin = kCausal ? k0 : 0;  // BQ divides 64: a tile boundary
+  const int tiles = (T - q_begin + BQ - 1) / BQ;
+  auto issue = [&](int it) {
+    const int q0 = q_begin + it * BQ, st = it & 1;
+    float* Qt = ring + 2 * st * BQ * ld;
+    stage_tile(Qt, q + base, q0, BQ, T, D, ld, dp, vq);
+    stage_tile(Qt + BQ * ld, dout + base, q0, BQ, T, D, ld, dp, vdo);
+    stage_vec(rows + 2 * st * BQ, lse + (size_t)bh * T, q0, BQ, T);
+    stage_vec(rows + 2 * st * BQ + BQ, delta + (size_t)bh * T, q0, BQ, T);
+  };
+  stage_tile(Ks, k + base, k0, kRows, T, D, ld, dp, rows16(k, D));
+  stage_tile(Vs, v + base, k0, kRows, T, D, ld, dp, rows16(v, D));
+  issue(0);
+  cp_async_commit();
+
+  float acc[ND][4], s[NT][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int kf = k0 + 16 * pair;  // the pair's first key
+  const float* Aw = (role == 0 ? Ks : Vs) + 16 * pair * ld;
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();  // tile it has landed
+    __syncthreads();     // ... for every thread; the other stage and the exchange are free
+    if (it + 1 < tiles) {
+      issue(it + 1);
+      cp_async_commit();
+    }
+    const int q0 = q_begin + it * BQ, st = it & 1;
+    const float* Qt = ring + 2 * st * BQ * ld;
+    const float* dOt = Qt + BQ * ld;
+    const float* Lt = rows + 2 * st * BQ;
+    const float* Dt = Lt + BQ;
+    if (kf >= T || (kCausal && q0 + BQ - 1 < kf)) continue;  // no query of the tile sees the pair's keys
+    const bool edge = q0 + BQ > T || kf + 15 >= T || (kCausal && kf + 15 > q0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    // rows: keys kf + g (+ 8); columns: queries q0 + 8n + 2t (+ 1)
+    mma_rows<NT, ND>(Aw, role == 0 ? Qt : dOt, s);
+    if (role == 0) {  // S^T -> P^T; dV += P^T dO
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kj = kf + g + 8 * (i >> 1), qc = 8 * n + 2 * t + (i & 1);
+          const bool vis = !edge || visible<kCausal>(q0 + qc, kj, T);
+          s[n][i] = vis ? expf(s[n][i] * scale - Lt[qc]) : 0.f;
+        }
+      put_frag<NT>(xw, s);
+      pair_arrive(1 + pair);
+      mma_pm<NT, ND, ND>(s, dOt, 0, acc);
+    } else {  // dP^T -> dS^T = P^T (dP^T - delta); dK += dS^T Q
+      float p[NT][4];
+      pair_sync(1 + pair);
+      get_frag<NT>(xw, p);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = p[n][i] * (s[n][i] - Dt[8 * n + 2 * t + (i & 1)]);
+      mma_pm<NT, ND, ND>(s, Qt, 0, acc);
+    }
+  }
+  store_rows<ND>((role == 0 ? dv : dk) + base, acc, kf, T, D, 0, role == 0 ? 1.f : scale);
+}
+
+// Grid as the forward's. Pair p = warp % 4 owns query rows q0 + 16p .. +15;
+// warp p builds P, warp p + 4 builds dP and dS = P (dP - delta) and hands dS
+// back; warp p accumulates the first (ND + 1) / 2 8-column groups of dQ,
+// warp p + 4 the rest. Shared: Q, dO [64][ld]; 2 stages of K, V [BC][ld];
+// lse, delta [64]; the pairs' exchange.
+template <int ND, bool kCausal>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+attn_bwd_dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dq, int BH, int T, int D, float scale) {
+  constexpr int BC = kBwdTile, NT = BC / 8, ld = 8 * ND + 4, dp = 8 * ND, NJ = (ND + 1) / 2;
+  extern __shared__ __align__(16) float tc_smem[];
+  const int nqt = (T + kRows - 1) / kRows, tile = blockIdx.x / BH, bh = blockIdx.x - tile * BH;
+  const int q0 = (kCausal ? nqt - 1 - tile : tile) * kRows;
+  const size_t base = (size_t)bh * T * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int pair = warp & 3, role = warp >> 2;
+  float* Qs = tc_smem;
+  float* dOs = Qs + kRows * ld;
+  float* ring = dOs + kRows * ld;  // stage st: K at ring + 2 st BC ld, V BC ld after
+  float* Ls = ring + 4 * BC * ld;
+  float* Dl = Ls + kRows;
+  float* xw = Dl + kRows + pair * NT * 128;
+  const bool vk = rows16(k, D), vv = rows16(v, D);
+
+  zero_pad_columns(tc_smem, 2 * kRows + 4 * BC, D, ld, dp);
+  const int k_end = kCausal ? min(q0 + kRows, T) : T;
+  const int tiles = (k_end + BC - 1) / BC;
+  auto issue = [&](int it) {
+    float* Kt = ring + 2 * (it & 1) * BC * ld;
+    stage_tile(Kt, k + base, it * BC, BC, T, D, ld, dp, vk);
+    stage_tile(Kt + BC * ld, v + base, it * BC, BC, T, D, ld, dp, vv);
+  };
+  stage_tile(Qs, q + base, q0, kRows, T, D, ld, dp, rows16(q, D));
+  stage_tile(dOs, dout + base, q0, kRows, T, D, ld, dp, rows16(dout, D));
+  stage_vec(Ls, lse + (size_t)bh * T, q0, kRows, T);
+  stage_vec(Dl, delta + (size_t)bh * T, q0, kRows, T);
+  issue(0);
+  cp_async_commit();
+
+  float acc[NJ][4], s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int rf = q0 + 16 * pair;  // the pair's first query row
+  const float* Aw = (role == 0 ? Qs : dOs) + 16 * pair * ld;
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < tiles) {
+      issue(it + 1);
+      cp_async_commit();
+    }
+    const int k0 = it * BC;
+    const float* Kt = ring + 2 * (it & 1) * BC * ld;
+    const float* Vt = Kt + BC * ld;
+    if (rf >= T || (kCausal && k0 > rf + 15)) continue;  // no row of the pair sees the tile
+    const bool edge = k0 + BC > T || rf + 15 >= T || (kCausal && k0 + BC - 1 > rf);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    // rows: queries rf + g (+ 8); columns: keys k0 + 8n + 2t (+ 1)
+    mma_rows<NT, ND>(Aw, role == 0 ? Kt : Vt, s);
+    if (role == 0) {  // S -> P, out; dS in
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int lr = 16 * pair + g + 8 * (i >> 1), kj = k0 + 8 * n + 2 * t + (i & 1);
+          const bool vis = !edge || visible<kCausal>(q0 + lr, kj, T);
+          s[n][i] = vis ? expf(s[n][i] * scale - Ls[lr]) : 0.f;
+        }
+      put_frag<NT>(xw, s);
+      pair_arrive(1 + pair);
+      pair_sync(5 + pair);
+      get_frag<NT>(xw, s);
+    } else {  // dP, P in; dS = P (dP - delta) out
+      float p[NT][4];
+      pair_sync(1 + pair);
+      get_frag<NT>(xw, p);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = p[n][i] * (s[n][i] - Dl[16 * pair + g + 8 * (i >> 1)]);
+      put_frag<NT>(xw, s);
+      pair_arrive(5 + pair);
+    }
+    mma_pm<NT, NJ, ND>(s, Kt, role * NJ, acc);
+  }
+  store_rows<NJ>(dq + base, acc, rf, T, D, role * NJ, scale);
+}
+
+size_t fwd_tc_smem(int D) {
+  return sizeof(float) * (size_t)(kRows + kFwdSlots * kFwdTile) * tc_ld(D);
+}
+size_t dkv_tc_smem(int D) {
+  return sizeof(float) * ((size_t)(2 * kRows + 4 * kBwdTile) * tc_ld(D) + 68 * kBwdTile);
+}
+size_t dq_tc_smem(int D) {
+  return sizeof(float) * ((size_t)(2 * kRows + 4 * kBwdTile) * tc_ld(D) + 2 * kRows + 64 * kBwdTile);
+}
+
+
 // Dynamic shared memory above 48 KB must be allowed per kernel and device
-// first. Each (kernel, device) remembers the largest size allowed so far, so
-// cudaFuncSetAttribute runs once per kernel and size, not on every launch.
-cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+// first; with max_carveout the SM's unified L1 / shared memory is also set
+// to its largest shared share for the kernel. Each (kernel, device)
+// remembers the largest size allowed so far, so cudaFuncSetAttribute runs
+// once per kernel and size, not on every launch.
+cudaError_t allow_smem(const void* kernel, size_t smem, bool max_carveout = false) {
+  if (smem <= 48 * 1024 && !max_carveout) return cudaSuccess;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -757,12 +1036,50 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
   std::lock_guard<std::mutex> lock(mu);
   size_t& have = allowed[{kernel, dev}];
   if (smem <= have) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (max_carveout && have == 0)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) have = smem;
   return e;
 }
 
 View view_of(const float* p, const long long* s) { return View{const_cast<float*>(p), s[0], s[1], s[2]}; }
+
+// The tiled kernels by head-dim class (nd_class) and causality.
+using FwdKernel = void (*)(const float*, const float*, const float*, float*, float*, int, int, int,
+                           float);
+using DkvKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                           const float*, float*, float*, int, int, int, float);
+using DqKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const float*, float*, int, int, int, float);
+
+template <int N>
+FwdKernel fwd_of(bool c) { return c ? attn_fwd_tc_kernel<N, true> : attn_fwd_tc_kernel<N, false>; }
+template <int N>
+DkvKernel dkv_of(bool c) { return c ? attn_bwd_dkv_tc_kernel<N, true> : attn_bwd_dkv_tc_kernel<N, false>; }
+template <int N>
+DqKernel dq_of(bool c) { return c ? attn_bwd_dq_tc_kernel<N, true> : attn_bwd_dq_tc_kernel<N, false>; }
+
+template <typename K, K (*of8)(bool), K (*of13)(bool), K (*of16)(bool)>
+K by_class(int D, bool causal) {
+  const int nd = nd_class(D);
+  return (nd == 8 ? of8 : nd == 13 ? of13 : of16)(causal);
+}
+FwdKernel fwd_tc(int D, bool c) { return by_class<FwdKernel, fwd_of<8>, fwd_of<13>, fwd_of<16>>(D, c); }
+DkvKernel dkv_tc(int D, bool c) { return by_class<DkvKernel, dkv_of<8>, dkv_of<13>, dkv_of<16>>(D, c); }
+DqKernel dq_tc(int D, bool c) { return by_class<DqKernel, dq_of<8>, dq_of<13>, dq_of<16>>(D, c); }
+
+// A tiled kernel's launch, checked: its shared memory allowed (and the SM's
+// carveout set to shared memory, so the planned blocks fit side by side).
+cudaError_t tc_ready(const void* kernel, size_t smem, int BH, int T, int D) {
+  if (kernel == nullptr || BH < 1 || T < 1 || D < 1 || D > kMaxD || smem > (size_t)kMaxSmem)
+    return cudaErrorInvalidValue;
+  return allow_smem(kernel, smem, true);
+}
+
+unsigned tc_blocks(int T, int BH) { return (unsigned)((T + kRows - 1) / kRows) * (unsigned)BH; }
 
 }  // namespace
 
@@ -771,64 +1088,59 @@ extern "C" {
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Shapes, types and contiguity are validated by the Python wrapper
-// (ops/kernels/flash_attention.py); D must be in [1, 128]. Each entry
-// returns cudaGetLastError() after its launch (or the attribute call's
-// error), and does not synchronise.
+// (ops/kernels/flash_attention.py); D must be in [1, 128]. Each entry returns cudaGetLastError() after its
+// launch (or the attribute call's error), and does not synchronise.
 int attn_forward(const float* q, const float* k, const float* v, float* o, float* lse,
                  int BH, int T, int D, int causal, float scale, void* stream) {
-  if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(D);
-  const dim3 grid((T + kTile - 1) / kTile, BH);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (causal) {
-    if ((e = allow_smem((const void*)attn_fwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    attn_fwd_kernel<true><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, T, D, scale);
-  } else {
-    if ((e = allow_smem((const void*)attn_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    attn_fwd_kernel<false><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, T, D, scale);
-  }
+  const FwdKernel kernel = fwd_tc(D, causal != 0);
+  const size_t smem = fwd_tc_smem(D);
+  const cudaError_t e = tc_ready((const void*)kernel, smem, BH, T, D);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<tc_blocks(T, BH), kFwdThreads, smem, (cudaStream_t)stream>>>(q, k, v, o, lse, BH, T, D,
+                                                                         scale);
   return (int)cudaGetLastError();
 }
 
 int attn_backward_dkv(const float* q, const float* k, const float* v, const float* dout,
                       const float* lse, const float* delta, float* dk, float* dv,
                       int BH, int T, int D, int causal, float scale, void* stream) {
-  if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  const size_t smem = dkv_smem(D);
-  const dim3 grid((T + kTile - 1) / kTile, BH);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (causal) {
-    if ((e = allow_smem((const void*)attn_bwd_dkv_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    attn_bwd_dkv_kernel<true><<<grid, kThreads, smem, st>>>(q, k, v, dout, lse, delta, dk, dv,
-                                                            T, D, scale);
-  } else {
-    if ((e = allow_smem((const void*)attn_bwd_dkv_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    attn_bwd_dkv_kernel<false><<<grid, kThreads, smem, st>>>(q, k, v, dout, lse, delta, dk, dv,
-                                                             T, D, scale);
-  }
+  const DkvKernel kernel = dkv_tc(D, causal != 0);
+  const size_t smem = dkv_tc_smem(D);
+  const cudaError_t e = tc_ready((const void*)kernel, smem, BH, T, D);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<tc_blocks(T, BH), kBwdThreads, smem, (cudaStream_t)stream>>>(q, k, v, dout, lse, delta,
+                                                                         dk, dv, BH, T, D, scale);
   return (int)cudaGetLastError();
 }
 
 int attn_backward_dq(const float* q, const float* k, const float* v, const float* dout,
                      const float* lse, const float* delta, float* dq,
                      int BH, int T, int D, int causal, float scale, void* stream) {
-  if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  const size_t smem = dq_smem(D);
-  const dim3 grid((T + kTile - 1) / kTile, BH);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (causal) {
-    if ((e = allow_smem((const void*)attn_bwd_dq_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    attn_bwd_dq_kernel<true><<<grid, kThreads, smem, st>>>(q, k, v, dout, lse, delta, dq,
-                                                           T, D, scale);
-  } else {
-    if ((e = allow_smem((const void*)attn_bwd_dq_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    attn_bwd_dq_kernel<false><<<grid, kThreads, smem, st>>>(q, k, v, dout, lse, delta, dq,
-                                                            T, D, scale);
-  }
+  const DqKernel kernel = dq_tc(D, causal != 0);
+  const size_t smem = dq_tc_smem(D);
+  const cudaError_t e = tc_ready((const void*)kernel, smem, BH, T, D);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<tc_blocks(T, BH), kBwdThreads, smem, (cudaStream_t)stream>>>(q, k, v, dout, lse, delta,
+                                                                         dq, BH, T, D, scale);
   return (int)cudaGetLastError();
+}
+
+// Blocks of a tiled kernel (which: 0 the forward, 1 dK/dV, 2 dQ; causal) an
+// SM holds at head dim D, by the occupancy calculator; its shared memory per
+// block in *smem and the columns it stages a row (D padded to its class of
+// D) in *cols.
+int attn_tiled_occupancy(int which, int D, int* blocks, int* smem, int* cols) {
+  const void* kernel = which == 0 ? (const void*)fwd_tc(D, true)
+                     : which == 1 ? (const void*)dkv_tc(D, true)
+                                  : (const void*)dq_tc(D, true);
+  const size_t bytes = which == 0 ? fwd_tc_smem(D) : which == 1 ? dkv_tc_smem(D)
+                                                                       : dq_tc_smem(D);
+  const cudaError_t e = tc_ready(kernel, bytes, 1, kRows + 1, D);
+  if (e != cudaSuccess) return (int)e;
+  *smem = (int)bytes;
+  *cols = 8 * nd_class(D);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, which == 0 ? kFwdThreads : kBwdThreads, bytes);
 }
 
 // Short route, T in [1, 64]. strides holds (b, h, t) strides in elements for

@@ -3,7 +3,8 @@
 ``chip_smoke.py``, ``scripts/gn_bench.py``, ``scripts/xent_bench.py`` and
 ``scripts/flash_bench.py`` time the port's kernels with these helpers, so
 all read one measuring stick. Everything here needs a CUDA device except
-:func:`bound`, :func:`gn_work`, :func:`xent_work` and :func:`attn_work`.
+:func:`bound`, :func:`bound_3xtf32`, :func:`gn_work`, :func:`xent_work` and
+:func:`attn_work`.
 """
 
 from __future__ import annotations
@@ -15,10 +16,12 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate and f32 outside the
-# tensor cores, the type these kernels compute in.
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, f32 outside the
+# tensor cores (the type these kernels compute in), and dense TF32 on the
+# tensor cores (K3's tiled route: each f32 product as three TF32 ones).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 494.7e12
 
 
 def cuda_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> float:
@@ -91,6 +94,13 @@ def bound(nbytes: float, flops: float) -> Tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_3xtf32(nbytes: float, flops: float) -> Tuple[float, str]:
+    """(bound_ms, bound_by) of a kernel that forms each f32 product from
+    three TF32 products on the tensor cores: the larger of bytes over the
+    memory rate and 3 x operations over the TF32 peak."""
+    return bound(nbytes, 3 * flops * F32_FLOPS_PER_S / TF32_FLOPS_PER_S)
 
 
 def card() -> str:

@@ -15,7 +15,10 @@ the sequence length:
   and v. :func:`plan` gives their launch plans.
 - ``T > SHORT_T``: the tiled kernels :func:`attn_fwd`, :func:`attn_bwd_dkv`
   and :func:`attn_bwd_dq` on row-contiguous ``[BH, T, D]``, with ``delta``
-  a plain torch op, as it stays outside Pallas in the JAX package.
+  a plain torch op, as it stays outside Pallas in the JAX package. They
+  compute on the tensor cores in 3xTF32; their tiles, shared-memory layout
+  and block order are the kernels' own, and :func:`tiled_occupancy` reads
+  what a block takes from them.
 
 Each launcher takes CUDA tensors and raises on anything else. Their plain
 PyTorch versions, the same math on whole ``[T, T]`` score matrices over any
@@ -70,6 +73,7 @@ __all__ = [
     "attn_fwd_short",
     "flash_attention",
     "plan",
+    "tiled_occupancy",
 ]
 
 
@@ -181,7 +185,7 @@ def _check(*ts: torch.Tensor) -> Tuple[int, int, int]:
     bh, t, d = q.shape
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash-attention kernel: head dim {d} outside [1, {MAX_HEAD_DIM}]")
-    if bh > 65535 or bh * t * d >= 2**31:
+    if bh * t * d >= 2**31:
         raise ValueError(f"flash-attention kernel: shape {tuple(q.shape)} too large")
     for x in ts:
         if x.dtype != torch.float32 or x.shape != q.shape or not x.is_contiguous() or x.device != q.device:
@@ -233,10 +237,11 @@ def _lib() -> ctypes.CDLL:
         lib.attn_forward.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
         lib.attn_backward_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, p]
         lib.attn_backward_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.attn_tiled_occupancy.argtypes = [i, i] + [ctypes.POINTER(i)] * 3
         lib.attn_forward_short.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
         lib.attn_backward_short.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
         for fn in (lib.attn_forward, lib.attn_backward_dkv, lib.attn_backward_dq,
-                   lib.attn_forward_short, lib.attn_backward_short):
+                   lib.attn_forward_short, lib.attn_backward_short, lib.attn_tiled_occupancy):
             fn.restype = i
     return lib
 
@@ -337,10 +342,28 @@ def attn_bwd_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     return dq
 
 
+def tiled_occupancy(d: int) -> dict:
+    """{"fwd", "dkv", "dq"} -> (blocks an SM holds, warps an SM, shared
+    bytes a block, columns a staged row) of each tiled kernel at head dim
+    ``d``, as the kernels lay out their tiles, by CUDA's occupancy
+    calculator on the current card."""
+    lib = _lib()
+    out = {}
+    for which, kernel in enumerate(("fwd", "dkv", "dq")):
+        blocks, smem, cols = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        err = lib.attn_tiled_occupancy(which, d, ctypes.byref(blocks), ctypes.byref(smem),
+                                       ctypes.byref(cols))
+        runtime.check(lib, err, "attn_tiled_occupancy")
+        out[kernel] = (blocks.value, blocks.value * (4 if kernel == "fwd" else 8), smem.value, cols.value)
+    return out
+
+
 def _tiled_fwd(q, k, v, causal: bool):
-    """The tiled forward on ``[B, H, T, D]``: flattened to ``[BH, T, D]``."""
+    """The tiled forward on ``[B, H, T, D]``: flattened to ``[BH, T, D]``;
+    the kernel for CUDA tensors, its plain version for CPU ones."""
     b, h, t, d = q.shape
-    o, lse = attn_fwd(*(x.reshape(b * h, t, d).contiguous() for x in (q, k, v)), causal)
+    fwd = attn_fwd if q.is_cuda else attn_fwd_ref
+    o, lse = fwd(*(x.reshape(b * h, t, d).contiguous() for x in (q, k, v)), causal)
     return o.view(b, h, t, d), lse.view(b, h, t)
 
 
@@ -349,24 +372,27 @@ def _tiled_bwd(q, k, v, do, o, lse, causal: bool):
     flat = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v, do, o)]
     lse = lse.reshape(b * h, t)
     delta = (flat[3] * flat[4]).sum(dim=-1)
-    dk, dv = attn_bwd_dkv(*flat[:4], lse, delta, causal)
-    dq = attn_bwd_dq(*flat[:4], lse, delta, causal)
+    if q.is_cuda:
+        dk, dv = attn_bwd_dkv(*flat[:4], lse, delta, causal)
+        dq = attn_bwd_dq(*flat[:4], lse, delta, causal)
+    else:
+        dq, dk, dv = attn_bwd_ref(*flat[:4], lse, delta, causal)
     return tuple(g.view(b, h, t, d) for g in (dq, dk, dv))
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Autograd over ``[B, H, T, D]``: for CUDA tensors the short kernels at
-    ``T <= SHORT_T`` and the tiled ones above it, for CPU tensors their
-    plain versions. Saves q, k, v, o and lse only."""
+    """Autograd over ``[B, H, T, D]``: the short kernels at ``T <= SHORT_T``
+    and the tiled ones above it for CUDA tensors, each route's plain
+    versions for CPU tensors. Saves q, k, v, o and lse only."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        if not q.is_cuda:
-            o, lse = attn_fwd_ref(q, k, v, causal)
-        elif q.shape[2] <= SHORT_T:
+        if q.shape[2] > SHORT_T:
+            o, lse = _tiled_fwd(q, k, v, causal)
+        elif q.is_cuda:
             o, lse = attn_fwd_short(q, k, v, causal)
         else:
-            o, lse = _tiled_fwd(q, k, v, causal)
+            o, lse = attn_fwd_ref(q, k, v, causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, o, lse)
         return o
@@ -376,12 +402,12 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
-        if not q.is_cuda:
-            dq, dk, dv = attn_bwd_short_ref(q, k, v, do, o, lse, ctx.causal)
-        elif q.shape[2] <= SHORT_T:
+        if q.shape[2] > SHORT_T:
+            dq, dk, dv = _tiled_bwd(q, k, v, do, o, lse, ctx.causal)
+        elif q.is_cuda:
             dq, dk, dv = attn_bwd_short(q, k, v, do, o, lse, ctx.causal)
         else:
-            dq, dk, dv = _tiled_bwd(q, k, v, do, o, lse, ctx.causal)
+            dq, dk, dv = attn_bwd_short_ref(q, k, v, do, o, lse, ctx.causal)
         return dq, dk, dv, None
 
 

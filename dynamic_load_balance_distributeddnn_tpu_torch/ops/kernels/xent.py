@@ -36,8 +36,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMALL_V = 1024
 FWD_THREADS = 128
 BWD_THREADS = 512
+MAX_LOGITS = 2**31 - 1  # the most logits [R, V] a call takes: the kernels index them in int32
 
 __all__ = [
+    "MAX_LOGITS",
     "SoftmaxXentFunction",
     "plan",
     "softmax_xent",
@@ -90,8 +92,8 @@ def _check(logits: torch.Tensor, labels: torch.Tensor, *rows: torch.Tensor) -> N
             f"[R, V], got shape {tuple(logits.shape)} strides {logits.stride()}"
         )
     r, v = logits.shape
-    if r * v >= 2**31:
-        raise ValueError("cross-entropy kernel: more than 2**31 logits")
+    if r * v > MAX_LOGITS:
+        raise ValueError(f"cross-entropy kernel: {r} x {v} logits, more than {MAX_LOGITS}")
     if (
         labels.dtype != torch.int64
         or labels.shape != (r,)

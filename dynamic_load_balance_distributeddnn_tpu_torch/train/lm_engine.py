@@ -45,11 +45,20 @@ from dynamic_load_balance_distributeddnn_tpu_torch.data import (
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
 from dynamic_load_balance_distributeddnn_tpu_torch.models.common import init_flax_defaults
-from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import softmax_xent
+from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import MAX_LOGITS, softmax_xent
 from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import _EVAL_CHUNK, Trainer
 from dynamic_load_balance_distributeddnn_tpu_torch.train.state import make_optimizer
 
 EVAL_BSZ = 10  # dataloader.py:109
+
+
+def eval_rows(bptt: int, ntoken: int) -> int:
+    """Rows (windows of ``bptt`` tokens) in a validation chunk: the vision
+    path's 1,024, or fewer where their ``[rows * bptt, ntoken]`` logits
+    would pass what one K2 call takes (``MAX_LOGITS``; 457 rows at bptt 256
+    and the committed files' 18,328 words). The loss is a token-weighted
+    sum: the chunking changes only the order of its f32 additions."""
+    return max(1, min(_EVAL_CHUNK, MAX_LOGITS // (bptt * ntoken)))
 
 
 class LMTrainer(Trainer):
@@ -189,8 +198,9 @@ class LMTrainer(Trainer):
         on the device; "accuracy" is ``1 - val_loss``."""
         self.model.eval()
         loss_sum = torch.zeros((), device=self.device)
-        for lo in range(0, len(self.eval_x), _EVAL_CHUNK):
-            sl = slice(lo, lo + _EVAL_CHUNK)
+        rows = eval_rows(self.cfg.bptt, self.corpus.ntokens)
+        for lo in range(0, len(self.eval_x), rows):
+            sl = slice(lo, lo + rows)
             losses = softmax_xent(self.model(self.eval_x[sl]).float(), self.eval_y[sl])
             loss_sum += torch.sum(losses * self.eval_m[sl])
         self.model.train()

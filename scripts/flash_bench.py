@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K3 (flash attention) short-route launch plans on an NVIDIA card.
+"""K3 (flash attention) launch plans on an NVIDIA card.
 
-    python3 scripts/flash_bench.py [--rounds N] [--out DIR]
+    python3 scripts/flash_bench.py [--rounds N] [--out DIR] [--route short|tiled]
 
 Times the short route's kernels of ``csrc/flash_attention.cu`` (causal f32,
 on the ``[B, H, T, D]`` views the language model passes) under each launch
@@ -20,6 +20,18 @@ plan ``plan`` picks. These are the numbers behind ``plan`` in
 ``ops/kernels/flash_attention.py``. The table goes to
 ``<out>/flash_bench.json`` (default ``chiprun_out/flash_bench``). Needs a
 CUDA device.
+
+``--route tiled`` times the tiled route instead (causal f32 on contiguous
+``[BH, T, D]``) at the long-context shape (4, 4, 2048, 128) and the
+language model's shapes at ``--bptt 256`` (a worker's 3, 20 and 26
+columns of 256 tokens, the validation chunk of 457 rows, and the whole
+test stream's 960 rows as one wide call): the forward, dK/dV and dQ, each
+checked against its plain version (forward 1e-4, gradients 1e-3), with the
+blocks and warps an SM holds, beside
+``F.scaled_dot_product_attention`` (forward, and its one backward call) and
+two bounds: the product flops over the f32 FMA peak (67 TFLOP/s) and three
+times them over the TF32 tensor peak (494.7 TFLOP/s), the 3xTF32 bound.
+The calls alternate over the rounds.
 """
 
 from __future__ import annotations
@@ -42,10 +54,89 @@ FWD_PLANS = [(r, t) for r in (8, 16, WHOLE) for t in (256, 288, 384)]  # (rows, 
 BWD_PLANS = [(t, p) for t in (256, 288, 384) for p in (1, 2)]
 
 
+TILED_SHAPES = [(4, 4, 2048, 128), (3, 2, 256, 100), (20, 2, 256, 100), (26, 2, 256, 100),
+                (457, 2, 256, 100), (960, 2, 256, 100)]
+
+
+def tiled_bounds(shape):
+    """{kernel: (f32 FMA bound ms, 3xTF32 bound ms)} of the tiled kernels at
+    ``shape`` (causal)."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.obs.kernel_timing import (
+        attn_work,
+        bound,
+        bound_3xtf32,
+    )
+
+    return {name: (bound(*work)[0], bound_3xtf32(*work)[0])
+            for name, work in attn_work(shape, True).items()}
+
+
+def tiled_main(args, torch, dev, smi) -> int:
+    from torch.nn import functional as F
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.obs.kernel_timing import attn_inputs, device_ms
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import flash_attention as fa
+
+    occ = {d: fa.tiled_occupancy(d) for d in {s[3] for s in TILED_SHAPES}}
+    for d, row in occ.items():
+        print(f"D={d}: (blocks an SM, warps an SM, shared bytes a block, columns a row) {row}", flush=True)
+    rows_out = []
+    for shape in TILED_SHAPES:
+        b, h, t, d = shape
+        q, k, v, do = (x.reshape(b * h, t, d) for x in attn_inputs(shape, dev, 12, "contiguous"))
+        o, lse = fa.attn_fwd(q, k, v, True)
+        delta = (do * o).sum(-1)
+        args_b = (q, k, v, do, lse, delta, True)
+        o_r, lse_r = fa.attn_fwd_ref(q, k, v, True)
+        dq_r, dk_r, dv_r = fa.attn_bwd_ref(*args_b)
+        calls, errs = {"fwd": lambda: fa.attn_fwd(q, k, v, True)}, {}
+        calls["dkv"] = lambda: fa.attn_bwd_dkv(*args_b)
+        calls["dq"] = lambda: fa.attn_bwd_dq(*args_b)
+        for name, fn in calls.items():
+            got = fn()
+            if name == "dq":
+                err = (got - dq_r).abs().max().item()
+            else:
+                want = (o_r, lse_r) if name.startswith("fwd") else (dk_r, dv_r)
+                err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            limit = 1e-4 if name.startswith("fwd") else 1e-3
+            assert err <= limit, f"{name} {shape}: |error| {err:.3g} > {limit}"
+            errs[name] = err
+        ql, kl, vl = (x.view(b, h, t, d).clone().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        calls["sdpa fwd"] = lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        calls["sdpa bwd"] = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do.view(b, h, t, d),
+                                                        retain_graph=True)
+        times = {name: [] for name in calls}
+        reps = 5 if t >= 2048 or b * h >= 1024 else 20
+        for _ in range(args.rounds):
+            for name, fn in calls.items():
+                times[name].append(device_ms(fn, reps=reps))
+        bounds = tiled_bounds(shape)
+        print(f"{shape} causal; bounds (f32 FMA, 3xTF32) ms: fwd "
+              f"{bounds['attn_fwd_tiled'][0]:.4f}, {bounds['attn_fwd_tiled'][1]:.4f}; dkv "
+              f"{bounds['attn_bwd_dkv'][0]:.4f}, {bounds['attn_bwd_dkv'][1]:.4f}; dq "
+              f"{bounds['attn_bwd_dq'][0]:.4f}, {bounds['attn_bwd_dq'][1]:.4f}", flush=True)
+        for name, ts in times.items():
+            err = f", |error| {errs[name]:.2e}" if name in errs else ""
+            print(f"    {name:14s} median {statistics.median(ts):.4f} ms (rounds "
+                  f"{' '.join(f'{x:.4f}' for x in ts)}){err}", flush=True)
+        rows_out.append({"shape": list(shape), "bounds": bounds, "errors": errs,
+                         "ms": times})
+        del q, k, v, do, o, lse, delta, args_b, o_r, lse_r, dq_r, dk_r, dv_r, ql, kl, vl, lib_out, calls
+        torch.cuda.empty_cache()
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "flash_bench_tiled.json"), "w") as f:
+        json.dump({"card": smi, "rounds": args.rounds, "occupancy": {str(d): v for d, v in occ.items()},
+                   "rows": rows_out}, f, indent=1)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "flash_bench"))
+    ap.add_argument("--route", choices=("short", "tiled"), default="short")
     args = ap.parse_args(argv)
 
     import torch
@@ -67,6 +158,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.route == "tiled":
+        return tiled_main(args, torch, dev, smi)
     rows_out = []
 
     def measure(shape, backward):

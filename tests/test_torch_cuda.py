@@ -38,6 +38,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention i
     attn_fwd_ref,
     attn_fwd_short,
     flash_attention,
+    tiled_occupancy,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import (
     general_plan,
@@ -386,6 +387,10 @@ def _qkv(shape, seed):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", [
     (2, 2, 35, 100), (2, 2, 96, 16), (1, 2, 130, 128), (3, 1, 1, 8), (1, 1, 64, 33),
+    # the tiled route at D = 100 (the language model's) with a T that is
+    # not a multiple of 64 and at its --bptt 256 windows, the long-context
+    # 2,048, and a D not a multiple of 8
+    (2, 2, 159, 100), (6, 2, 256, 100), (1, 2, 2048, 128), (1, 1, 130, 33),
 ])
 def test_flash_attention_kernels_match_plain(cuda, shape, causal):
     """Each K3 kernel against its plain version on the same inputs, and the
@@ -426,6 +431,38 @@ def test_flash_attention_gradients_are_the_same_on_every_run(cuda):
     first = attn_bwd_dkv(q, k, v, do, lse, delta, True) + (attn_bwd_dq(q, k, v, do, lse, delta, True),)
     again = attn_bwd_dkv(q, k, v, do, lse, delta, True) + (attn_bwd_dq(q, k, v, do, lse, delta, True),)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(26, 2, 256, 100), (1, 2, 2048, 128), (2, 1, 130, 33)])
+def test_flash_attention_tiled_gradients_are_the_same_on_every_run(cuda, shape, causal):
+    """The tiled route's forward and backward twice from the same inputs:
+    the same bits (each output element owned by one block, no float
+    atomics)."""
+    b, h, t, d = shape
+    q, k, v, do = (x.to(cuda).reshape(b * h, t, d) for x in _qkv(shape, 9))
+    (o, lse), again = attn_fwd(q, k, v, causal), attn_fwd(q, k, v, causal)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    delta = (do * o).sum(-1)
+    first = attn_bwd_dkv(q, k, v, do, lse, delta, causal) + (attn_bwd_dq(q, k, v, do, lse, delta, causal),)
+    again = attn_bwd_dkv(q, k, v, do, lse, delta, causal) + (attn_bwd_dq(q, k, v, do, lse, delta, causal),)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    torch.testing.assert_close(o, attn_fwd_ref(q, k, v, causal)[0], atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_tiled_attention_blocks_fit_an_sm_side_by_side_at_every_head_dim(cuda):
+    """At every D in [1, 128] each tiled kernel, as the kernels lay out their
+    shared memory, fits at least 2 blocks an SM (the occupancy calculator's
+    count), and stages D padded with zeros to a multiple of 8 columns; 3
+    forward blocks share an SM up to the language model's D = 100."""
+    for d in range(1, 129):
+        occ = tiled_occupancy(d)
+        for kernel, (blocks, _, _, cols) in occ.items():
+            assert blocks >= 2 and cols >= d and cols % 8 == 0, (d, kernel, occ[kernel])
+        if d <= 100:
+            assert occ["fwd"][0] >= 3, (d, occ["fwd"])
 
 
 @pytest.mark.cuda
@@ -852,6 +889,34 @@ def test_kernels_replayed_in_a_graph_equal_their_eager_launches(cuda):
     _, got = _replayed(attn)
     for a, b in zip(got, attn()):
         assert torch.equal(a, b), "attention"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [159, 256])
+def test_tiled_attention_replayed_in_a_graph_equals_its_eager_launch(cuda, t):
+    """K3's tiled route (T > 64: the language model at --bptt 256) forward
+    and backward through the autograd function on the model's strided
+    views, captured and replayed: the same bits as the eager calls, within
+    the plain versions' tolerances (forward 2e-5, gradients 5e-4)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(6, t, 3, 200, device=cuda, generator=g).mul_(0.5).requires_grad_()
+    do = torch.randn(6, 2, t, 100, device=cuda, generator=g)
+
+    def attn():
+        q, k, v = (qkv[:, :, i].view(6, t, 2, 100).transpose(1, 2) for i in range(3))
+        o = flash_attention(q, k, v, causal=True)
+        return (o,) + torch.autograd.grad(o, qkv, do)
+
+    runtime.reset_launches()
+    _, got = _replayed(attn)
+    assert runtime.LAUNCHES["attn_fwd_tiled"] > 0 and runtime.LAUNCHES["attn_fwd"] == 0
+    for a, b in zip(got, attn()):
+        assert torch.equal(a, b), "tiled attention"
+    ref = qkv.detach().clone().requires_grad_()
+    q, k, v = (ref[:, :, i].view(6, t, 2, 100).transpose(1, 2) for i in range(3))
+    o = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got[0], o, atol=2e-5, rtol=0)
+    torch.testing.assert_close(got[1], torch.autograd.grad(o, ref, do)[0], atol=5e-4, rtol=0)
 
 
 @pytest.mark.cuda

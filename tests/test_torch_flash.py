@@ -208,3 +208,105 @@ def test_attn_work_counts_each_input_read_and_output_written_once():
     assert work["attn_fwd"] == (4 * mat + rows, 4 * d * pairs)
     assert work["attn_bwd"] == (8 * mat + rows, 10 * d * pairs + 2 * d * b * h * t)
     assert work["attn_bwd_dkv"][0] + work["attn_bwd_dq"][0] == 11 * mat + 4 * rows
+
+
+# ------------------------------------------------------------- tiled route
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [1, 33, 100, 128])
+@pytest.mark.parametrize("t", [65, 127, 129, 256])
+def test_tiled_route_matches_the_jax_kernel(t, d, causal):
+    """Above ``SHORT_T`` the port's ``flash_attention`` on the CPU runs the
+    tiled route's host code (the ``[BH, T, D]`` flattening, delta, the
+    layouts handed back) over the kernels' plain versions: its output and
+    gradients against the JAX kernel's, and its lse against the one the
+    JAX kernel writes, at the route's first T, either side of a 64-row
+    tile, the language model's --bptt 256 window, and D from 1 to 128."""
+    q, k, v, tgt = _inputs((1, 2, t, d), seed=t + d)
+
+    def loss(q, k, v):
+        o = jax_flash(q, k, v, causal=causal, block_q=64, block_k=64)
+        return jnp.sum((o - tgt) ** 2), o
+
+    (_, o_want), g_want = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v))
+    )
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    runtime.reset_launches()
+    o = flash_attention(qt, kt, vt, causal=causal)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_want), atol=2e-5, rtol=0)
+    grads = torch.autograd.grad(((o - torch.from_numpy(tgt)) ** 2).sum(), (qt, kt, vt))
+    for got, want, name in zip(grads, g_want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=0, err_msg=f"d{name}")
+    assert not any(runtime.LAUNCHES.values())  # CPU tensors: the plain versions
+    _, lse = fa._tiled_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal)
+    _, lse_want, _ = _fwd_impl(*(jnp.asarray(a.reshape(2, t, d)) for a in (q, k, v)), causal, 64, 64, True)
+    np.testing.assert_allclose(lse.reshape(2, t).numpy(), np.asarray(lse_want)[:, 0, :t], atol=2e-5, rtol=0)
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: ``cvt.rna.tf32.f32``."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _unit_reads(x: np.ndarray) -> np.ndarray:
+    """An f32 register as the TF32 unit reads it: its low 13 bits dropped."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mma_product(a: np.ndarray, b: np.ndarray, terms: str) -> np.ndarray:
+    """``a @ b`` as the tensor cores form it from f32 operands, 8 products
+    of the contraction at a time (one m16n8k8 k-step) into an f32
+    accumulator: ``terms`` "3xtf32" splits each operand as the kernels do,
+    hi = x rounded to TF32 and lo = x - hi as the unit reads it, and adds
+    lo*hi, hi*lo, hi*hi; "tf32" rounds each operand to TF32 and adds the one
+    product; "f32" adds the f32 operands' product."""
+    if terms == "3xtf32":
+        ah, bh = _tf32(a), _tf32(b)
+        al, bl = _unit_reads(a - ah), _unit_reads(b - bh)
+        pairs = [(al, bh), (ah, bl), (ah, bh)]
+    elif terms == "tf32":
+        pairs = [(_tf32(a), _tf32(b))]
+    else:
+        pairs = [(a, b)]
+    acc = np.zeros((a.shape[0], b.shape[1]), dtype=np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in pairs:  # each step's products exact, then rounded into f32
+            acc = (acc.astype(np.float64) + x[:, k0:k0 + 8].astype(np.float64)
+                   @ y[k0:k0 + 8].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def _forward(q, k, v, terms=None):
+    """Causal attention forward ``(o, lse)``: in f64 when ``terms`` is None,
+    else in f32 with both products (S = Q K^T, O = P V) as ``_mma_product``
+    forms them."""
+    t, d = q.shape
+    dt = np.float64 if terms is None else np.float32
+    mm = (lambda a, b: a @ b) if terms is None else (lambda a, b: _mma_product(a, b, terms))
+    s = mm(q.astype(dt), k.T.astype(dt)).astype(dt) * dt(1.0 / np.sqrt(d))
+    s = np.where(np.tril(np.ones((t, t), dtype=bool)), s, dt(-1e30))
+    m = s.max(axis=1, keepdims=True)
+    p = np.exp(s - m).astype(dt)
+    l = p.sum(axis=1, keepdims=True)
+    o = mm(p, v.astype(dt)).astype(dt) / l
+    return o, (m + np.log(l))[:, 0]
+
+
+def test_3xtf32_products_keep_the_forward_within_its_tolerance():
+    """The tiled kernels' arithmetic, emulated: both products of the causal
+    forward at (1, 1, 512, 128) in 3xTF32 stay within the forward tolerance
+    (2e-5) of an f64 forward, with an error of the order of plain f32's
+    (within 4x); one TF32 term alone misses the tolerance."""
+    q, k, v, _ = _inputs((512, 128), seed=9)
+    o64, lse64 = _forward(q, k, v)
+    err = {}
+    for terms in ("3xtf32", "f32", "tf32"):
+        o, lse = _forward(q, k, v, terms)
+        err[terms] = max(np.abs(o - o64).max(), np.abs(lse - lse64).max())
+    assert err["3xtf32"] <= 2e-5, err
+    assert err["3xtf32"] <= 4 * err["f32"], err
+    assert err["tf32"] > 2e-5, err

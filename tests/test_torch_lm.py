@@ -45,6 +45,8 @@ from dynamic_load_balance_distributeddnn_tpu_torch.config import Config, config_
 from dynamic_load_balance_distributeddnn_tpu_torch.data import Corpus
 from dynamic_load_balance_distributeddnn_tpu_torch.models.transformer import TransformerLM
 from dynamic_load_balance_distributeddnn_tpu_torch.obs import SERIES
+from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import MAX_LOGITS
+from dynamic_load_balance_distributeddnn_tpu_torch.train import lm_engine
 from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
 from dynamic_load_balance_distributeddnn_tpu_torch.train.state import make_optimizer
 from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import elastic_step, probe_grads
@@ -193,6 +195,25 @@ def test_plans_and_windows_equal_the_jax_lm_trainer(runs, shares, cols):
         for a, b in zip(true_width, jx):
             assert np.array_equal(a, b[:, : w.batch_size])
         assert not jx[2][:, w.batch_size :].any()  # the padding columns weigh 0
+
+
+def test_validation_chunks_by_tokens_and_the_loss_does_not_move(runs, monkeypatch):
+    """Validation's chunk holds the vision path's 1,024 rows, or the most
+    rows whose logits one K2 call takes (``MAX_LOGITS``), at any bptt and
+    the vocabularies of the committed wikitext-2 files, wikitext-2 and
+    wikitext-103; chunks of 3 rows give the same loss as the default
+    chunking."""
+    assert lm_engine.eval_rows(35, 18_328) == 1024 and lm_engine.eval_rows(256, 18_328) == 457
+    for ntoken in (18_328, 33_278, 267_735):
+        for bptt in range(1, 4097):
+            rows = lm_engine.eval_rows(bptt, ntoken)
+            assert rows * bptt * ntoken <= MAX_LOGITS, (bptt, ntoken)
+            assert rows == 1024 or (rows + 1) * bptt * ntoken > MAX_LOGITS, (bptt, ntoken)
+    _, _, tr, _ = runs
+    whole = tr.validate()
+    monkeypatch.setattr(lm_engine, "MAX_LOGITS", 3 * tr.cfg.bptt * tr.corpus.ntokens)
+    assert lm_engine.eval_rows(tr.cfg.bptt, tr.corpus.ntokens) == 3 < len(tr.eval_x)
+    np.testing.assert_allclose(tr.validate(), whole, rtol=1e-6, atol=0)
 
 
 def test_cli_trains_the_lm_and_records_the_corpus_note(tmp_path, capsys):

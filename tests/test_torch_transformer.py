@@ -4,9 +4,11 @@ the weight bridge.
 A small model (ntoken 50, ninp 32, 2 heads, nhid 32, 2 layers) on seeded
 tokens [3, 35] (the LM path's bptt), with flash attention (the JAX side runs
 its Pallas kernel in interpret mode, the port the kernels' plain versions)
-and with the plain multi-head attention. Dropout is off on both sides
-(threefry and Philox never draw the same masks). Logits agree within atol
-1e-4 and every parameter gradient within 5e-4.
+and with the plain multi-head attention; and with flash attention on tokens
+[2, 96], a bptt above the port's short route (T <= 64), where the port's
+attention takes the tiled kernels' plain versions. Dropout is off on both
+sides (threefry and Philox never draw the same masks). Logits agree within
+atol 1e-4 and every parameter gradient within 5e-4.
 """
 
 import math
@@ -28,6 +30,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.models.transformer import (
     TransformerLM,
     sinusoidal_positions,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import SHORT_T
 from tests._torch_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = dict(ntoken=50, ninp=32, nhead=2, nhid=32, nlayers=2, dropout=0.2)
@@ -64,6 +67,28 @@ def test_param_grads_match_flax(bridged):
     assert set(want) == {n for n, _ in model.named_parameters()}
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), atol=5e-4, rtol=0, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def bridged_long():
+    """The flash-attention LM on tokens [2, 96]: T above ``SHORT_T``."""
+    fmod = FlaxLM(**SMALL, use_flash=True)
+    rng = np.random.RandomState(4)
+    tokens = rng.randint(0, 50, (2, 96)).astype(np.int32)
+    cot = rng.randn(2, 96, 50).astype(np.float32)
+    params = fmod.init(jax.random.PRNGKey(1), jnp.asarray(tokens))["params"]
+    model = TransformerLM(**SMALL, use_flash=True).eval()
+    model.load_state_dict(params_from_flax(params, model))
+    return fmod, params, model, tokens, cot
+
+
+def test_logits_match_flax_above_the_short_route(bridged_long):
+    assert bridged_long[3].shape[1] > SHORT_T
+    test_logits_match_flax(bridged_long)
+
+
+def test_param_grads_match_flax_above_the_short_route(bridged_long):
+    test_param_grads_match_flax(bridged_long)
 
 
 def test_bridge_maps_dense_general_and_embedding_layouts(bridged):
