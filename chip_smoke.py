@@ -33,8 +33,8 @@ phase runs.
    profiler's sum of kernel time, so host launch gaps are not counted)
    beside its bound, the plain version's and one PyTorch library call's;
    the CUDA-event wall, which includes the host's launch gaps, is printed
-   beside it. K1 is timed over one DenseNet-121 worker pass at b = 32, 128
-   and 160 beside its general route (the first port's kernels), and over
+   beside it. K1 is timed over one DenseNet-121 worker pass at b = 128
+   beside its general route (the first port's kernels), and over
    one packed step's pass (b = 512) of DenseNet-121 and of ResNet-101, f32
    and (``--precision bfloat16``'s K1) bf16, whose bound counts 2-byte
    activations; K1's route for every GroupNorm call of the four families at
@@ -110,10 +110,10 @@ phase runs.
    test stream's 960 rows of 256 in chunks of 457, ``lm_engine.eval_rows``);
    share moved, finite losses; each (B*H, T, D) the tiled forward saw.
 4h. Stop and resume (``--ckpt_dir``): [4]'s packed DenseNet-121 and [4b]'s
-   elastic compute-mode run at 1,024 examples, and [5]'s LM, each 3 epochs
+   elastic compute-mode run at 1,024 examples, and [5]'s LM, each 2 epochs
    with ``--probe_mode always`` under ``--superstep auto`` and ``off``,
    cuDNN deterministic: the whole run with ``--ckpt_dir``, then a fresh
-   trainer resuming from its epoch-1 checkpoint for the last epoch. Its
+   trainer resuming from its epoch-0 checkpoint for the last epoch. Its
    parameters, momentum buffers and last train loss equal the whole run's
    bit for bit, and its recorder holds that epoch with the whole run's
    partition. Each save's and each restore's wall.
@@ -142,8 +142,8 @@ phase runs.
    elastic at the 3:1 plan's widths (32, 160, 160, 160) with the
    straggler's compute-mode load, DenseNet-121 packed (b = 512), and the
    LM with dropout (the replays draw the eager masks). (iii) ``--superstep
-   auto`` against ``off`` on [4b]'s, [5]'s and [4f]'s packed recipes: each
-   arm's epochs (walls, captures, dispatches against the windows, host
+   auto`` against ``off`` on [4b]'s, [5]'s and [4f]'s packed recipes cut to
+   2 epochs: each arm's epochs (walls, captures, dispatches against the windows, host
    dispatch seconds, peak memory), then steady passes over one plan,
    alternating off, auto, auto, off, and one profiled pass each for the
    busy share.
@@ -156,8 +156,30 @@ phase runs.
    layer's gradient, the card's error within ``BF16_CARD_MULTIPLE`` times
    the CPU's bf16 error.
 
+7. Data parallelism across processes: two ranks on ``cuda:0``, each a
+   ``python -m dynamic_load_balance_distributeddnn_tpu_torch.cli`` process
+   (``-m densenet -ds cifar10 -ws 2 -b 512 -gpu 0,0 --straggler 3,1
+   --fault_mode virtual -e 3 --n_train 4096 --coordinator 127.0.0.1:<free
+   port> --num_processes 2 --process_id <i>``: DenseNet-121 at its published
+   width, B = 512 over two ranks), the gradient collectives on gloo through
+   pinned host memory (two ranks share the card), in three arms: (a) the
+   default DBS path (window-mode elastic epochs), (b) ``--fused_dbs true``,
+   (c) ``-dbs false --grad_accum 2 --compress_grads int8 --shard_update
+   true`` (the fused path, ZeRO-1 on the int8 wire). Each rank writes a
+   report beside the run's statistics (``cli.rank_report_file``,
+   ``Trainer.rank_report``). Checks: gloo with 2
+   ranks; the ranks' parameters bit for bit equal (their SHA-256); finite,
+   falling losses; in (a) and (b) worker 0's share below 0.40 by epoch 3;
+   K1 and K2 launched on each rank; in (c) each rank's momentum chunk half
+   the padded flat parameter count. Printed: the epoch walls, each epoch's
+   collective walls (mean and max a step), ``sync_time``,
+   ``comm_bytes_*`` and each rank's peak memory. A rank that fails or
+   outlives ``DIST_TIMEOUT_S`` fails the phase: both are killed and their
+   logs printed. It runs right after [3b], while this process holds the
+   least device memory (the ranks share the card with it).
+
 The last two lines are the kernels' JSON record (launches summed over every
-path) and the result line. Full tables go to ``chiprun_out/chip_smoke/``.
+path of this process; [7]'s ranks report their own) and the result line. Full tables go to ``chiprun_out/chip_smoke/``.
 """
 
 from __future__ import annotations
@@ -245,6 +267,19 @@ LM_LONG_ARGV = LM_ARGV[:LM_ARGV.index("--bptt") + 1] + ["256"] + LM_ARGV[LM_ARGV
 LM_LONG_STEPS = 11
 
 
+DIST_ARGV = ("-m densenet -ds cifar10 -ws 2 -b 512 -gpu 0,0 --straggler 3,1 "
+             "--fault_mode virtual -e 3 --n_train 4096").split()
+DIST_ARMS = (
+    ("a", "the default DBS path (window-mode elastic epochs)", []),
+    ("b", "--fused_dbs true", ["--fused_dbs", "true"]),
+    ("c", "the fused path, --grad_accum 2, the int8 wire, ZeRO-1",
+     ["-dbs", "false", "--grad_accum", "2", "--compress_grads", "int8", "--shard_update", "true"]),
+)
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 150
+DIST_SHARE_MAX = 0.40
+
+
 def with_epochs(argv, epochs: int):
     """``argv`` with its ``-e`` value replaced."""
     i = argv.index("-e")
@@ -281,12 +316,14 @@ BF16_ELASTIC_EPOCHS, LM_BF16_EPOCHS = 2, 2
 BF16_ELASTIC_ARGV = (with_epochs(MAIN_ARGV, BF16_ELASTIC_EPOCHS)[:-2]
                      + ["--n_train", "2048", "--packed", "off"] + BF16)
 LM_BF16_ARGV = with_epochs(LM_ARGV, LM_BF16_EPOCHS) + BF16
-# [4h]: stop and resume, 3 epochs each, every epoch probed (so the whole
-# and the resumed run train the last epoch on one plan)
-RESUME_EPOCHS = 3
-RESUME_RECIPES = (("densenet packed", with_n_train(MAIN_ARGV, 1024)),
-                  ("densenet elastic compute", with_n_train(COMPUTE_ARGV, 1024)),
-                  ("language model", LM_ARGV))
+# [4h]: stop and resume, 2 epochs each (cut from 3 to keep the script's
+# time), every epoch probed (so the whole and the resumed run train the
+# last epoch on one plan)
+RESUME_EPOCHS = 2
+RESUME_RECIPES = (("densenet packed", with_epochs(with_n_train(MAIN_ARGV, 1024), RESUME_EPOCHS)),
+                  ("densenet elastic compute",
+                   with_epochs(with_n_train(COMPUTE_ARGV, 1024), RESUME_EPOCHS)),
+                  ("language model", with_epochs(LM_ARGV, RESUME_EPOCHS)))
 # [4i]: [4f]'s packed bf16 recipe under the profiler, cut to 1 epoch of 2
 # steps, both replayed from its graph (2 epochs traced 1.7M events)
 PROFILE_ARGV = with_n_train(with_epochs(BF16_ARGV, 1), 1024)
@@ -334,11 +371,11 @@ GN_GENERAL = ("groupnorm_fwd_general", "groupnorm_bwd_general")
 # line's bf16 rows (a packed pass of DenseNet-121, b = 512)
 GN_BF16 = ("groupnorm_fwd_bf16", "groupnorm_bwd_bf16")
 XENT_BF16 = ("xent_fwd_bf16", "xent_bwd_bf16")
-# K1 is timed over one DenseNet-121 worker pass at each batch of the vision
-# path's plans: 128 under the uniform first plan (512 / 4 workers), 32 for
-# the straggler and 160 for the others after rebalancing; the JSON line's
-# rows are at 128, the batch of the earlier slices' records
-GN_BATCHES, GN_LINE_BATCH = (32, 128, 160), 128
+# K1 is timed over one DenseNet-121 worker pass at 128, the batch of the
+# uniform first plan (512 / 4 workers), of the JSON line's rows and of the
+# earlier slices' records (the rebalanced plans' 32 and 160 are checked in
+# [3] and [4], no longer timed: the script's time)
+GN_BATCHES, GN_LINE_BATCH = (128,), 128
 # and over one packed step's pass, b = 512: DenseNet-121's and ResNet-101's
 GN_PACKED_B = 512
 # [6]: weight seeds of the card-vs-CPU comparison, and its bound on the first
@@ -1471,9 +1508,10 @@ def check_lm_against_cpu(torch, dev):
 # pass each
 SUPERSTEP_ELASTIC_WIDTHS, SUPERSTEP_LOAD_ITERS = (32, 160, 160, 160), 300
 SUPERSTEP_LM_COLS = 20
-SUPERSTEP_ARMS = (("densenet elastic, compute-mode straggler", COMPUTE_ARGV),
-                  ("language model", LM_ARGV),
-                  ("densenet packed, bf16", BF16_ARGV))
+SUPERSTEP_ARMS = tuple((name, with_epochs(argv, 2)) for name, argv in (
+    ("densenet elastic, compute-mode straggler", COMPUTE_ARGV),
+    ("language model", LM_ARGV),
+    ("densenet packed, bf16", BF16_ARGV)))  # 2 epochs each: the script's time
 # [4]'s and [4f]'s packed cli peaks with eager steps, before step graphs
 # (NVIDIA H100 80GB HBM3, 700 W), printed beside each arm's peak
 EAGER_PEAK_GIB = "19.17 GiB ([4], f32 packed) / 9.69 GiB ([4f], bf16 packed)"
@@ -2085,7 +2123,66 @@ def time_kernels(torch, dev):
     return timing, gt, gp, gp16, xt, at, shapes, gn_routes
 
 
-PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4i", "4g", "6", "6b")
+def run_ranks(tag: str, argv):
+    """``DIST_RANKS`` cli processes of one recipe, ranks of one gloo group
+    on ``cuda:0``, through ``scripts/rank_launch.py`` ``run_cli_ranks``:
+    joined with ``DIST_TIMEOUT_S``, all killed (and their logs printed)
+    when one fails or the time runs out. Returns (each rank's report, rank
+    0's series, the arm's wall)."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+    from scripts.rank_launch import RanksFailed, run_cli_ranks
+
+    run_dir = os.path.join(OUT, tag)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    log("  python -m dynamic_load_balance_distributeddnn_tpu_torch.cli " + " ".join(argv)
+        + " --coordinator 127.0.0.1:<free port> --num_processes 2 --process_id <i>")
+    try:
+        reports, wall, argv0 = run_cli_ranks(argv, DIST_RANKS, run_dir, DIST_TIMEOUT_S)
+    except RanksFailed as e:
+        log(str(e))
+        raise AssertionError(f"[7] {tag}: the ranks failed") from None
+    cfg = config_from_args(argv0)
+    with open(os.path.join(cfg.stat_dir, cfg.base_filename().format(0) + ".json")) as f:
+        series = json.load(f)
+    return reports, series, wall
+
+
+def check_ranks(arm: str, reports, series, wall):
+    """[7]'s checks of one arm (the module docstring) and its numbers."""
+    for r in reports:
+        assert r["ranks"]["backend"] == "gloo" and r["ranks"]["size"] == DIST_RANKS, r["ranks"]
+        assert r["ranks"]["staged_through_host"], r["ranks"]
+        for k in CNN_KERNELS:
+            assert r["launches"][k] > 0, (arm, r["rank"], k, r["launches"])
+    digests = {r["param_sha256"] for r in reports}
+    assert len(digests) == 1, f"[7] ({arm}): the ranks' parameters differ: {digests}"
+    losses = series["train_loss"]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    share = series["partition"][-1][0]
+    if arm in ("a", "b"):
+        assert share < DIST_SHARE_MAX, f"[7] ({arm}): worker 0's share {share} by the last epoch"
+    if arm == "c":
+        for r in reports:
+            c = r["combine"]
+            assert c["shard_update"] and 2 * c["momentum_chunk_elems"] == c["padded_elems"], c
+    walls = epoch_walls(series)
+    log(f"  ({arm}) arm wall {wall:.1f}s (two processes, start-up included); paths "
+        f"{reports[0]['paths']}; epoch walls {[round(w, 3) for w in walls]} s; train loss "
+        f"{[round(x, 4) for x in losses]}; partition {series['partition']}")
+    log(f"  ({arm}) sync_time {series['sync_time']} s; comm_bytes_ici {series['comm_bytes_ici']}; "
+        f"comm_bytes_dcn {series['comm_bytes_dcn']}; combine {reports[0]['combine']}")
+    for r in reports:
+        coll = [(c["epoch"], round(1e3 * c["mean_s"], 2), round(1e3 * c["max_s"], 2))
+                for c in r["collective"] or []]
+        log(f"  ({arm}) rank {r['rank']}: collective wall a step (epoch, mean ms, max ms) {coll}; "
+            f"K1 {r['launches']['groupnorm_fwd']}+{r['launches']['groupnorm_bwd']} and K2 "
+            f"{r['launches']['xent_fwd']}+{r['launches']['xent_bwd']} launches; peak device "
+            f"memory {r['peak_bytes'] / 2**30:.2f} GiB; parameters sha256 {r['param_sha256'][:16]}")
+    return {"wall": wall, "epoch_walls": walls, "series": series, "reports": reports}
+
+
+PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4i", "4g", "6", "6b",
+          "7")
 
 
 def main(argv=None) -> int:
@@ -2153,6 +2250,20 @@ def main(argv=None) -> int:
         phase("[3b] synthetic load (compute-mode stragglers)")
         err["synthetic_load"], load = check_synthetic_load(torch, dev)
         timing["synthetic_load"] = load["timing"]
+
+    ranks = {}
+    if want("7"):
+        # here, before the paths: the ranks are other processes on this card,
+        # and this one holds the least device memory now
+        phase(f"[7] data parallelism: {DIST_RANKS} ranks on cuda:0 over gloo, DenseNet-121, B=512")
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        log(f"  this process: {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved; card "
+            f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+        for arm, what, extra in DIST_ARMS:
+            log(f"  ({arm}) {what}")
+            ranks[arm] = check_ranks(arm, *run_ranks(f"ranks_{arm}", DIST_ARGV + extra))
 
     paths = {}  # tag: (launch counts, series, wall, peak bytes)
     if want("4"):
@@ -2277,6 +2388,7 @@ def main(argv=None) -> int:
     if not every:
         with open(os.path.join(OUT, "phases.json"), "w") as f:
             json.dump({"card": smi, "phases": chosen, "errors": err, "supersteps": supersteps,
+                       "ranks": ranks,
                        "resume": resume, "tracing": tracing,
                        "launches": {tag: p[0] for tag, p in paths.items()},
                        "series": {tag: p[1] for tag, p in paths.items()},
@@ -2352,7 +2464,7 @@ def main(argv=None) -> int:
                    "series": {tag: p[1] for tag, p in paths.items()},
                    "groupnorm_shapes": shapes, "window_walls": window_walls,
                    "supersteps": supersteps, "resume": resume, "tracing": tracing,
-                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+                   "ranks": ranks, "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of the dynamic-batch-size (DBS) data-parallel trainer.
 
 A second package beside ``dynamic_load_balance_distributeddnn_tpu`` (the JAX
-reference). It trains the vision DBS loop on one NVIDIA Hopper card: every
-logical worker shares the card, the solver re-partitions data in inverse
-proportion to each worker's measured compute time, and the workers'
-per-example-weighted gradients are summed into one SGD-momentum update.
+reference). It trains the vision DBS loop on one NVIDIA Hopper card, where
+every logical worker shares the card, or across processes, one a device
+(``parallel/``): the solver re-partitions data in inverse proportion to
+each worker's measured compute time, and the workers' per-example-weighted
+gradients are summed into one SGD-momentum update.
 
 The port imports ``torch`` and numpy and nothing of the JAX package: the
 host-side modules it needs (solver, partitioner, datasets, faults, recorder)

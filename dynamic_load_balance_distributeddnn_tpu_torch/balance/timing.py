@@ -128,6 +128,10 @@ class HostOverheadMeter:
 
 
 def exchange_times(local_times: np.ndarray) -> np.ndarray:
-    """All-gather of per-worker times across processes. This port runs one
-    process, so it is the identity."""
-    return np.asarray(local_times, dtype=np.float64)
+    """All-gather of per-worker times across processes (the reference's
+    ``time_allreduce`` ring): each process contributes its own workers'
+    slice, in float64, and the result is in rank order. One process: the
+    identity."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import allgather_host
+
+    return allgather_host(np.asarray(local_times, dtype=np.float64))

@@ -19,6 +19,15 @@ Dense inputs need no row permutation: the port flattens its activations in
 flax's (h, w, c) order. A gradient tree has the parameter tree's layout, so
 the same function carries ``jax.grad`` results across. Leaves may be any
 array ``numpy.asarray`` accepts; nothing here imports JAX.
+
+``flax_leaf_order`` is the other direction's order: the port's parameter
+names in the order JAX's ``tree_flatten`` visits the flax tree (each
+level's keys sorted, depth first), which is not ``model.parameters()``
+order. A leaf's index in it is the ``i`` of the JAX package's per-leaf keys
+(``fold_in(rng, i + 0x7FFF)``, ``train/steps.py`` ``_compressed_psum``).
+``flax_index`` maps each element of a port parameter to its position in
+the flax leaf's row-major ravel, which is where the JAX package's dither
+index of that element comes from.
 """
 
 from __future__ import annotations
@@ -58,6 +67,39 @@ def _convert(path: tuple, leaf: np.ndarray):
     if name == "bias":  # a DenseGeneral bias [H, hd] flattens to [H*hd]
         return ".".join(mods) + ".bias", leaf.reshape(-1)
     raise ValueError(f"{'/'.join(path)}: unknown flax parameter {name!r}")
+
+
+def flax_path(model: nn.Module, name: str) -> tuple:
+    """The flax path of the port parameter ``name`` (the inverse of
+    ``_convert``'s name mapping)."""
+    *mods, leaf = name.split(".")
+    if leaf == "weight":  # a norm's scale, an embedding table, else a kernel
+        kind = type(model.get_submodule(".".join(mods))).__name__
+        leaf = "scale" if "Norm" in kind else "embedding" if "Embed" in kind else "kernel"
+    return tuple(mods) + (leaf,)
+
+
+def flax_leaf_order(model: nn.Module) -> list:
+    """The model's parameter names in JAX's ``tree_flatten`` order of the
+    flax tree: the flax paths sorted (each level's keys sorted, depth first)."""
+    names = [n for n, _ in model.named_parameters()]
+    return sorted(names, key=lambda n: flax_path(model, n))
+
+
+def flax_index(model: nn.Module, name: str) -> torch.Tensor:
+    """For each element of the port parameter ``name``, its index in the
+    row-major ravel of the flax leaf (int64, the parameter's shape): the
+    inverse of ``_convert``'s transposes. A ``DenseGeneral`` kernel
+    ``[in, H, hd]`` or ``[H, hd, out]`` ravels as its 2-D ``[in, H*hd]`` or
+    ``[H*hd, out]``, so every 2-D kernel is a transposed dense one."""
+    p = model.get_parameter(name)
+    if flax_path(model, name)[-1] == "kernel":
+        if p.dim() == 4:  # OIHW <- HWIO
+            o, i, h, w = p.shape
+            return torch.arange(p.numel()).reshape(h, w, i, o).permute(3, 2, 0, 1)
+        if p.dim() == 2:  # [out, in] <- [in, out]
+            return torch.arange(p.numel()).reshape(p.shape[1], p.shape[0]).T
+    return torch.arange(p.numel()).reshape(p.shape)
 
 
 def params_from_flax(flax_params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:

@@ -14,7 +14,16 @@ card never quietly runs the plain path.
 each raising the JAX package's exception type (``tests/test_torch_config_checks.py``).
 A flag whose feature this port does not implement yet raises
 ``NotImplementedError`` naming the flag when it is set to a non-default
-value; so do ``num_processes`` / ``process_id`` for more than one process.
+value.
+
+Several processes (``--coordinator host:port --num_processes N
+--process_id i``, or the ``DBS_*`` environment) each own one device
+(``parallel/mesh.py``): the ``-gpu`` map places each process's ``world_size
+/ N`` workers, and a process's slice must name one device. Across ranks the
+port runs the vision DBS loop (window-mode elastic epochs), the fused and
+fused-DBS paths, ``--grad_accum``, ``--compress_grads int8`` and
+``--shard_update``; it refuses, by name, the language model,
+``--rebalance window`` and ``--ckpt_dir`` there.
 Flags that tune only the JAX package's compile service or device cache
 (``aot_*``, ``speculate_scan``, ``warm_start``, ``device_cache*``) have no
 meaning for an eager PyTorch program; they are checked, accepted and have
@@ -28,12 +37,13 @@ each training forward runs on bf16 copies of the f32 master weights
 ``--superstep`` works as in the JAX package on one device, where every
 worker of this port runs (``Trainer._elastic_mode``):
 
-- ``auto`` (the default) and ``on`` give ``"scan"``: each training step of
-  the elastic and packed epochs is replayed from a CUDA graph captured once
-  per step key (``train/supersteps.py``), a window's steps in one host
-  dispatch; on the CPU the same executor runs each step eagerly from its
-  static slots. The JAX package's ``"window"`` mode cannot occur: it needs
-  workers on several devices, and a multi-device ``-gpu`` map is refused.
+- ``auto`` (the default) and ``on`` give ``"scan"`` in one process: each
+  training step of the elastic and packed epochs is replayed from a CUDA
+  graph captured once per step key (``train/supersteps.py``), a window's
+  steps in one host dispatch; on the CPU the same executor runs each step
+  eagerly from its static slots. Across ranks they give ``"window"``: each
+  step's forward/backward replayed from its graph, the collective and the
+  update eager between the replays.
 - ``off`` gives ``"step"``: the eager per-step loop, the parity and
   host-overhead reference. One difference from the JAX package: ``off``
   keeps the packed step eager too, so both paths have an eager arm on the
@@ -136,9 +146,9 @@ class Config:
     epoch_size: int = 10
     dataset: str = "wikitext2"
     dynamic_batch_size: bool = True
-    device: object = None              # worker→device map; every worker of
-                                       # this port shares one card, so the
-                                       # map may name one device only
+    device: object = None              # worker→device map; a process owns
+                                       # one device, so a process's slice
+                                       # of the map names one device
     model: str = "transformer"
     fault_tolerance: bool = False
     fault_tolerance_chance: float = 0.1
@@ -253,6 +263,17 @@ class Config:
             raise ValueError("elastic_readmit must be 'epoch' or 'off'")
         self._check_rebalance()
         self._check_trace_and_compile()
+        if self.compress_grads and self.dynamic_batch_size and not self.fused_dbs:
+            raise ValueError(
+                "compress_grads rides a fused path (the elastic DBS combine "
+                "keeps exact f32 gradients); enable fused_dbs to combine it "
+                "with the balancer"
+            )
+        if self.grad_accum > 1 and self.dynamic_batch_size and not self.fused_dbs:
+            raise ValueError(
+                "grad_accum rides a fused path; the elastic DBS path controls "
+                "memory by shrinking per-worker batches instead"
+            )
         if self.bucket < 1:
             raise ValueError("bucket must be >= 1")
         if self.precision not in ("float32", "bfloat16"):
@@ -337,10 +358,8 @@ class Config:
 
     def _check_trace_and_compile(self) -> None:
         """The JAX package's checks of the trace, superstep-window and
-        compile-service flags. Its two last checks (``compress_grads`` and
-        ``grad_accum`` ride a fused path) are ``_reject_unported``'s here:
-        this port refuses both flags, naming them, whatever the balancer's
-        setting."""
+        compile-service flags (its last two, ``compress_grads`` and
+        ``grad_accum`` riding a fused path, follow in ``__post_init__``)."""
         if self.trace not in ("on", "off", "ring"):
             raise ValueError("trace must be 'on', 'off' or 'ring'")
         if self.trace_ring < 1:
@@ -368,12 +387,56 @@ class Config:
                 f"-m {self.model} -ds wikitext2: wikitext2 is the transformer's "
                 "corpus, the vision models train on image datasets"
             )
-        devs = self.device if isinstance(self.device, list) else [self.device]
-        if len({d for d in devs if d is not None}) > 1:
-            raise NotImplementedError(
-                f"-gpu {self.device}: every worker of this port shares one "
-                "card; name a single device (e.g. 0,0,0,0)"
+        if self.num_processes > 0 and self.process_id >= self.num_processes:
+            raise ValueError(
+                f"process_id {self.process_id} must be below num_processes {self.num_processes}"
             )
+        if self.process_id > 0 and self.num_processes <= 0:
+            raise NotImplementedError(
+                f"--process_id={self.process_id} without --num_processes: torch.distributed "
+                "needs the process count (the JAX package's autodetection on TPU pods is not "
+                "implemented by this port)"
+            )
+        if self.coordinator and (self.num_processes <= 0 or self.process_id < 0):
+            raise NotImplementedError(
+                f"--coordinator={self.coordinator!r} without --num_processes and --process_id: "
+                "torch.distributed needs both (the JAX package's autodetection on TPU pods is "
+                "not implemented by this port)"
+            )
+        n_proc = max(self.num_processes, 1)
+        if isinstance(self.device, list) and self.world_size % n_proc == 0:
+            per = self.world_size // n_proc
+            for p in range(n_proc):
+                devs = set(self.device[p * per:(p + 1) * per])
+                if len(devs) > 1:
+                    raise NotImplementedError(
+                        f"-gpu {self.device}: process {p}'s workers name devices "
+                        f"{sorted(devs)}; a process of this port owns one device: launch "
+                        "one process a device with --coordinator, --num_processes and "
+                        "--process_id (or DBS_COORDINATOR, DBS_NUM_PROCESSES, DBS_PROCESS_ID)"
+                    )
+        if n_proc > 1:
+            across = {
+                "model": self.model == "transformer",
+                "rebalance": self.rebalance == "window",
+                "ckpt_dir": bool(self.ckpt_dir),
+            }
+            for flag, set_ in across.items():
+                if set_:
+                    raise NotImplementedError(
+                        f"--{flag}={getattr(self, flag)!r} with --num_processes {n_proc} is not "
+                        "implemented by this port yet (ROADMAP.md lists what is left)"
+                    )
+        if self.model == "transformer":
+            lm = {"fused_dbs": self.fused_dbs, "shard_update": self.shard_update,
+                  "compress_grads": bool(self.compress_grads), "grad_accum": self.grad_accum != 1}
+            for flag, set_ in lm.items():
+                if set_:
+                    raise NotImplementedError(
+                        f"--{flag}={getattr(self, flag)!r} with -m transformer is not "
+                        "implemented by this port yet: the language model's fused paths "
+                        "are not ported (ROADMAP.md lists what is left)"
+                    )
         if self.rebalance == "window" and self.model == "transformer":
             raise NotImplementedError(
                 "--rebalance='window' with -m transformer is not implemented by "
@@ -382,17 +445,11 @@ class Config:
                 "model fails at its first switch (ROADMAP.md lists what is left)"
             )
         unported = {
-            "fused_dbs": self.fused_dbs,
-            "shard_update": self.shard_update,
+            # the hierarchical combine, with its --hier_levels, per-hop
+            # wires and bandwidth probe (the JAX package reads them only
+            # under hier)
             "grad_comm": self.grad_comm != "flat",
-            "compress_grads": bool(self.compress_grads),
-            "grad_accum": self.grad_accum != 1,
             "elastic": self.elastic != "off",
-            "coordinator": bool(self.coordinator),
-            # one process: the JAX package's defaults (0, -1: from the
-            # environment or the coordinator) or the explicit 1 / 0
-            "num_processes": self.num_processes not in (0, 1),
-            "process_id": self.process_id not in (-1, 0),
             "seq_parallel": bool(self.seq_parallel),
             "remat": self.remat,
         }
@@ -405,6 +462,18 @@ class Config:
 
     def straggler_factors(self) -> List[float]:
         return [float(x) for x in self.straggler.split(",")] if self.straggler else []
+
+    def worker_device_ids(self, n_devices: int) -> List[int]:
+        """The worker→device map resolved over ``n_devices`` local devices:
+        a list verbatim (mod ``n_devices``), an int pins every worker to
+        that device. Unlike the JAX package, None (the default) puts every
+        worker on the process's current device, not round-robin: a
+        process of this port owns one device."""
+        if isinstance(self.device, list):
+            return [d % n_devices for d in self.device]
+        if isinstance(self.device, int):
+            return [self.device % n_devices] * self.world_size
+        return [0] * self.world_size
 
     def base_filename(self) -> str:
         """Config-encoded artifact name, the JAX package's exactly; ``{}`` is
@@ -440,8 +509,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-dbs", "--dynamic_batch_size", type=str2bool,
                    default=dflt["dynamic_batch_size"])
     p.add_argument("-gpu", "-dev", "--device", type=device_map, default=None,
-                   help="Worker→device map, e.g. '0,0,0,0'; every worker "
-                        "shares one card in this port.")
+                   help="Worker→device map, e.g. '0,0,0,0'; a process of "
+                        "this port owns one device.")
     p.add_argument("-m", "--model", type=str, default=dflt["model"], choices=MODELS)
     p.add_argument("-ft", "--fault_tolerance", type=str2bool,
                    default=dflt["fault_tolerance"])

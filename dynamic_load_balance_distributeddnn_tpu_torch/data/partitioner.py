@@ -66,6 +66,14 @@ class EpochPlan:
     num_steps: int
     global_batch: int
 
+    def is_uniform(self) -> bool:
+        """Every worker at the same batch, padded width and step count: the
+        fused path's precondition."""
+        bs = {w.batch_size for w in self.workers}
+        pd = {w.padded_batch for w in self.workers}
+        st = {w.steps for w in self.workers}
+        return len(bs) == 1 and len(pd) == 1 and len(st) == 1
+
     def epoch_indices(
         self, rank: int, s0: int = 0, s1: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray]:

@@ -66,10 +66,13 @@ def save_checkpoint(
     ckpt_dir: str, epoch: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     controller: Dict[str, Any], steps: int = 0,
     generators: Optional[Dict[str, torch.Generator]] = None,
+    momentum: Optional[Dict[str, torch.Tensor]] = None,
 ) -> str:
     """Save epoch ``epoch``'s state and sidecar; returns the directory.
     ``controller``: the JSON-safe controller state (numpy vectors become
-    lists, scalars floats, as the JAX package writes them)."""
+    lists, scalars floats, as the JAX package writes them). ``momentum``:
+    the momentum buffers by parameter name where the optimizer does not
+    hold them (``--shard_update``'s chunk, ``train/combine.py``)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     clean = {
         k: (np.asarray(v).tolist() if not np.isscalar(v) else float(v))
@@ -83,8 +86,8 @@ def save_checkpoint(
         "epoch": int(epoch),
         "steps": int(steps),
         "params": {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()},
-        "momentum": {n: b.detach().to("cpu", copy=True)
-                     for n, b in _named_momentum(model, optimizer)},
+        "momentum": {n: b.detach().to("cpu", copy=True) for n, b in (
+            momentum.items() if momentum is not None else _named_momentum(model, optimizer))},
         "generators": {k: g.get_state() for k, g in (generators or {}).items()},
     }
     final = os.path.join(ckpt_dir, str(epoch))

@@ -1,8 +1,8 @@
-"""The training engine: the DBS feedback loop on one card.
+"""The training engine: the DBS feedback loop, on one card or across ranks.
 
 The JAX package's ``Trainer`` (``train/engine.py``), lean: one controller
-drives every logical worker, all on one device (the analogue of the
-reference's ``-gpu 0,0,0,0`` contention recipe).
+drives every logical worker of its process, all on the process's one device
+(the analogue of the reference's ``-gpu 0,0,0,0`` contention recipe).
 
     for epoch:
         adjust LR (one-cycle)                     _plan_epoch
@@ -104,6 +104,19 @@ The first elastic or packed epoch counts one eager step's FLOPs
 (``obs/flops.py`` ``step_flops``) outside its wall; every epoch then records
 ``flops_per_epoch`` and, on a card with a known peak, ``mfu_bf16_peak``.
 
+Ranks (``--coordinator``/``--num_processes``/``--process_id``, one process
+a device, ``parallel/mesh.py``): each process owns ``world_size / n_proc``
+contiguous workers (``_setup_topology``) and replicates the plan and the
+solver; the time vectors are gathered in rank order (``exchange_times``) and
+the probe decision is the ranks' OR. Elastic epochs run in the JAX
+package's window mode (``_run_rank_windows``): each step, the rank's
+workers' forward/backward into ``.grad`` (a step graph's replay), then the
+combine across ranks and the update, eagerly (``train/combine.py``). With
+one worker a device the fused paths run (``_train_epoch_fused``: ``-dbs
+false``, or ``--fused_dbs`` at the capacity width, with ``--grad_accum``,
+``--compress_grads int8`` and ``--shard_update``). Validation is split by
+chunks over the ranks (``_validate_sharded``); process 0 writes the series.
+
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
 ``_setup_model``, ``_build_plan``, ``_worker_epoch`` and ``validate``.
@@ -169,6 +182,17 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.augment import (
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.faultload import SyntheticLoad
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import softmax_xent
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.losses import example_weights
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import (
+    allgather_host,
+    axis_size,
+    data_mesh,
+    process_count,
+    process_index,
+)
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.prng import fold_in, prng_key
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.topology import WorkerTopology
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.wire import wire_payload_bytes
+from dynamic_load_balance_distributeddnn_tpu_torch.train.combine import RankCombine
 from dynamic_load_balance_distributeddnn_tpu_torch.train.checkpoint import (
     flush_checkpoints,
     restore_checkpoint,
@@ -181,8 +205,10 @@ from dynamic_load_balance_distributeddnn_tpu_torch.train.state import (
     set_learning_rate,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import (
+    accumulate_grads,
     combine_probe,
     elastic_step,
+    fused_grads,
     packed_step,
     prepare_step_state,
     probe_grads,
@@ -190,6 +216,8 @@ from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import (
 from dynamic_load_balance_distributeddnn_tpu_torch.train.supersteps import StepGraphs
 
 _EVAL_CHUNK = 1024
+_RANK_SEED_STRIDE = 15485863  # a rank's generator seeds: the seed plus its multiple
+_COMBINE_KEY = 0x5D1E  # the elastic combine's key root (JAX steps.py _sharded_combine_body)
 
 
 def resolve_device(device) -> torch.device:
@@ -226,7 +254,7 @@ class Trainer:
     ):
         """``timing_model``: optional callable(plan) -> per-worker seconds,
         replacing the wall-clock probes with a deterministic model (tests)."""
-        self.device = resolve_device(device)
+        self._setup_topology(cfg, device)
         if self.device.type == "cuda" and not cfg.use_pallas:
             raise ValueError(
                 "--use_pallas false: on the card this port always runs its "
@@ -237,7 +265,7 @@ class Trainer:
         # weights under --precision bfloat16 (train/steps.py cast_compute)
         self.compute_dtype = torch.bfloat16 if cfg.precision == "bfloat16" else None
         self.timing_model = timing_model
-        self.logger = logger or init_logger(cfg, to_file=log_to_file)
+        self.logger = logger or init_logger(cfg, rank=self.proc_id, to_file=log_to_file)
         self.world_size = cfg.world_size
         # graftscope: the engine owns the process-wide tracer's config, set
         # unconditionally so a trace="off" run never inherits an earlier
@@ -269,6 +297,13 @@ class Trainer:
         )
         self.recorder.meta["wall_excludes_probes"] = True
         self.recorder.meta["device"] = str(self.device)
+        self.recorder.meta["ranks"] = self.mesh.describe()
+        if self.n_proc > 1:
+            self.logger.info(
+                f"rank {self.proc_id} of {self.n_proc}: workers {self.rank_lo}.."
+                f"{self.rank_lo + self.ws_local - 1} on {self.device}, collectives on "
+                f"{self.mesh.backend}" + (" (staged through pinned host memory)"
+                                          if self.mesh.staged else ""))
         if self.device.type == "cuda":
             self.recorder.meta["device_name"] = torch.cuda.get_device_name(self.device)
         if cfg.straggler:
@@ -315,8 +350,79 @@ class Trainer:
         self.obs = MetricsRegistry(recorder=self.recorder, tracer=self._trace)
         self.obs.attach(host_meter=self._host_meter)
         self._can_use_packed(None)  # --packed on fails here where it cannot engage
+        # the combine across ranks (train/combine.py): made here when the
+        # run has several ranks, else on the first fused epoch
+        self._rank_combine: Optional[RankCombine] = None
+        self._probes_ran = False  # a replicated flag: every rank probes epoch 0
+        self._fused_sync_per_step: Optional[float] = None
+        if self.n_proc > 1:
+            self._make_rank_combine()
 
     # -------------------------------------------------------------- set-up
+
+    def _setup_topology(self, cfg: Config, device) -> None:
+        """The JAX package's multi-process topology, one device a process:
+        each process owns ``world_size / n_proc`` contiguous workers
+        (``rank_lo`` on), placed by the ``-gpu`` map's slice on its one
+        local device; the map must be symmetric (every process on the same
+        local ordinal), and the data axis (``parallel/mesh.py``) spans the
+        processes. The plan and the solver stay replicated: every rank
+        solves the same vector."""
+        self.n_proc = process_count()
+        self.proc_id = process_index()
+        if (cfg.num_processes > 0 or self.n_proc > 1) and cfg.num_processes != self.n_proc:
+            # the config's refusals across processes read --num_processes
+            raise ValueError(
+                f"--num_processes {cfg.num_processes} but the process group holds {self.n_proc}"
+            )
+        if cfg.world_size % self.n_proc != 0:
+            raise ValueError(
+                f"world_size {cfg.world_size} must divide evenly across {self.n_proc} processes"
+            )
+        self.ws_local = cfg.world_size // self.n_proc
+        self.rank_lo = self.proc_id * self.ws_local
+        dev = torch.device(device)
+        n_local = torch.cuda.device_count() if dev.type == "cuda" and torch.cuda.is_available() else 1
+        ids_global = cfg.worker_device_ids(max(n_local, 1))
+        ids_local = ids_global[self.rank_lo:self.rank_lo + self.ws_local]
+        used = sorted(set(ids_local))
+        if len(used) != 1:
+            raise NotImplementedError(
+                f"-gpu {cfg.device}: this process's workers name devices {used}; a process "
+                "of this port owns one device (launch one process a device with "
+                "--coordinator/--num_processes/--process_id)"
+            )
+        for p in range(self.n_proc):
+            slice_p = ids_global[p * self.ws_local:(p + 1) * self.ws_local]
+            if sorted(set(slice_p)) != used:
+                raise ValueError(
+                    "multi-host topology must be symmetric: every process must map its "
+                    f"workers onto the same local device ordinals (process 0 uses {used}, "
+                    f"process {p} would use {sorted(set(slice_p))}); adjust the device map"
+                )
+        if dev.type == "cuda" and dev.index is None and cfg.device is not None:
+            dev = torch.device("cuda", used[0])
+        self.device = resolve_device(dev)
+        self.topology = WorkerTopology.build(self.ws_local, [self.device], [0] * self.ws_local)
+        self.mesh = data_mesh(self.device)
+        self.n_dev = axis_size(self.mesh)  # the data axis's devices, one a rank
+        # each local worker's loss sum of the step (a step graph writes it)
+        self._worker_loss = torch.zeros(self.ws_local, device=self.device)
+
+    def _make_rank_combine(self) -> RankCombine:
+        """The combine across ranks (``train/combine.py``): ``.grad`` moved
+        into its flat buffer and, under ``--shard_update``, the momentum
+        into this rank's chunk. Any captured step graph is dropped (it
+        wrote the old ``.grad``)."""
+        if self._rank_combine is None:
+            cfg = self.cfg
+            self._rank_combine = RankCombine(self.mesh, self.model, self.optimizer, cfg.momentum,
+                                             shard_update=cfg.shard_update,
+                                             compress=cfg.compress_grads)
+            if self.supersteps.superstep_cache_size():
+                self.supersteps.clear()
+            self.recorder.meta["combine"] = self._rank_combine.describe()
+        return self._rank_combine
 
     def _setup_data(self, bundle: Optional[DatasetBundle]) -> None:
         cfg = self.cfg
@@ -353,9 +459,16 @@ class Trainer:
         self.augment = cfg.dataset in ("cifar10", "cifar100")
         self.aug_gen = torch.Generator(device=self.device)
 
+    def _rank_seed(self, seed: int) -> int:
+        """A generator seed of this rank: ``seed`` itself on rank 0 (so a
+        one-process run keeps its draws), offset on the others so that two
+        ranks do not draw the same masks and crops."""
+        return seed + _RANK_SEED_STRIDE * self.proc_id
+
     def _use_seeded_dropout(self) -> None:
         """Point every dropout of the model at the trainer's generator."""
-        self.dropout_gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        self.dropout_gen = torch.Generator(device=self.device).manual_seed(
+            self._rank_seed(self.cfg.seed))
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_gen
@@ -388,13 +501,21 @@ class Trainer:
 
     def _elastic_mode(self) -> str:
         """How the training steps execute (``--superstep``), with the JAX
-        package's names: ``"scan"`` (``auto``/``on``: every worker shares
-        one device, so a window's steps run without the host between them,
-        here as step graphs replayed by ``StepGraphs``) or ``"step"``
-        (``off``: the eager per-step loop, the parity and host-overhead
-        reference). The JAX package's ``"window"`` mode needs workers on
-        several devices, which this port refuses (``config.py``)."""
-        return "step" if self.cfg.superstep == "off" else "scan"
+        package's names: ``"scan"`` (``auto``/``on``, one process whose
+        workers share its device: a window's steps run without the host
+        between them, here as step graphs replayed by ``StepGraphs``),
+        ``"window"`` (several ranks, or ZeRO-1 on the quantized wire: each
+        step's combine is a collective the next step's gradients depend on,
+        so every step runs its rank's forward/backward, replayed from a step
+        graph, then the collective and the update eagerly,
+        ``_run_rank_windows``) or ``"step"`` (``off``: the eager per-step
+        loop, the parity and host-overhead reference)."""
+        if self.cfg.superstep == "off":
+            return "step"
+        if (self.topology.single_group and self.n_proc == 1
+                and not (self.cfg.shard_update and self.cfg.compress_grads)):
+            return "scan"
+        return "window"
 
     # ------------------------------------------------------------------ run
 
@@ -423,7 +544,8 @@ class Trainer:
                 self._stop_profiler(prof)
             if cfg.ckpt_dir:
                 flush_checkpoints(cfg.ckpt_dir)
-        self.recorder.save(cfg.stat_dir, cfg.base_filename())
+        if self.proc_id == 0:  # one artifact a run, as the reference's rank 0 writes
+            self.recorder.save(cfg.stat_dir, cfg.base_filename())
         self.save_trace()
         self.logger.info(
             f"Total wallclock: {self.total_wallclock:.3f}s"
@@ -479,9 +601,9 @@ class Trainer:
         from dynamic_load_balance_distributeddnn_tpu_torch.obs.spool import SpoolWriter
 
         cfg = self.cfg
-        path = os.path.join(cfg.trace_spool, f"proc0.{os.getpid()}.spool")
+        path = os.path.join(cfg.trace_spool, f"proc{self.proc_id}.{os.getpid()}.spool")
         self._spool_writer = SpoolWriter(
-            path, ident=0, flush_interval_s=cfg.trace_spool_flush_s, fsync=cfg.trace_spool_fsync
+            path, ident=self.proc_id, flush_interval_s=cfg.trace_spool_flush_s, fsync=cfg.trace_spool_fsync
         )
         self._trace.attach_spool(self._spool_writer)
         self.logger.info(
@@ -513,7 +635,8 @@ class Trainer:
         if not self._trace.enabled:
             return None
         self.close_spool()
-        path = os.path.join(self.cfg.trace_dir, self.cfg.base_filename().format(0) + ".trace.json")
+        path = os.path.join(self.cfg.trace_dir,
+                            self.cfg.base_filename().format(self.proc_id) + ".trace.json")
         self._trace.save(path)
         self.logger.info(
             f"graftscope trace saved: {path} ({self._trace.event_count()} events; "
@@ -573,6 +696,10 @@ class Trainer:
                 },
                 steps=self.steps_done,
                 generators=self._generators(),
+                # ZeRO-1 keeps the momentum in its chunk, not the optimizer
+                momentum=(rc.momentum_by_name()
+                          if (rc := self._rank_combine) is not None and rc.shard_update
+                          else None),
             )
         self.recorder.meta.setdefault("checkpoint", {}).setdefault("save_s", []).append(
             time.perf_counter() - t0)
@@ -739,13 +866,22 @@ class Trainer:
             return False
         if cfg.probe_mode == "always" or epoch < 2:
             return True
-        if not np.isfinite(self.per_example_cost).all():
-            return True
-        if self._needs_iter_cost and self._iter_cost_s is None:
-            return True
-        if self._episode_changed(plan, faults):
-            return True  # the injection episode changed: re-anchor on reality
-        return epoch >= self._next_probe_epoch
+        lo, hi = self.rank_lo, self.rank_lo + self.ws_local
+        if not np.isfinite(self.per_example_cost[lo:hi]).all():
+            want = True
+        elif self._needs_iter_cost and self._iter_cost_s is None:
+            want = True
+        elif self._episode_changed(plan, faults):
+            want = True  # the injection episode changed: re-anchor on reality
+        else:
+            want = epoch >= self._next_probe_epoch
+        if self.n_proc > 1:
+            # the probes end in a collective, so every rank must probe the
+            # same epochs: the local terms (the wall trigger, the iteration
+            # cost) may differ, so OR the ranks' votes
+            votes = exchange_times(np.array([1.0 if want else 0.0]))
+            want = bool(np.any(np.asarray(votes) > 0.5))
+        return want
 
     def _model_compute_times(self, plan, faults: EpochFaults) -> None:
         """A probe-free epoch: each worker's modeled compute, the anchored
@@ -834,7 +970,9 @@ class Trainer:
         if cfg.packed == "off":
             return False
         ok = (
-            self.bundle is not None
+            self.n_dev == 1
+            and self.n_proc == 1
+            and self.bundle is not None
             and cfg.grad_clip == 0
             and not cfg.compress_grads
             and cfg.grad_accum <= 1
@@ -852,24 +990,72 @@ class Trainer:
             )
         return ok and fits
 
+    def _can_use_fused(self, plan) -> bool:
+        """The fused path (the JAX ``_can_use_fused``): the balancer off, a
+        uniform plan, one worker a device and a device a worker, no timing
+        model and no compute-mode injection (which needs per-worker
+        probes)."""
+        return (
+            not self.cfg.dynamic_batch_size
+            and self.bundle is not None  # the language model's fused path is not ported
+            and plan.is_uniform()
+            and self.topology.one_worker_per_device
+            and self.n_dev == self.world_size
+            and self.timing_model is None
+            and not self._needs_iter_cost
+        )
+
+    def _can_use_fused_dbs(self, plan) -> bool:
+        """The fused-DBS path (``--fused_dbs``): every worker padded to the
+        capacity width ``_cap_b``, one worker a device."""
+        return (
+            self.cfg.fused_dbs
+            and self.bundle is not None
+            and self.cfg.dynamic_batch_size
+            and self.topology.one_worker_per_device
+            and self.n_dev == self.world_size
+        )
+
+    @property
+    def _cap_b(self) -> int:
+        """The fused-DBS width a worker: the largest bucketed batch the
+        balancer can assign (``max_share`` of the global batch)."""
+        cfg = self.cfg
+        max_share = min(1.0, cfg.capacity_factor / self.world_size)
+        return -(-int(np.ceil(max_share * cfg.batch_size)) // cfg.bucket) * cfg.bucket
+
     def _dispatch_epoch(self, plan, faults: EpochFaults, epoch: int) -> Dict[str, float]:
-        """Path selection and the epoch's training (probes included)."""
-        packed = self._can_use_packed(plan)
-        if packed and self.cfg.rebalance == "window" and not self._window_rebalance_logged:
+        """Path selection (the JAX order: fused, fused-DBS, packed, elastic)
+        and the epoch's training (probes included)."""
+        cfg = self.cfg
+        fused, fused_dbs = self._can_use_fused(plan), self._can_use_fused_dbs(plan)
+        if (cfg.grad_accum > 1 or (cfg.compress_grads and not cfg.shard_update)) and not (
+                fused or fused_dbs):
+            raise RuntimeError(
+                "grad_accum/compress_grads require a fused path (one worker per device); "
+                "this plan fell back to the elastic path"
+            )
+        packed = not (fused or fused_dbs) and self._can_use_packed(plan)
+        if (fused or fused_dbs or packed) and cfg.rebalance == "window" \
+                and not self._window_rebalance_logged:
             self._window_rebalance_logged = True
             self.logger.warning(
                 "rebalance=window needs the elastic path but this run selected "
                 "packed epochs — running at epoch cadence (pass --packed off to "
                 "force the elastic path)"
             )
-        self.recorder.meta.setdefault("paths", []).append("packed" if packed else "elastic")
+        path = ("fused" if fused else "fused_dbs" if fused_dbs else "packed" if packed
+                else "elastic")
+        self.recorder.meta.setdefault("paths", []).append(path)
         self._packed_epoch = packed
         before = self.supersteps.stats()
-        if packed:
+        if fused or fused_dbs:
+            out = self._train_epoch_fused(plan, faults, epoch, dbs_probe=fused_dbs)
+        elif packed:
             out = self._train_epoch_packed(plan, faults, epoch)
         else:
             out = self._train_epoch_elastic(plan, faults, epoch)
-        self._record_supersteps(epoch, plan, faults, "packed" if packed else "elastic", before)
+        self._record_supersteps(epoch, plan, faults, path, before)
         return out
 
     def _record_supersteps(self, epoch: int, plan, faults: EpochFaults, path: str,
@@ -882,7 +1068,12 @@ class Trainer:
         in ``_meta["supersteps"]``; warns, as the JAX package does, if the
         prepared variants exceed the keys dispatched."""
         now = self.supersteps.stats()
-        windows = 1 if path == "packed" else len(self._elastic_ranges(plan.num_steps))
+        if path == "packed":
+            windows = 1
+        elif path == "elastic":
+            windows = len(self._elastic_ranges(plan.num_steps))
+        else:  # the fused paths: stream_chunk_steps windows
+            windows = len(self._chunk_ranges(plan.num_steps))
         rec = {"epoch": int(epoch), "path": path, "mode": self._elastic_mode(),
                "steps": int(plan.num_steps), "windows": windows,
                "batch_sizes": [int(b) for b in plan.batch_sizes],
@@ -1003,17 +1194,19 @@ class Trainer:
             x = normalize_images(x_u8, mean, std)
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
+    def _chunk_ranges(self, num_steps: int):
+        """``stream_chunk_steps``-sized windows (0: one window)."""
+        chunk = self.cfg.stream_chunk_steps
+        if chunk <= 0 or num_steps <= chunk:
+            return [(0, num_steps)]
+        return [(s, min(s + chunk, num_steps)) for s in range(0, num_steps, chunk)]
+
     def _elastic_ranges(self, num_steps: int):
         """The elastic epoch's windows, the ones the JAX package cuts on one
         device: ``stream_chunk_steps``-sized chunks (0: one), each cut at
-        ``superstep_window`` steps by its superstep mode (every worker on
-        one chip, ``--superstep`` not ``off``)."""
-        chunk = self.cfg.stream_chunk_steps
-        if chunk <= 0 or num_steps <= chunk:
-            ranges = [(0, num_steps)]
-        else:
-            ranges = [(s, min(s + chunk, num_steps)) for s in range(0, num_steps, chunk)]
-        if self.cfg.superstep == "off":
+        ``superstep_window`` steps in scan mode (``_elastic_mode``)."""
+        ranges = self._chunk_ranges(num_steps)
+        if self._elastic_mode() != "scan":
             return ranges
         win = int(self.cfg.superstep_window)  # >= 1, config.py checks it
         return [(s, min(s + win, s1)) for s0, s1 in ranges for s in range(s0, s1, win)]
@@ -1032,13 +1225,20 @@ class Trainer:
     def _aug_seed(self, epoch: int, step: int) -> int:
         """The augmentation seed of the window starting at epoch step
         ``step``: the epoch's seed (the packed path's) for the first."""
-        return self.cfg.seed * 7919 + epoch + 104729 * step
+        return self._rank_seed(self.cfg.seed * 7919 + epoch + 104729 * step)
 
     def _train_epoch_elastic(self, plan, faults: EpochFaults, epoch: int) -> Dict[str, float]:
         self.timekeeper.reset()
         self.model.train()
         meter = self._host_meter
         meter.reset()
+        if self.n_proc > 1 or self._elastic_mode() == "window":
+            first, loss_sum, count, rows = self._run_rank_windows(plan, faults, epoch)
+            out = self._finish_epoch(plan, faults, epoch, loss_sum, count, lambda: first, rows)
+            out["host_dispatch_s"] = meter.dispatch_s
+            out["host_put_s"] = meter.put_s
+            out["host_overhead_per_step_s"] = meter.per_step(plan.num_steps)
+            return out
         acc = {"loss": torch.zeros((), device=self.device), "count": 0}
         # the whole epoch under the boundary plan, until the controller
         # appends a remainder segment at a switch
@@ -1133,6 +1333,112 @@ class Trainer:
             acc["loss"].copy_(self.supersteps.loss)
         return first
 
+    # ------------------------------------------------------- ranks (window)
+
+    def _local_workers(self) -> range:
+        return range(self.rank_lo, self.rank_lo + self.ws_local)
+
+    def _rank_step_graphs(self, path: str, batches, counts, body, warm) -> None:
+        """A rank's forward/backward of one step: replayed from its step
+        graph unless ``--superstep off`` (eager); the update stays outside
+        (a collective sits between them). The key holds no learning rate:
+        the captured part has no update."""
+        if self.cfg.superstep == "off":
+            body(batches, [int(n) for n in counts])
+            return
+        counts = [0 if b is None else int(n) for b, n in zip(batches, counts)]
+        key = self._step_key(path, batches, counts)[:-1] + (self.cfg.grad_accum,)
+        self._superstep_keys.add(key)
+        self.supersteps.run(key, batches, counts, body, warm)
+
+    def _rank_body(self):
+        """The rank's elastic forward/backward (``accumulate_grads``), each
+        local worker's loss sum into ``_worker_loss``."""
+        slot = self._worker_loss
+
+        def body(batches, slow):
+            accumulate_grads(self.model, self.optimizer, batches, self.grad_clip, self.load, slow,
+                             self.compute_dtype, losses=slot)
+
+        return body
+
+    def _fused_body(self):
+        """The rank's fused forward/backward (``fused_grads``: its
+        ``--grad_accum`` micro-batches), its loss sum into ``_worker_loss``."""
+        slot = self._worker_loss
+
+        def body(batches, slow):
+            slot[0].copy_(fused_grads(self.model, self.optimizer, batches[0], self.cfg.grad_accum,
+                                      self.grad_clip, self.load, slow[0], self.compute_dtype))
+
+        return body
+
+    def _combine_step(self, key) -> None:
+        """The step's combine across ranks and the update
+        (``RankCombine.step``), then the step counter."""
+        with self._trace.span("combine", cat="comm"):
+            self._rank_combine.step(learning_rate(self.optimizer), key)
+        self.steps_done += 1
+
+    def _run_rank_windows(self, plan, faults: EpochFaults, epoch: int):
+        """The elastic epoch across ranks (the JAX package's window mode):
+        each step, this rank's workers run forward/backward into ``.grad``
+        (``_rank_step_graphs``), then the combine sums ``.grad`` over the
+        ranks and updates (``_combine_step``, key ``fold_in(fold_in(
+        PRNGKey(0x5D1E), rank), step)``). Returns the first step's batches
+        (the probes', ``None`` for other ranks' workers), the epoch's loss
+        sum and real rows over every rank (``_gather_losses``) and this
+        rank's rows."""
+        self._make_rank_combine()
+        meter = self._host_meter
+        local = list(self._local_workers())
+        slow = [int(faults.slow_iters_per_step[r]) for r in local]
+        suppliers = [self._worker_epoch(plan, r) for r in local]
+        table = torch.zeros((plan.num_steps, self.ws_local), device=self.device)
+        body, warm = self._rank_body(), self._warmup(self.grad_clip)
+        root = fold_in(prng_key(_COMBINE_KEY), self.mesh.rank)
+        count = rows = 0
+        first = None
+        for w0, w1 in self._elastic_ranges(plan.num_steps):
+            if self.augment:
+                self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
+            with self._trace.span("dispatch_window", cat="dispatch"):
+                for s in range(w0, w1):
+                    batches = []
+                    for supply in suppliers:
+                        b, n = supply(s)
+                        batches.append(b)
+                        count += n
+                        rows += 0 if b is None else int(b[0].shape[0])
+                    with meter.dispatch():
+                        self._rank_step_graphs("elastic", batches, slow, body, warm)
+                        table[s].copy_(self._worker_loss)
+                    self._combine_step(fold_in(root, self.steps_done))
+                    if first is None:
+                        first = [None] * self.world_size
+                        for r, b in zip(local, batches):
+                            first[r] = b
+        loss_sum, count = self._gather_losses(table, count)
+        return first, loss_sum, count, rows
+
+    def _gather_losses(self, table: torch.Tensor, count: int):
+        """The epoch's loss sum and real-row count over every rank. Each
+        rank's ``[steps, ws_local]`` table of its workers' step sums is
+        gathered, and the sums are added in the one-process order (each
+        step's workers in order, then the steps, in f32), so an epoch
+        whose steps draw nothing reads the one-process loss bit for bit."""
+        tab = table.detach().to("cpu", torch.float64).numpy()
+        got = allgather_host(np.concatenate([tab.reshape(-1), [float(count)]]))
+        per = got.reshape(self.n_proc, -1)
+        full = np.concatenate([p[:-1].reshape(tab.shape) for p in per], axis=1).astype(np.float32)
+        acc = np.float32(0.0)
+        for row in full:
+            t = np.float32(0.0)
+            for v in row:
+                t = np.float32(t + v)
+            acc = np.float32(acc + t)
+        return float(acc), int(per[:, -1].sum())
+
     def _replay_window_segment(self, base_plan, rplan, s_offset: int, epoch: int,
                                faults: EpochFaults, acc=None):
         """Run only the remainder segment ``rplan`` of an epoch, from step
@@ -1151,11 +1457,36 @@ class Trainer:
 
     # ------------------------------------------------- window-cadence control
 
+    def _comm_bytes_per_step(self) -> "tuple[float, float]":
+        """Bytes one combine moves a device (the JAX package's flat
+        formula, the port's element size): the gradient at 4 bytes an
+        element, or ``--compress_grads int8``'s wire
+        (``parallel/wire.py`` ``wire_payload_bytes``); counted "across
+        hosts" only when the ranks span hosts (the port's processes are
+        devices, not hosts)."""
+        cfg = self.cfg
+        per_elem = wire_payload_bytes("int8", self.n_dev) if cfg.compress_grads == "int8" else 4
+        b = float(self._param_elems * per_elem)
+        return b, (b if self.mesh.cross_host else 0.0)
+
+    def _record_collective(self, epoch: int) -> None:
+        """The epoch's combine walls (``RankCombine.collective_s``) in
+        ``_meta["collective"]``: steps, total, mean and max seconds."""
+        rc = self._rank_combine
+        if rc is None or not rc.collective_s:
+            return
+        walls = rc.collective_s
+        self.recorder.meta.setdefault("collective", []).append({
+            "epoch": int(epoch), "steps": len(walls), "total_s": float(sum(walls)),
+            "mean_s": float(sum(walls) / len(walls)), "max_s": float(max(walls)),
+        })
+        rc.collective_s = []
+
     def _modeled_comm_step_s(self) -> float:
         """The modeled wall of one gradient combine, which the JAX package
         derives from a hierarchical collective's measured link rates. This
-        port runs one process with a flat combine on one card, so it is 0.0:
-        the compute-only model (ROADMAP: multiple ranks)."""
+        port's combine is flat (``--grad_comm hier`` is refused), so it is
+        0.0, the JAX package's compute-only model."""
         return 0.0
 
     def _window_controller(self) -> Optional[OnlineRebalanceController]:
@@ -1375,6 +1706,114 @@ class Trainer:
         out["host_dispatch_s"] = meter.dispatch_s
         return out
 
+    def _train_epoch_fused(self, plan, faults: EpochFaults, epoch: int,
+                           dbs_probe: bool = False) -> Dict[str, float]:
+        """The fused path (the JAX ``_train_epoch_fused``, its non-packed
+        branches): this rank's one worker runs every step at one width, its
+        bucketed batch (``dbs_probe``: the fused-DBS capacity ``_cap_b``,
+        zero-weight rows past the real ones, so one step graph serves every
+        plan), in ``--grad_accum`` micro-batches (``fused_grads``), then the
+        combine (key ``fold_in(fold_in(fold_in(PRNGKey(0), seed * 31 +
+        epoch), rank), step)``, folded with ``0x7FFF`` for ZeRO-1). The
+        collective's cost is probed once (``_probe_fused_sync``); under
+        ``dbs_probe`` the balancer's per-worker signal comes from the same
+        probes as the elastic path's, at the true widths."""
+        cfg = self.cfg
+        self.timekeeper.reset()
+        self.model.train()
+        self._make_rank_combine()
+        meter = self._host_meter
+        meter.reset()
+        r = self.rank_lo  # one worker a device
+        idx, w, n_real = self._worker_rows(plan, r)
+        width = self._cap_b if dbs_probe else idx.shape[1]
+        if width > idx.shape[1]:
+            pad = ((0, 0), (0, width - idx.shape[1]))
+            idx, w = np.pad(idx, pad), np.pad(w, pad)
+        idx_t = torch.from_numpy(idx).to(self.device)
+        w_t = torch.from_numpy(w).to(self.device)
+        slow = [int(faults.slow_iters_per_step[r])]
+        table = torch.zeros((plan.num_steps, 1), device=self.device)
+        body, warm = self._fused_body(), self._warmup(self.grad_clip)
+        root = fold_in(fold_in(prng_key(0), cfg.seed * 31 + epoch), self.mesh.rank)
+
+        def batch(s: int):
+            return self._prep(self.train_x[idx_t[s]]), self.train_y[idx_t[s]], w_t[s]
+
+        first_padded = None
+        for w0, w1 in self._chunk_ranges(plan.num_steps):
+            if self.augment:
+                self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
+            with self._trace.span("dispatch_window", cat="dispatch"):
+                for s in range(w0, w1):
+                    b = batch(s)
+                    first_padded = first_padded or b
+                    with meter.dispatch():
+                        self._rank_step_graphs("fused", [b], slow, body, warm)
+                        table[s].copy_(self._worker_loss)
+                    rng = fold_in(root, self.steps_done)
+                    self._combine_step(fold_in(rng, 0x7FFF) if cfg.shard_update else rng)
+        loss_sum, count = self._gather_losses(table, int(sum(n_real)))
+        probe_overhead = 0.0
+        if self._fused_sync_per_step is None:
+            t0 = time.perf_counter()
+            with self._trace.span("sync_probe", cat="probe"):
+                self._fused_sync_per_step = self._probe_fused_sync(first_padded, slow[0])
+            probe_overhead = time.perf_counter() - t0
+
+        def first():
+            out = [None] * self.world_size
+            out[r] = self._worker_epoch(plan, r)(0)[0]
+            return out
+
+        out = self._finish_epoch(plan, faults, epoch, loss_sum, count, first,
+                                 plan.num_steps * width)
+        out["sync_time"] = self._fused_sync_per_step * plan.num_steps
+        out["probe_overhead"] += probe_overhead
+        out["host_dispatch_s"] = meter.dispatch_s
+        return out
+
+    def _probe_fused_sync(self, batch, slow: int, reps: int = 3) -> float:
+        """The fused step's collective cost: one full step's twin (the
+        step's forward/backward, replayed from its graph into ``.grad``,
+        then the collectives and the update into new tensors) against its
+        comm-free twin; if the difference drowns in timer noise, the
+        standalone collective of a gradient-sized buffer. Every rank runs
+        all three, so the collectives match across ranks. The parameters
+        and the momentum are not written; ``.grad`` is the step's scratch,
+        zeroed by the next step."""
+        rc = self._rank_combine
+        lr = learning_rate(self.optimizer)
+        body, warm = self._fused_body(), self._warmup(self.grad_clip)
+
+        def step(with_comm: bool):
+            self._rank_step_graphs("fused", [batch], [slow], body, warm)
+            rc.probe(rc.grads.flat, lr, with_comm)
+
+        def timed(fn) -> float:
+            fn()  # warm
+            best = float("inf")
+            for _ in range(reps):
+                self._sync()
+                t0 = time.perf_counter()
+                fn()
+                self._sync()
+                best = min(best, time.perf_counter() - t0)
+            return best
+
+        t_full = timed(lambda: step(True))
+        t_local = timed(lambda: step(False))
+        t_psum = timed(rc.probe_psum)
+        self._release_cache()
+        delta = t_full - t_local
+        return float(delta) if delta > 0.0 else float(t_psum)
+
+    def _release_cache(self) -> None:
+        """Ranks that share a card: hand the probes' cached blocks back to
+        the card, where the other rank's allocator can take them."""
+        if self.device.type == "cuda" and self.n_proc > 1:
+            torch.cuda.empty_cache()
+
     def _finish_epoch(self, plan, faults: EpochFaults, epoch: int, loss_sum, count: int,
                       first_batches, rows: int) -> Dict[str, float]:
         """The balancer's signal after the epoch's steps: the probes when
@@ -1395,7 +1834,9 @@ class Trainer:
             batches = first_batches()
             with self._trace.span("probe", cat="probe"):
                 self._sync_per_step = self._probe_workers(plan, batches, faults, epoch)
+            self._release_cache()
             dbs_probe_cost = time.perf_counter() - t0
+            self._probes_ran = True
         if self.timing_model is not None:
             modeled = np.asarray(self.timing_model(plan), dtype=np.float64)
             for r in range(self.world_size):
@@ -1484,7 +1925,7 @@ class Trainer:
                 dt = min(dt, time.perf_counter() - t0)
             return max(dt - ovh, 0.2 * dt), dt, g
 
-        init_epoch = bool(np.isnan(self.per_example_cost).any())
+        init_epoch = bool(np.isnan(self.per_example_cost[self.rank_lo:self.rank_lo + self.ws_local]).any())
         grads, per_example = [], [0.0] * self.world_size
         for r, b in enumerate(batches):
             if b is None:
@@ -1516,6 +1957,8 @@ class Trainer:
         if self._needs_iter_cost and not self._iter_cost_calibrated and max(slow) == 0:
             self._calibrate_iter_cost(plan, batches, timed)
             self._iter_cost_calibrated = True
+        if self._rank_combine is not None:
+            return self._probe_rank_combine(grads)
         # the packed path's sync probe is a span of its own, as the JAX
         # package's fused-path sync probe; the elastic one is the probe's
         span = (self._trace.span("sync_probe", cat="probe") if self._packed_epoch
@@ -1527,6 +1970,25 @@ class Trainer:
             combine_probe(self.optimizer, grads)
             self._sync()
             return time.perf_counter() - t0
+
+    def _probe_rank_combine(self, grads) -> float:
+        """The combine across ranks timed once after a warm run, on this
+        rank's probe gradients summed (zeros for a rank without a batch):
+        the twin of the step's collectives and update, nothing written."""
+        rc = self._rank_combine
+        pos = {id(p): i for i, p in enumerate(self.params)}
+        total = None
+        for g in grads:
+            total = list(g) if total is None else torch._foreach_add(total, list(g))
+        flat = (torch.zeros_like(rc.grads.flat) if total is None
+                else rc.grads.ravel([total[pos[id(p)]] for p in rc.params]))
+        lr = learning_rate(self.optimizer)
+        rc.probe(flat, lr)  # warm
+        self._sync()
+        t0 = time.perf_counter()
+        rc.probe(flat, lr)
+        self._sync()
+        return time.perf_counter() - t0
 
     def _calibrate_iter_cost(self, plan, batches, timed) -> None:
         """Fixed-point iteration for the in-step synthetic-load cost: probe
@@ -1561,6 +2023,8 @@ class Trainer:
         """Full-test-set loss and accuracy (percent), on the f32 parameters
         whatever the compute dtype (the JAX ``fused_eval_step`` never
         casts)."""
+        if self.n_proc > 1:
+            return self._validate_sharded()
         self.model.eval()
         loss_sum = torch.zeros((), device=self.device)
         correct = torch.zeros((), device=self.device, dtype=torch.int64)
@@ -1573,6 +2037,57 @@ class Trainer:
             correct += (out.argmax(dim=-1) == y).sum()
         self.model.train()
         return float(loss_sum) / max(n, 1), 100.0 * float(correct) / max(n, 1)
+
+    @torch.no_grad()
+    def _validate_sharded(self) -> "tuple[float, float]":
+        """``validate`` across ranks (the JAX ``_eval_sharded``): rank p
+        evaluates the test set's chunks p, p + n, ...; the chunks' sums are
+        gathered and added in chunk order in f32, as one process adds them,
+        so the result is the one-process evaluation's."""
+        self.model.eval()
+        n = len(self.test_y)
+        starts = list(range(0, n, _EVAL_CHUNK))
+        stats = np.zeros((len(starts), 2), dtype=np.float64)
+        for i in range(self.proc_id, len(starts), self.n_proc):
+            lo = starts[i]
+            x = normalize_images(self.test_x[lo:lo + _EVAL_CHUNK], self.bundle.mean, self.bundle.std)
+            y = self.test_y[lo:lo + _EVAL_CHUNK]
+            out = self.model(x).float()
+            stats[i] = (float(softmax_xent(out, y).sum()), int((out.argmax(dim=-1) == y).sum()))
+        self.model.train()
+        stats = allgather_host(stats).reshape(self.n_proc, len(starts), 2).sum(axis=0)
+        loss_sum = np.float32(0.0)
+        for v in stats[:, 0].astype(np.float32):
+            loss_sum = np.float32(loss_sum + v)
+        return float(loss_sum) / max(n, 1), 100.0 * float(stats[:, 1].sum()) / max(n, 1)
+
+    def rank_report(self) -> Dict[str, object]:
+        """This rank at the end of a run: the data axis, the kernels'
+        launch counts, a SHA-256 of the parameters' bytes (equal on every
+        rank when the ranks agree bit for bit), the combine's buffers, the
+        collective walls, the last epoch's series and the peak device
+        memory."""
+        import hashlib
+
+        from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+
+        h = hashlib.sha256()
+        for _, p in self.model.named_parameters():
+            h.update(p.detach().to("cpu").contiguous().numpy().tobytes())
+        data = self.recorder.data
+        return {
+            "rank": self.proc_id, "ranks": self.mesh.describe(), "device": str(self.device),
+            "workers": list(self._local_workers()), "launches": dict(runtime.LAUNCHES),
+            "param_sha256": h.hexdigest(),
+            "combine": None if self._rank_combine is None else self._rank_combine.describe(),
+            "collective": self.recorder.meta.get("collective"),
+            "paths": self.recorder.meta.get("paths"),
+            "series": {k: data.get(k) for k in ("train_loss", "val_loss", "accuracy", "partition",
+                                                "sync_time", "comm_bytes_ici", "comm_bytes_dcn",
+                                                "wallclock_time")},
+            "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
+                           if self.device.type == "cuda" else None),
+        }
 
     # --------------------------------------------------------------- record
 
@@ -1605,12 +2120,18 @@ class Trainer:
             self.timekeeper.compute_s * faults.time_multipliers
             + self.timekeeper.injected_s
         )
-        fresh = exchange_times(node_times)
+        # each process contributes its own workers' slice, gathered in rank order
+        lo, hi = self.rank_lo, self.rank_lo + self.ws_local
+        fresh = exchange_times(node_times[lo:hi])
         if cfg.time_smoothing > 0.0 and epoch > 0:
             a = cfg.time_smoothing
             self.node_times = a * self.node_times + (1.0 - a) * fresh
         else:
             self.node_times = fresh
+        if self.n_proc > 1 and self._probes_ran:
+            # a replicated gate (every rank probed epoch 0): the anchors of
+            # every worker, so the modeled epochs and the contexts agree
+            self.per_example_cost = exchange_times(self.per_example_cost[lo:hi])
         self.logger.info(
             f"Epoch {epoch}: node times {np.round(self.node_times, 4).tolist()}, "
             f"train_loss {train_metrics['loss']:.4f}, val_loss {val_loss:.4f}, "
@@ -1630,11 +2151,10 @@ class Trainer:
             extras["plan_switches"] = float(ctl.switches - self._switches_last)
             self._switches_last = ctl.switches
             self.recorder.meta["rebalance_controller"] = ctl.snapshot(include_journal=True)
-        # bytes on the wire a combine moves, the JAX package's one-device
-        # flat accounting: the f32 gradient over the in-host link, none
-        # across hosts
-        extras["comm_bytes_ici"] = float(self._param_elems * 4) * plan.num_steps
-        extras["comm_bytes_dcn"] = 0.0
+        ici_b, dcn_b = self._comm_bytes_per_step()
+        extras["comm_bytes_ici"] = ici_b * plan.num_steps
+        extras["comm_bytes_dcn"] = dcn_b * plan.num_steps
+        self._record_collective(epoch)
         for k in ("host_dispatch_s", "host_put_s", "host_overhead_per_step_s"):
             if k in train_metrics:  # the host walls (packed: dispatch only)
                 extras[k] = train_metrics[k]

@@ -169,6 +169,47 @@ def worker_grads(model, params: List[torch.Tensor], batch: Batch, grad_clip: flo
     return grads, loss_sum
 
 
+def accumulate_grads(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    batches: Sequence[Optional[Batch]],
+    grad_clip: float = 0.0,
+    load: Optional[Load] = None,
+    slow_iters: Sequence[Count] = (),
+    compute_dtype: Optional[torch.dtype] = None,
+    losses: Optional[torch.Tensor] = None,
+) -> Optional[torch.Tensor]:
+    """An elastic step's gradients: ``.grad`` zeroed, then every worker's
+    (clipped) weighted gradient added into it, worker r followed by
+    ``slow_iters[r]`` iterations of ``load``; under ``compute_dtype`` every
+    worker's forward runs on one ``cast_compute`` of the parameters. Each
+    worker's loss sum goes to ``losses[r]`` when given (0 for a worker with
+    no batch). Returns the sum of the losses of the entries with positive
+    weight, or None if no worker had data."""
+    params = prepare_step_state(optimizer)
+    grads = [p.grad for p in params]
+    torch._foreach_zero_(grads)
+    cast = cast_compute(model.named_parameters(), compute_dtype)
+    loss_sum = None
+    for r, b in enumerate(batches):
+        if b is None:
+            if losses is not None:
+                losses[r].zero_()
+            continue
+        n_slow = slow_iters[r] if len(slow_iters) else 0
+        if grad_clip > 0:
+            g, s = worker_grads(model, params, b, grad_clip, load, n_slow, compute_dtype, cast)
+            torch._foreach_add_(grads, g)
+        else:
+            wloss, s = weighted_loss(model, *b, compute_dtype, cast)
+            wloss.backward()  # adds this worker's weighted gradient into .grad
+            _inject(load, n_slow, wloss)
+        if losses is not None:
+            losses[r].copy_(s)
+        loss_sum = s if loss_sum is None else loss_sum + s
+    return loss_sum
+
+
 def elastic_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -179,28 +220,49 @@ def elastic_step(
     compute_dtype: Optional[torch.dtype] = None,
 ) -> Optional[torch.Tensor]:
     """One DBS step over every worker's batch (``None`` for a worker with no
-    real data this step), worker r followed by ``slow_iters[r]`` iterations
-    of ``load``; under ``compute_dtype`` every worker's forward runs on one
-    ``cast_compute`` of the parameters. Returns the sum of the losses of the
-    entries with positive weight, or None if no worker had data."""
+    real data this step): ``accumulate_grads``, then the update. Returns the
+    sum of the losses of the entries with positive weight, or None if no
+    worker had data."""
+    loss_sum = accumulate_grads(model, optimizer, batches, grad_clip, load, slow_iters,
+                                compute_dtype)
+    optimizer.step()
+    return loss_sum
+
+
+def fused_grads(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    batch: Batch,
+    grad_accum: int = 1,
+    grad_clip: float = 0.0,
+    load: Optional[Load] = None,
+    slow_iters: Count = 0,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The fused path's local gradient (the JAX ``_fused_shard_body`` before
+    its collective): ``.grad`` zeroed, then the batch in ``grad_accum``
+    equal micro-batches, each one's weighted gradient added into ``.grad``
+    (per-example weights make the sum the whole batch's gradient), the
+    clip on the sum, then the load seeded off the summed weighted loss.
+    Returns the loss sum of the entries with positive weight."""
     params = prepare_step_state(optimizer)
     grads = [p.grad for p in params]
     torch._foreach_zero_(grads)
-    cast = cast_compute(model.named_parameters(), compute_dtype)
-    loss_sum = None
-    for r, b in enumerate(batches):
-        if b is None:
-            continue
-        n_slow = slow_iters[r] if len(slow_iters) else 0
-        if grad_clip > 0:
-            g, s = worker_grads(model, params, b, grad_clip, load, n_slow, compute_dtype, cast)
-            torch._foreach_add_(grads, g)
-        else:
-            wloss, s = weighted_loss(model, *b, compute_dtype, cast)
-            wloss.backward()  # adds this worker's weighted gradient into .grad
-            _inject(load, n_slow, wloss)
+    x, y, w = batch
+    b = x.shape[0]
+    if b % grad_accum:
+        raise ValueError(f"per-device batch {b} must divide by grad_accum {grad_accum}")
+    m = b // grad_accum
+    wloss = loss_sum = None
+    for i in range(grad_accum):
+        sl = slice(i * m, (i + 1) * m)
+        wl, s = weighted_loss(model, x[sl], y[sl], w[sl], compute_dtype)
+        wl.backward()
+        wloss = wl.detach() if wloss is None else wloss + wl.detach()
         loss_sum = s if loss_sum is None else loss_sum + s
-    optimizer.step()
+    if grad_clip > 0:
+        clip_worker_grads(grads, w, grad_clip)
+    _inject(load, slow_iters, wloss)
     return loss_sum
 
 
@@ -237,11 +299,15 @@ def probe_grads(
 
 
 @torch.no_grad()
-def combine_probe(optimizer: torch.optim.SGD, worker_grads: Sequence[Sequence[torch.Tensor]]):
+def combine_probe(optimizer: torch.optim.SGD, worker_grads: Sequence[Sequence[torch.Tensor]],
+                  params: Optional[Sequence[torch.Tensor]] = None):
     """The combine (sum over workers) and the SGD-momentum update, computed
-    into new tensors: the parameters and momentum buffers are not written."""
+    into new tensors: the parameters and momentum buffers are not written.
+    ``params``: the parameters in the gradients' order (default: the
+    optimizer's)."""
     group = optimizer.param_groups[0]
-    params, lr, mom = group["params"], group["lr"], group["momentum"]
+    lr, mom = group["lr"], group["momentum"]
+    params = group["params"] if params is None else list(params)
     total = list(worker_grads[0])
     for g in worker_grads[1:]:
         total = torch._foreach_add(total, list(g))

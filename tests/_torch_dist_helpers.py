@@ -1,0 +1,189 @@
+"""Rank entry points of the port's multi-rank tests (``tests/test_torch_dist*.py``).
+
+This module imports only torch, numpy, the port and the rank launcher
+(``scripts/rank_launch.py``), never JAX: each rank is
+a fresh ``python -c`` child that imports it (the test modules import JAX).
+
+``launch(world, jobs, tmp)`` starts ``world`` ranks, each with one torch
+thread, that rendezvous through ``file://`` under ``tmp`` and run the same
+``jobs`` in order in one process group (a job is a dict with a ``kind``:
+``train``, ``collectives`` or ``combine``); ``scripts/rank_launch.py``
+``launch_ranks`` joins them with a timeout, kills them all when it expires
+or a rank fails, and raises with their logs, so a hang fails the test
+instead of the tier. It returns each rank's results.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from scripts.rank_launch import launch_ranks
+
+REPO = Path(__file__).resolve().parents[1]
+FACTORS = {"3,1": (3.0, 1.0), "3,1,1,1": (3.0, 1.0, 1.0, 1.0)}
+
+
+def launch(world: int, jobs: Dict[str, dict], tmp: Path, timeout: float = 300.0) -> List[dict]:
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    spec = tmp / "jobs.pt"
+    torch.save(jobs, spec)
+    init = tmp / "rendezvous"
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    code = "from tests._torch_dist_helpers import rank_main; rank_main()"
+    cmds = [[sys.executable, "-c", code, str(spec), str(r), str(world), str(init),
+             str(tmp / f"rank{r}.pt")] for r in range(world)]
+    launch_ranks(cmds, str(tmp), timeout, [env] * world, cwd=str(REPO))
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def rank_main() -> None:
+    spec, rank, world, init, out = sys.argv[1:]
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import initialize_multihost
+
+    initialize_multihost(f"file://{init}", world, rank, timeout_s=240)
+    jobs = torch.load(spec, weights_only=False)
+    results = {name: _JOBS[job["kind"]](job, rank, world) for name, job in jobs.items()}
+    torch.save(results, out)
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- jobs
+
+
+def straggler_time(factors):
+    """Deterministic compute model: time proportional to examples, with the
+    worker factors (as ``tests/test_torch_engine.py``'s)."""
+
+    def model(plan):
+        return np.array([f * w.batch_size * w.steps * 1e-3 for f, w in zip(factors, plan.workers)])
+
+    return model
+
+
+def trainer(job: dict, rank: int = 0, world: int = 1):
+    """A port ``Trainer`` on the CPU for ``job``: its ``cfg`` (this rank's
+    process flags added when ``world > 1``), the synthetic MNIST stand-in,
+    the straggler timing model ``job["timing"]`` (a ``FACTORS`` key), the
+    weights ``job["state"]`` and dropout off with ``job["no_dropout"]``."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
+    from dynamic_load_balance_distributeddnn_tpu_torch.data import synthetic_dataset
+    from dynamic_load_balance_distributeddnn_tpu_torch.models.common import Dropout
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+
+    kw = dict(job["cfg"])
+    if world > 1:
+        kw.update(num_processes=world, process_id=rank)
+    timing = job.get("timing")
+    tr = Trainer(Config(**kw),
+                 bundle=synthetic_dataset("mnist", n_train=kw["n_train"], n_test=job.get("n_test", 256)),
+                 timing_model=None if timing is None else straggler_time(FACTORS[timing]),
+                 device="cpu", log_to_file=False)
+    if job.get("state") is not None:
+        tr.model.load_state_dict(job["state"])
+    if job.get("no_dropout"):
+        for m in tr.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    return tr
+
+
+def train_outputs(tr) -> dict:
+    """What a train job returns: the series, part of ``_meta``, the
+    parameters, the momentum (the buffers by name, or the ZeRO-1 chunk) and
+    the rank report."""
+    named = dict(tr.model.named_parameters())
+    bufs = {k: tr.optimizer.state.get(p, {}).get("momentum_buffer") for k, p in named.items()}
+    rc = tr._rank_combine
+    return {
+        "data": {k: list(v) for k, v in tr.recorder.data.items()},
+        "meta": {k: tr.recorder.meta.get(k) for k in ("paths", "ranks", "combine", "collective",
+                                                      "supersteps")},
+        "params": {k: p.detach().clone() for k, p in named.items()},
+        "momentum": {k: b.clone() for k, b in bufs.items() if b is not None},
+        "chunk": None if rc is None or not rc.shard_update else rc.mom.clone(),
+        "mode": tr._elastic_mode(),
+        "report": tr.rank_report(),
+    }
+
+
+def _train(job: dict, rank: int, world: int) -> dict:
+    tr = trainer(job, rank, world)
+    tr.run()
+    return train_outputs(tr)
+
+
+def _collectives(job: dict, rank: int, world: int) -> dict:
+    """``exchange_times``, the probe vote and the compressed wire on the
+    job's inputs (``job["v"]``: one row a rank)."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.balance import exchange_times
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel import wire
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import data_mesh
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.prng import (
+        fold_in,
+        fold_in_many,
+        prng_key,
+    )
+
+    mesh = data_mesh("cpu")
+    times = exchange_times(np.array([10.0 * rank + 0.5, 10.0 * rank + 0.25]))
+    votes = [bool(np.any(exchange_times(np.array([1.0 if rank == who else 0.0])) > 0.5))
+             for who in (-1, world - 1)]
+    v = torch.from_numpy(job["v"][rank])
+    key = fold_in(prng_key(job["seed"]), rank)  # as each device folds in its index
+    total, sent = wire.compressed_reduce(v, key, mesh, world, "int8")
+    t4, s4 = wire.compressed_reduce(v, key, mesh, world, "int4")
+    scattered = wire.compressed_reduce_scatter(v, key, mesh, world, "int8")
+    sizes = job["sizes"]
+    leaves = wire.compressed_reduce_leaves(v, sizes, fold_in_many(key, [i + 0x7FFF for i in range(len(sizes))]),
+                                           mesh, world)
+    return {"times": times, "votes": votes, "total": total, "sent": sent, "total4": t4, "sent4": s4,
+            "scattered": scattered, "leaves": leaves, "backend": mesh.backend}
+
+
+def _combine(job: dict, rank: int, world: int) -> dict:
+    """One step of the port's combine (``train/combine.py``) on given
+    gradients, for each of ``job["variants"]`` (``RankCombine`` keywords,
+    ``channels_last`` to lay the convolutions' parameters out so): MnistNet
+    from zero parameters, SGD at lr 1 and momentum 0.9, this rank's
+    gradients ``job["grads"][rank]`` (a state dict) in ``.grad``, the key
+    ``fold_in(PRNGKey(job["seed"]), rank)``. The parameters after the
+    step are minus the combined gradient, exactly."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import data_mesh
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.prng import fold_in, prng_key
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.combine import RankCombine
+
+    mesh = data_mesh("cpu")
+    key = fold_in(prng_key(job["seed"]), rank)
+    out = {}
+    for name, variant in job["variants"].items():
+        kw = dict(variant)
+        model = build_model("mnistnet", num_classes=10, in_channels=1)
+        if kw.pop("channels_last", False):
+            model = model.to(memory_format=torch.channels_last)
+        named = dict(model.named_parameters())
+        with torch.no_grad():
+            for p in named.values():
+                p.zero_()
+        opt = torch.optim.SGD(model.parameters(), lr=1.0, momentum=0.9)
+        rc = RankCombine(mesh, model, opt, 0.9, **kw)
+        for k, g in job["grads"][rank].items():
+            named[k].grad.copy_(g)
+        rc.step(1.0, key)
+        out[name] = {k: p.detach().clone() for k, p in named.items()}
+    return out
+
+
+_JOBS = {"train": _train, "collectives": _collectives, "combine": _combine}

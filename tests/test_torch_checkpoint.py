@@ -341,3 +341,33 @@ def test_resumed_run_equals_the_uninterrupted_run_bit_for_bit(tmp_path, kind, su
     assert resumed.recorder.data["partition"] == full.recorder.data["partition"][1:]
     assert resumed.steps_done == full.steps_done
     assert torch.equal(resumed.dropout_gen.get_state(), full.dropout_gen.get_state())
+
+
+@pytest.mark.parametrize("over,timing", [
+    ({"world_size": 1, "dynamic_batch_size": False, "shard_update": True}, None),
+    ({"shard_update": True, "compress_grads": "int8", "fused_dbs": True}, linear_time),
+], ids=["fused", "window"])
+def test_shard_update_resumes_bit_for_bit(tmp_path, over, timing):
+    """``--shard_update`` in one process keeps the momentum in its ZeRO-1
+    chunk (``train/combine.py``), not in the optimizer: the checkpoint saves
+    it by parameter name, and the resumed run equals the uninterrupted one
+    (parameters, the chunk, losses), on the fused path (``-ws 1 -dbs
+    false``) and in window mode (two workers on one device, the int8 wire)."""
+
+    def port(tag, **kw):
+        cfg = Config(**_vision_kw(tmp_path, tag, **over, **kw))
+        return Trainer(cfg, bundle=synthetic_dataset("mnist", n_train=256, n_test=64),
+                       timing_model=timing, device="cpu", log_to_file=False)
+
+    full = port("full")
+    full.run()
+    ck = str(tmp_path / "ck")
+    port("stop", ckpt_dir=ck).run(epochs=1)
+    resumed = port("resumed", ckpt_dir=ck)
+    resumed.run()
+    rc = full._rank_combine
+    assert rc is not None and rc.shard_update and float(rc.mom.abs().max()) > 0
+    for (n, p), q in zip(full.model.named_parameters(), resumed.model.parameters()):
+        assert torch.equal(p, q), n
+    assert torch.equal(rc.mom, resumed._rank_combine.mom)
+    assert resumed.recorder.data["train_loss"] == full.recorder.data["train_loss"][1:]

@@ -7,11 +7,12 @@ to run as ``auto``, ``packed="bogus"`` as ``auto``, ``superstep_window=0``
 as 1). Pairs of bad values show that the checks run in the JAX package's
 order: the first failing check names the same flag on both sides.
 
-``num_processes`` / ``process_id`` other than one process (1 / 0, or the
-defaults 0 / -1) raise ``NotImplementedError`` naming the flag, as
-``coordinator`` does. The flags this slice ports (``trace``,
-``trace_spool``, ``ckpt_dir``, ``profile_dir``) are accepted; the flags that
-stay refused still raise naming themselves.
+More than one process (``num_processes`` / ``process_id``) is accepted, and
+what the port does not run across processes (the language model,
+``--rebalance window``, ``--ckpt_dir``) raises ``NotImplementedError`` naming
+its flag. The flags the slices ported (``trace``, ``trace_spool``,
+``ckpt_dir``, ``profile_dir``, ``fused_dbs``, ``coordinator``, ...) are
+accepted; the flags that stay refused still raise naming themselves.
 """
 
 import pytest
@@ -98,15 +99,22 @@ def test_good_values_are_accepted_by_both(ok):
     ("num_processes", 2), ("num_processes", 4), ("process_id", 1), ("process_id", 3),
 ])
 def test_more_than_one_process_raises_naming_the_flag(flag, value):
-    with pytest.raises(NotImplementedError, match=f"--{flag}"):
-        Config(**dict(BASE, **{flag: value}))
+    """Several processes run the vision loop; what stays one-process raises
+    naming its flag."""
+    procs = {"num_processes": value} if flag == "num_processes" else {
+        "num_processes": 4, "process_id": value}
+    Config(**dict(BASE, **procs))
+    for refused in ({"model": "transformer", "dataset": "wikitext2"},
+                    {"rebalance": "window"}, {"ckpt_dir": "ck"}):
+        with pytest.raises(NotImplementedError, match=f"--{next(iter(refused))}"):
+            Config(**dict(BASE, **procs, **refused))
 
 
 @pytest.mark.parametrize("override", [
-    {"fused_dbs": True, "trace": "on"}, {"grad_accum": 2, "ckpt_dir": "ck"},
+    {"grad_comm": "hier", "trace": "on"}, {"grad_comm": "hier", "hier_levels": "host:2"},
     {"elastic": "on", "ckpt_dir": "ck"}, {"remat": True, "profile_dir": "prof"},
     {"seq_parallel": "ulysses", "trace": "ring", "trace_spool": "s"},
-    {"coordinator": "localhost:1", "trace": "on"},
+    {"grad_comm": "hier", "dcn_bandwidth_probe": True},
 ])
 def test_flags_that_stay_refused_raise_beside_the_ported_ones(override):
     flag = next(iter(override))

@@ -60,14 +60,17 @@ def test_canonical_recipe_parses():
 BASE = dict(model="densenet", dataset="cifar10")
 
 
+LM = dict(model="transformer", dataset="wikitext2")  # the LM's fused paths are not ported
+
+
 @pytest.mark.parametrize("override", [
-    {"num_processes": 2}, {"fused_dbs": True}, {"shard_update": True},
-    {"grad_comm": "hier"}, {"compress_grads": "int8"},
-    {"grad_accum": 2}, {"process_id": 1, "rebalance": "window"},
+    {"num_processes": 2, **LM}, {"fused_dbs": True, **LM}, {"shard_update": True, **LM},
+    {"grad_comm": "hier"}, {"compress_grads": "int8", **LM, "dynamic_batch_size": False},
+    {"grad_accum": 2, **LM, "dynamic_batch_size": False}, {"process_id": 1, "rebalance": "window"},
     {"elastic": "on"}, {"coordinator": "localhost:1"}, {"elastic": "on", "trace": "on"},
     {"remat": True, "fault_schedule": "sin", "straggler": "2,1,1,1"},
     {"seq_parallel": "ulysses"}, {"remat": True},
-    {"shard_update": True, "ckpt_dir": "ck"},
+    {"shard_update": True, "ckpt_dir": "ck", **LM},
     {"remat": True, "trace": "ring"}, {"seq_parallel": "ring"},
     {"device": [0, 1], "world_size": 2},
 ])

@@ -49,6 +49,15 @@ def test_importing_the_whole_port_loads_no_jax():
     assert "BAD []" in r.stdout, r.stdout
 
 
+def test_the_import_checks_cover_the_multi_rank_modules():
+    """The two checks above walk every module; the data-parallel ones
+    (``parallel/``, ``train/combine.py``) are among them."""
+    mods = set(_modules())
+    for name in ("parallel.mesh", "parallel.topology", "parallel.wire", "parallel.prng",
+                 "train.combine"):
+        assert f"{port.__name__}.{name}" in mods, name
+
+
 def test_no_port_module_imports_jax_or_the_jax_package():
     offenders = []
     for path in sorted(PORT_DIR.rglob("*.py")):
