@@ -35,7 +35,7 @@ phase runs.
    the CUDA-event wall, which includes the host's launch gaps, is printed
    beside it. K1 is timed over one DenseNet-121 worker pass at b = 128
    beside its general route (the first port's kernels), and over
-   one packed step's pass (b = 512) of DenseNet-121 and of ResNet-101, f32
+   one packed step's pass (b = 512) of DenseNet-121, f32
    and (``--precision bfloat16``'s K1) bf16, whose bound counts 2-byte
    activations; K1's route for every GroupNorm call of the four families at
    b = 512 in bf16 (the tiled one: C in whole 8-element vectors); K2
@@ -65,12 +65,12 @@ phase runs.
    from epoch 1): share moves off worker 0, the synthetic-load kernel
    launched.
 4d. ``-m resnet`` (ResNet-101), ``-m googlenet``, ``-m regnet``
-   (RegNetY-400MF): 4 workers, B=512, 2,048 examples, 2 epochs each; K1 and
+   (RegNetY-400MF): 4 workers, B=512, 2,048 examples, 1 epoch each; K1 and
    K2 launched and the 9 series written.
 4e. Window-cadence rebalancing: ``--packed off --straggler 8,1,1,1
    --fault_mode compute --fault_schedule sin --fault_period 1 --rebalance
    window --superstep_window 2`` on 8,192 examples (16 steps an epoch in 8
-   windows), 3 epochs: at least one mid-epoch switch, at most 2 an epoch and
+   windows), 2 epochs: at least one mid-epoch switch, at most 2 an epoch and
    fewer than the evaluations; the regret budget held (spent <= budget_frac
    * credit + cost_init); the run's decision journal (the controller
    snapshot in the series' ``_meta``) replays bit for bit through
@@ -88,7 +88,7 @@ phase runs.
    the per-epoch walls beside the same recipe at ``--rebalance epoch`` (for
    information).
 4f. ``--precision bfloat16`` (bf16 compute over f32 master weights): [4]'s
-   recipe, 3 epochs packed, then ``--packed off`` for 2 epochs (the elastic
+   recipe, 2 epochs packed, then ``--packed off`` for 2 epochs (the elastic
    step and the probes in bf16): share moved off worker 0, finite losses,
    the 9 series, the peak memory; every K1 launch on bf16 activations and
    on the tiled route, every K2 launch on f32 logits (counted apart by the
@@ -143,10 +143,19 @@ phase runs.
    straggler's compute-mode load, DenseNet-121 packed (b = 512), and the
    LM with dropout (the replays draw the eager masks). (iii) ``--superstep
    auto`` against ``off`` on [4b]'s, [5]'s and [4f]'s packed recipes cut to
-   2 epochs: each arm's epochs (walls, captures, dispatches against the windows, host
+   1 epoch (the DenseNet-121 ones to 2,048 examples): each arm's epoch (walls, captures, dispatches against the windows, host
    dispatch seconds, peak memory), then steady passes over one plan,
-   alternating off, auto, auto, off, and one profiled pass each for the
+   one off and one auto, and one profiled pass each for the
    busy share.
+4j. ``--remat`` (the training forward under ``torch.utils.checkpoint``, its
+   dropout masks replayed from a tape): DenseNet-121 packed at b = 512, f32
+   and bf16, and the LM (4 x 20 columns, clip 0.25, dropout on), each from
+   one state, one step under remat off and on, eager and from a step graph,
+   cuDNN deterministic: the gradients, the parameters after the step and
+   the loss sum bit for bit across the four arms; under each mode remat
+   launches K1's and K3's forwards twice as often as without it and every
+   other kernel as often; each arm's peak device memory above the baseline
+   and its steady step's device time.
 6. DenseNet-121, ResNet-18, RegNetY-400MF and the Transformer LM on the
    card against the same models on the CPU (plain versions), same weights
    and inputs; the CNNs' first-conv gradient against the CPU's f64 run, at
@@ -159,9 +168,9 @@ phase runs.
 7. Data parallelism across processes: two ranks on ``cuda:0``, each a
    ``python -m dynamic_load_balance_distributeddnn_tpu_torch.cli`` process
    (``-m densenet -ds cifar10 -ws 2 -b 512 -gpu 0,0 --straggler 3,1
-   --fault_mode virtual -e 3 --n_train 4096 --coordinator 127.0.0.1:<free
-   port> --num_processes 2 --process_id <i>``: DenseNet-121 at its published
-   width, B = 512 over two ranks), the gradient collectives on gloo through
+   --fault_mode virtual -e 2 --n_train 4096 --coordinator 127.0.0.1:<free
+   port> --num_processes 2 --process_id <i>``: DenseNet-121 at its
+   published width, B = 512 over two ranks), the gradient collectives on gloo through
    pinned host memory (two ranks share the card), in three arms: (a) the
    default DBS path (window-mode elastic epochs), (b) ``--fused_dbs true``,
    (c) ``-dbs false --grad_accum 2 --compress_grads int8 --shard_update
@@ -169,7 +178,7 @@ phase runs.
    report beside the run's statistics (``cli.rank_report_file``,
    ``Trainer.rank_report``). Checks: gloo with 2
    ranks; the ranks' parameters bit for bit equal (their SHA-256); finite,
-   falling losses; in (a) and (b) worker 0's share below 0.40 by epoch 3;
+   falling losses; in (a) and (b) worker 0's share below 0.40 by the last epoch;
    K1 and K2 launched on each rank; in (c) each rank's momentum chunk half
    the padded flat parameter count. Printed: the epoch walls, each epoch's
    collective walls (mean and max a step), ``sync_time``,
@@ -177,6 +186,21 @@ phase runs.
    outlives ``DIST_TIMEOUT_S`` fails the phase: both are killed and their
    logs printed. It runs right after [3b], while this process holds the
    least device memory (the ranks share the card with it).
+7b. ``--grad_comm hier`` across four ranks on ``cuda:0`` over gloo
+   (``-m densenet -ds cifar10 -ws 4 -b 512 -gpu 0,0,0,0 --straggler 3,1,1,1
+   -e 2 --n_train 4096 --grad_comm hier --hier_hosts 2``: the tree (2, 2) on
+   a synthetic two-host split), three arms: (a) the default wires (int8 on
+   the outer hop, fp32 inside), DBS on; (b) ``--grad_comm_wires int4,fp32
+   --shard_update true`` (ZeRO-1 on the tree); (c) ``--hier_levels learned
+   --dcn_bandwidth_probe true --grad_comm_wires auto`` (the bandwidth probe,
+   the learned tree and the wires it picks; on one host it may merge to
+   flat). Checks: gloo with 4 ranks; the ranks' parameters bit for bit
+   equal; finite, falling losses; one combine, one set of wires and one
+   probe verdict on every rank; ``comm_bytes_ici``/``_dcn`` the hier
+   formula times each epoch's combines (the flat one if (c) merged); in (b)
+   each rank's momentum chunk a quarter of the padded flat parameter
+   count. Printed: the probe's rates and verdict, the epoch walls, the
+   collective a step and each rank's peak memory. It runs right after [7].
 
 The last two lines are the kernels' JSON record (launches summed over every
 path of this process; [7]'s ranks report their own) and the result line. Full tables go to ``chiprun_out/chip_smoke/``.
@@ -232,18 +256,19 @@ FT_ARGV = (
 ).split()
 # [4d]: one path a family at published widths, the reference's -m names
 FAMILIES = ("resnet", "googlenet", "regnet")
-FAMILY_EPOCHS = 2
-FAMILY_ARGV = "-ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 -e 2 --n_train 2048".split()
+FAMILY_EPOCHS = 1  # 2 until [4j] and [7b] joined: the script's time
+FAMILY_ARGV = "-ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 -e 1 --n_train 2048".split()
 # [4e]: window-cadence rebalancing on the elastic path, 16 steps an epoch in
 # 8 windows of 2, the 8:1 straggler of tests/test_online_dbs.py following a
 # sin of one epoch's period as real synthetic load; and the same recipe at
-# epoch cadence beside it
+# epoch cadence beside it; 2 epochs (3 until [4j] and [7b] joined: the
+# script's time; the switches fall in epoch 1, the first on anchored rates)
 WINDOW_ARGV = (
-    "-m densenet -ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 -e 3 --packed off "
+    "-m densenet -ds cifar10 -d false -ws 4 -b 512 -gpu 0,0,0,0 -e 2 --packed off "
     "--straggler 8,1,1,1 --fault_mode compute --fault_schedule sin --fault_period 1 "
     "--rebalance window --superstep_window 2 --n_train 8192"
 ).split()
-WINDOW_EPOCHS = 3
+WINDOW_EPOCHS = 2
 EPOCH_CADENCE_ARGV = [("epoch" if a == "window" else a) for a in WINDOW_ARGV]
 # [4e] under --superstep off: the JAX package cuts the eager elastic epoch's
 # windows at stream_chunk_steps alone (128 by default: one window, so no
@@ -267,8 +292,9 @@ LM_LONG_ARGV = LM_ARGV[:LM_ARGV.index("--bptt") + 1] + ["256"] + LM_ARGV[LM_ARGV
 LM_LONG_STEPS = 11
 
 
+# 2 epochs (3 until the tree's phase [7b] joined: the script's time)
 DIST_ARGV = ("-m densenet -ds cifar10 -ws 2 -b 512 -gpu 0,0 --straggler 3,1 "
-             "--fault_mode virtual -e 3 --n_train 4096").split()
+             "--fault_mode virtual -e 2 --n_train 4096").split()
 DIST_ARMS = (
     ("a", "the default DBS path (window-mode elastic epochs)", []),
     ("b", "--fused_dbs true", ["--fused_dbs", "true"]),
@@ -278,6 +304,19 @@ DIST_ARMS = (
 DIST_RANKS = 2
 DIST_TIMEOUT_S = 150
 DIST_SHARE_MAX = 0.40
+# [7b]: four ranks on cuda:0 over gloo, DenseNet-121 at its published width,
+# --grad_comm hier on a synthetic two-host split (the tree (2, 2)), 2 epochs
+HIER_ARGV = ("-m densenet -ds cifar10 -ws 4 -b 512 -gpu 0,0,0,0 --straggler 3,1,1,1 "
+             "--fault_mode virtual -e 2 --n_train 4096 --grad_comm hier --hier_hosts 2").split()
+HIER_ARMS = (
+    ("a", "the default wires (int8 outer hop, fp32 inner), DBS on", []),
+    ("b", "--grad_comm_wires int4,fp32 --shard_update true",
+     ["--grad_comm_wires", "int4,fp32", "--shard_update", "true"]),
+    ("c", "--hier_levels learned --dcn_bandwidth_probe true --grad_comm_wires auto",
+     ["--hier_levels", "learned", "--dcn_bandwidth_probe", "true", "--grad_comm_wires", "auto"]),
+)
+HIER_RANKS = 4
+HIER_TIMEOUT_S = 300
 
 
 def with_epochs(argv, epochs: int):
@@ -313,6 +352,7 @@ def traced(tag: str, mode: str):
 BF16 = ["--precision", "bfloat16"]
 BF16_ARGV = MAIN_ARGV + BF16
 BF16_ELASTIC_EPOCHS, LM_BF16_EPOCHS = 2, 2
+BF16_PACKED_EPOCHS = 2  # 3 until [4j] and [7b] joined: the script's time
 BF16_ELASTIC_ARGV = (with_epochs(MAIN_ARGV, BF16_ELASTIC_EPOCHS)[:-2]
                      + ["--n_train", "2048", "--packed", "off"] + BF16)
 LM_BF16_ARGV = with_epochs(LM_ARGV, LM_BF16_EPOCHS) + BF16
@@ -376,7 +416,7 @@ XENT_BF16 = ("xent_fwd_bf16", "xent_bwd_bf16")
 # earlier slices' records (the rebalanced plans' 32 and 160 are checked in
 # [3] and [4], no longer timed: the script's time)
 GN_BATCHES, GN_LINE_BATCH = (128,), 128
-# and over one packed step's pass, b = 512: DenseNet-121's and ResNet-101's
+# and over one packed step's pass, b = 512: DenseNet-121's
 GN_PACKED_B = 512
 # [6]: weight seeds of the card-vs-CPU comparison, and its bound on the first
 # conv's gradient against the CPU's f64 run, for every model. Readings on an
@@ -1504,14 +1544,16 @@ def check_lm_against_cpu(torch, dev):
 # DenseNet-121 packed (b = 512, the workers' summed load), the LM (4 x 20
 # columns, clip 0.25, dropout); (iii) --superstep auto against off on [4b]'s,
 # [5]'s and [4f]'s recipes, each arm's run beside the other's, then steady
-# passes over one plan alternating off, auto, auto, off and one profiled
+# passes over one plan, one off and one auto, and one profiled
 # pass each
 SUPERSTEP_ELASTIC_WIDTHS, SUPERSTEP_LOAD_ITERS = (32, 160, 160, 160), 300
 SUPERSTEP_LM_COLS = 20
-SUPERSTEP_ARMS = tuple((name, with_epochs(argv, 2)) for name, argv in (
-    ("densenet elastic, compute-mode straggler", COMPUTE_ARGV),
+# 1 epoch each, the DenseNet-121 recipes at 2,048 examples (2 epochs of
+# 4,096 until [4j] and [7b] joined: the script's time)
+SUPERSTEP_ARMS = tuple((name, with_epochs(argv, 1)) for name, argv in (
+    ("densenet elastic, compute-mode straggler", with_n_train(COMPUTE_ARGV, 2048)),
     ("language model", LM_ARGV),
-    ("densenet packed, bf16", BF16_ARGV)))  # 2 epochs each: the script's time
+    ("densenet packed, bf16", with_n_train(BF16_ARGV, 2048))))
 # [4]'s and [4f]'s packed cli peaks with eager steps, before step graphs
 # (NVIDIA H100 80GB HBM3, 700 W), printed beside each arm's peak
 EAGER_PEAK_GIB = "19.17 GiB ([4], f32 packed) / 9.69 GiB ([4f], bf16 packed)"
@@ -1787,12 +1829,142 @@ def check_step_graphs(torch, dev):
     return out
 
 
+# [4j]: --remat (the training forward recomputed in the backward): DenseNet-121
+# packed at b = 512 (the 3:1 plan's widths concatenated), f32 and bf16, and
+# the LM (4 x 20 columns, clip 0.25, dropout on), each from one state under
+# remat off and on, eager (--superstep off) and from a step graph (auto)
+REMAT_CASES = (("densenet packed f32", MAIN_ARGV), ("densenet packed bf16", BF16_ARGV),
+               ("language model", LM_ARGV))
+REMAT_ARMS = ((False, "off"), (True, "off"), (False, "auto"), (True, "auto"))
+# the forward kernels that the checkpointed forward runs again in the
+# backward: under remat each launches twice as often, every other kernel as
+# often as without it
+REMAT_FWD = ("groupnorm_fwd", "groupnorm_fwd_bf16", "groupnorm_fwd_general", "attn_fwd",
+             "attn_fwd_tiled")
+
+
+def check_remat(torch, dev):
+    """[4j]: for each of ``REMAT_CASES``, from one state (parameters,
+    momentum, dropout generator), one training step in each of
+    ``REMAT_ARMS``, cuDNN deterministic: the step's gradients (``.grad``),
+    the parameters after it and its loss sum equal bit for bit across the
+    four arms. Each arm's peak device memory above the case's baseline and
+    its steady step's device time (the profiler's kernel time over two
+    steps after two warm-up steps) are logged. The launch counts of each
+    arm's first step (under auto the warm-up and the capture) show the
+    recompute: under each mode, remat on launches ``REMAT_FWD``'s kernels
+    twice as often as remat off, and every other kernel as often."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import (
+        elastic_step,
+        packed_step,
+        prepare_step_state,
+        set_remat,
+    )
+    import numpy as np
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    try:
+        for name, argv in REMAT_CASES:
+            lm = "language" in name
+            argv = with_epochs(argv, 1) + [
+                "--log_dir", os.path.join(OUT, "remat", "logs"),
+                "--stat_dir", os.path.join(OUT, "remat", "statis")]
+            tr = (LMTrainer if lm else Trainer)(config_from_args(argv), log_to_file=False)
+            tr.model.train()
+            if lm:
+                cols = np.full(WORKERS, SUPERSTEP_LM_COLS)
+                tr.shares = cols / cols.sum()
+                plan = tr._build_plan(0, cols)
+                batches = [tr._worker_epoch(plan, r)(0)[0] for r in range(WORKERS)]
+                path, slow, body = "elastic", [0] * WORKERS, tr._elastic_body()
+                warm = tr._warmup(tr.grad_clip)
+
+                def eager():
+                    return elastic_step(tr.model, tr.optimizer, batches, tr.grad_clip, tr.load, slow,
+                                        tr.compute_dtype)
+            else:
+                widths = np.asarray(SUPERSTEP_ELASTIC_WIDTHS)
+                gen = torch.Generator(device=dev).manual_seed(8)
+                rows = torch.randint(0, tr.n_train, (int(widths.sum()),), device=dev, generator=gen)
+                batches = [(tr._prep(tr.train_x[rows]), tr.train_y[rows],
+                            torch.full((int(widths.sum()),), 1.0 / widths.sum(), device=dev))]
+                path, slow, body, warm = "packed", [0], tr._packed_body(), tr._warmup(0.0)
+
+                def eager():
+                    return packed_step(tr.model, tr.optimizer, batches[0], tr.load, slow[0],
+                                       tr.compute_dtype)
+            prepare_step_state(tr.optimizer)
+            saved = step_state(tr)
+            results, arms = [], {}
+            for remat, mode in REMAT_ARMS:
+                restore_state(torch, tr, saved)
+                set_remat(tr.model, remat)
+                tr.supersteps.clear()
+                tr.supersteps.loss.zero_()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                runtime.reset_launches()
+                if mode == "off":
+                    def step():
+                        return eager()
+                    loss = step().detach().clone()
+                else:
+                    def step():
+                        tr._superstep(path, batches, slow, body, warm)
+                    step()
+                    loss = tr.supersteps.loss.clone()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+                results.append(([p.detach().clone() for p in tr.params],
+                                [p.grad.detach().clone() for p in tr.params], loss))
+                ms = device_ms(step, reps=2, windows=1)
+                arm = f"remat {'on' if remat else 'off'}, superstep {mode}"
+                arms[arm] = {"peak_bytes": peak, "step_ms": ms, "launches": launches}
+                log(f"  {name} [{arm}]: peak {peak / 2**30:.2f} GiB above the baseline, steady step "
+                    f"{ms:.3f} ms device time, first step's launches {launches}")
+            want = results[0]
+            for (remat, mode), got in zip(REMAT_ARMS[1:], results[1:]):
+                for what, a, b in (("parameters", got[0], want[0]), ("gradients", got[1], want[1])):
+                    d = max((x - y).abs().max().item() for x, y in zip(a, b))
+                    assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+                        f"[4j] {name}: remat {remat} {mode}: {what} differ from remat off eager by {d:.3g}"
+                assert torch.equal(got[2], want[2]), f"[4j] {name}: loss {got[2]} against {want[2]}"
+            for mode in ("off", "auto"):  # the recompute ran (and, under auto, was captured)
+                off = arms[f"remat off, superstep {mode}"]["launches"]
+                on = arms[f"remat on, superstep {mode}"]["launches"]
+                assert any(off.get(k) for k in REMAT_FWD), (name, mode, off)
+                for k in set(off) | set(on):
+                    want_n = 2 * off.get(k, 0) if k in REMAT_FWD else off.get(k, 0)
+                    assert on.get(k, 0) == want_n, \
+                        f"[4j] {name} under {mode}: {k} launched {on.get(k, 0)} times with remat, " \
+                        f"{off.get(k, 0)} without ({want_n} expected)"
+            off, on = arms["remat off, superstep auto"], arms["remat on, superstep auto"]
+            log(f"  {name}: the four arms' gradients, parameters and loss sums bit for bit; graphed "
+                f"peak {off['peak_bytes'] / 2**30:.2f} -> {on['peak_bytes'] / 2**30:.2f} GiB and step "
+                f"{off['step_ms']:.3f} -> {on['step_ms']:.3f} ms with remat")
+            out[name] = arms
+            del tr, batches, saved, results
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
 def run_superstep_arms(torch, dev):
     """[4g](iii): ``--superstep auto`` against ``off`` on each recipe of
     ``SUPERSTEP_ARMS``: each arm's trainer runs the recipe's epochs (auto,
     then off); then, on the auto trainer's next plan, one untimed pass per
-    arm (the auto arm captures that plan's new keys there), four timed
-    passes of the epoch's training steps, probes off (off, auto, auto, off),
+    arm (the auto arm captures that plan's new keys there), two timed
+    passes of the epoch's training steps, probes off (off, then auto),
     and one pass each under ``torch.profiler`` for the busy share (device
     kernel time over the arm's median unprofiled pass wall). Per arm and
     epoch: walls, captures, replays, dispatches against the windows, host
@@ -1858,7 +2030,7 @@ def run_superstep_arms(torch, dev):
 
         for mode in ("off", "auto"):
             train_pass(mode)  # new keys of this plan captured here
-        for mode in ("off", "auto", "auto", "off"):
+        for mode in ("off", "auto"):  # (off, auto, auto, off) until [4j] and [7b] joined
             w, caps, meter = train_pass(mode)
             assert caps == 0, f"{name} {mode}: a pass on a repeated plan captured {caps}"
             res[mode]["passes"].append({"wall_s": w, "dispatches": meter.dispatches,
@@ -2062,8 +2234,7 @@ def check_mfu(paths):
 def time_kernels(torch, dev):
     """[3]'s timing: K1's route for every GroupNorm call of the four
     families at b = 128 and 512 (f32 and bf16), K1 over DenseNet-121 worker
-    passes (``GN_BATCHES``) and packed passes of DenseNet-121 and ResNet-101
-    (f32 and bf16), K2 and K3 at their path shapes; logs each beside its
+    passes (``GN_BATCHES``) and DenseNet-121's packed pass (f32 and bf16), K2 and K3 at their path shapes; logs each beside its
     bound, plain version and library call. Returns (the JSON line's timing
     rows, K1's worker-pass, packed and packed bf16 tables, K2's and K3's
     tables, DenseNet-121's GroupNorm shapes at b = 128, K1's routes)."""
@@ -2080,14 +2251,15 @@ def time_kernels(torch, dev):
             assert dtype == torch.float32 or general == 0, f"{what}: {general} general-route launches"
     shapes = model_gn_shapes(torch, dev, "densenet", GN_LINE_BATCH)[0]
     gt = {b: time_groupnorm(torch, dev, [(b,) + sh[1:] for sh in shapes]) for b in GN_BATCHES}
-    # one packed step's pass at b = 512: DenseNet-121's and ResNet-101's
+    # one packed step's pass at b = 512: DenseNet-121's (ResNet-101's too
+    # until [4j] and [7b] joined: the script's time)
     gp = {name: time_groupnorm(torch, dev, model_gn_shapes(torch, dev, name, GN_PACKED_B)[0],
                                general=False)
-          for name in ("densenet", "resnet")}
-    # and the same passes on bf16 activations (--precision bfloat16)
+          for name in ("densenet",)}
+    # and the same pass on bf16 activations (--precision bfloat16)
     gp16 = {name: time_groupnorm(torch, dev, model_gn_shapes(torch, dev, name, GN_PACKED_B)[0],
                                  general=False, dtype=torch.bfloat16)
-            for name in ("densenet", "resnet")}
+            for name in ("densenet",)}
     timing = dict(gt[GN_LINE_BATCH])
     xt = time_xent(torch, dev)
     at = time_flash(torch, dev)
@@ -2123,10 +2295,10 @@ def time_kernels(torch, dev):
     return timing, gt, gp, gp16, xt, at, shapes, gn_routes
 
 
-def run_ranks(tag: str, argv):
-    """``DIST_RANKS`` cli processes of one recipe, ranks of one gloo group
-    on ``cuda:0``, through ``scripts/rank_launch.py`` ``run_cli_ranks``:
-    joined with ``DIST_TIMEOUT_S``, all killed (and their logs printed)
+def run_ranks(tag: str, argv, ranks: int = DIST_RANKS, timeout: float = DIST_TIMEOUT_S):
+    """``ranks`` cli processes of one recipe, ranks of one gloo group on
+    ``cuda:0``, through ``scripts/rank_launch.py`` ``run_cli_ranks``:
+    joined with ``timeout`` seconds, all killed (and their logs printed)
     when one fails or the time runs out. Returns (each rank's report, rank
     0's series, the arm's wall)."""
     from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
@@ -2135,12 +2307,12 @@ def run_ranks(tag: str, argv):
     run_dir = os.path.join(OUT, tag)
     shutil.rmtree(run_dir, ignore_errors=True)
     log("  python -m dynamic_load_balance_distributeddnn_tpu_torch.cli " + " ".join(argv)
-        + " --coordinator 127.0.0.1:<free port> --num_processes 2 --process_id <i>")
+        + f" --coordinator 127.0.0.1:<free port> --num_processes {ranks} --process_id <i>")
     try:
-        reports, wall, argv0 = run_cli_ranks(argv, DIST_RANKS, run_dir, DIST_TIMEOUT_S)
+        reports, wall, argv0 = run_cli_ranks(argv, ranks, run_dir, timeout)
     except RanksFailed as e:
         log(str(e))
-        raise AssertionError(f"[7] {tag}: the ranks failed") from None
+        raise AssertionError(f"{tag}: the ranks failed") from None
     cfg = config_from_args(argv0)
     with open(os.path.join(cfg.stat_dir, cfg.base_filename().format(0) + ".json")) as f:
         series = json.load(f)
@@ -2181,8 +2353,78 @@ def check_ranks(arm: str, reports, series, wall):
     return {"wall": wall, "epoch_walls": walls, "series": series, "reports": reports}
 
 
-PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4i", "4g", "6", "6b",
-          "7")
+def hier_bytes(elems: int, sizes, wires):
+    """The hier combine's (ICI, DCN) bytes a step (the JAX package's
+    formula, ``Trainer._comm_bytes_per_step``), from the port's per-hop
+    bytes (``parallel/wire.py`` ``tree_hop_bytes``): the top hop DCN, the
+    others ICI."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.wire import tree_hop_bytes
+
+    hops = tree_hop_bytes(elems, sizes, wires)
+    return float(sum(b for _, b in hops[:-1])), float(hops[-1][1])
+
+
+def check_hier_ranks(arm: str, reports, series, wall):
+    """[7b]'s checks of one arm: gloo over 4 ranks staged through pinned
+    memory, K1 and K2 launched on each rank, the ranks' parameters bit for
+    bit equal, finite and falling losses, one combine and one bandwidth
+    verdict on every rank, and the recorded ``comm_bytes_*`` the hier
+    formula (the flat one where the learned tree merged to flat) times each
+    epoch's combines. Logs the walls, the collective a step, the bytes, the
+    probe's rates and each rank's peak memory."""
+    for r in reports:
+        assert r["ranks"]["backend"] == "gloo" and r["ranks"]["size"] == HIER_RANKS, r["ranks"]
+        assert r["ranks"]["staged_through_host"], r["ranks"]
+        for k in CNN_KERNELS:
+            assert r["launches"][k] > 0, (arm, r["rank"], k, r["launches"])
+    digests = {r["param_sha256"] for r in reports}
+    assert len(digests) == 1, f"[7b] ({arm}): the ranks' parameters differ: {digests}"
+    for key in ("grad_comm", "grad_comm_wires", "link_bandwidth"):
+        vals = [json.dumps(r[key], sort_keys=True) for r in reports]
+        assert len(set(vals)) == 1, f"[7b] ({arm}): the ranks disagree on {key}: {vals}"
+    losses = series["train_loss"]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    r0, meta = reports[0], series["_meta"]
+    kind, wires, comb = r0["grad_comm"], r0["grad_comm_wires"], r0["combine"]
+    elems = comb["flat_elems"]
+    if kind == "hier":
+        sizes = [s for _, s in meta["grad_comm_levels"]]
+        ici, dcn = hier_bytes(elems, sizes, wires)
+        assert comb["grad_comm"] == "hier" and comb["wires"] == wires, comb
+    else:
+        assert arm == "c", f"[7b] ({arm}) ran {kind}"
+        ici, dcn = float(elems * 4), 0.0
+    steps = [c["steps"] for c in r0["collective"]]
+    assert series["comm_bytes_ici"] == [ici * n for n in steps], (series["comm_bytes_ici"], ici, steps)
+    assert series["comm_bytes_dcn"] == [dcn * n for n in steps], (series["comm_bytes_dcn"], dcn, steps)
+    if arm == "b":
+        assert comb["shard_update"] and 4 * comb["momentum_chunk_elems"] == comb["padded_elems"], comb
+    bw = r0["link_bandwidth"]
+    walls = epoch_walls(series)
+    log(f"  ({arm}) arm wall {wall:.1f}s (four processes, start-up included); combine {kind}, "
+        f"levels {meta.get('grad_comm_levels')}, wires {wires}, modeled combine "
+        f"{meta.get('modeled_comm_step_s')} s; epoch walls {[round(w, 3) for w in walls]} s; "
+        f"train loss {[round(x, 4) for x in losses]}; partition {series['partition']}")
+    log(f"  ({arm}) bytes a step: ICI {ici:.0f}, DCN {dcn:.0f} (the {kind} formula, {elems:,} "
+        f"elements) x steps {steps}: comm_bytes_ici {series['comm_bytes_ici']}, comm_bytes_dcn "
+        f"{series['comm_bytes_dcn']}; sync_time {series['sync_time']} s")
+    if bw is not None:
+        log(f"  ({arm}) bandwidth probe (rank 0's numbers on every rank): level bytes/s "
+            f"{[round(x) for x in bw['level_bytes_per_s']]}, phases {bw['phase_s']} s, tree "
+            f"{bw['hier_wall_s']} s against flat {bw['flat_wall_s']} s (ratio {bw['wall_ratio']}, "
+            f"gate {bw['gate_ratio']}): hier_wins {bw['hier_wins']}")
+    for r in reports:
+        coll = [(c["epoch"], round(1e3 * c["mean_s"], 2), round(1e3 * c["max_s"], 2))
+                for c in r["collective"] or []]
+        log(f"  ({arm}) rank {r['rank']}: collective wall a step (epoch, mean ms, max ms) {coll}; "
+            f"K1 {r['launches']['groupnorm_fwd']}+{r['launches']['groupnorm_bwd']} and K2 "
+            f"{r['launches']['xent_fwd']}+{r['launches']['xent_bwd']} launches; peak device "
+            f"memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    return {"wall": wall, "epoch_walls": walls, "series": series, "reports": reports}
+
+
+PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4i", "4g", "4j",
+          "6", "6b", "7", "7b")
 
 
 def main(argv=None) -> int:
@@ -2265,6 +2507,15 @@ def main(argv=None) -> int:
             log(f"  ({arm}) {what}")
             ranks[arm] = check_ranks(arm, *run_ranks(f"ranks_{arm}", DIST_ARGV + extra))
 
+    if want("7b"):
+        phase(f"[7b] --grad_comm hier: {HIER_RANKS} ranks on cuda:0 over gloo, DenseNet-121, B=512")
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arm, what, extra in HIER_ARMS:
+            log(f"  ({arm}) {what}")
+            ranks["hier_" + arm] = check_hier_ranks(
+                arm, *run_ranks(f"hier_{arm}", HIER_ARGV + extra, HIER_RANKS, HIER_TIMEOUT_S))
+
     paths = {}  # tag: (launch counts, series, wall, peak bytes)
     if want("4"):
         phase("[4] vision path: the defaults (packed epochs, adaptive probes), traced")
@@ -2305,8 +2556,8 @@ def main(argv=None) -> int:
 
     if want("4f"):
         phase("[4f] vision path under --precision bfloat16: packed (the defaults), then elastic")
-        paths["vision_bf16"] = run_path(torch, BF16_ARGV, "run_bf16")
-        check_bf16_vision_path(*paths["vision_bf16"][:2], "packed", EPOCHS)
+        paths["vision_bf16"] = run_path(torch, with_epochs(BF16_ARGV, BF16_PACKED_EPOCHS), "run_bf16")
+        check_bf16_vision_path(*paths["vision_bf16"][:2], "packed", BF16_PACKED_EPOCHS)
         if "vision" in paths:
             for e, (w16, w32) in enumerate(zip(epoch_walls(paths["vision_bf16"][1]),
                                                epoch_walls(paths["vision"][1]))):
@@ -2374,6 +2625,11 @@ def main(argv=None) -> int:
         phase("[4g] (iii) --superstep auto against off")
         supersteps["arms"] = run_superstep_arms(torch, dev)
 
+    remat = {}
+    if want("4j"):
+        phase("[4j] --remat: remat on and off, eager and graphed, bit for bit")
+        remat = check_remat(torch, dev)
+
     card_vs_cpu, bf16_vs_cpu = None, None
     if want("6"):
         phase("[6] end-to-end numerics")
@@ -2388,7 +2644,7 @@ def main(argv=None) -> int:
     if not every:
         with open(os.path.join(OUT, "phases.json"), "w") as f:
             json.dump({"card": smi, "phases": chosen, "errors": err, "supersteps": supersteps,
-                       "ranks": ranks,
+                       "ranks": ranks, "remat": remat,
                        "resume": resume, "tracing": tracing,
                        "launches": {tag: p[0] for tag, p in paths.items()},
                        "series": {tag: p[1] for tag, p in paths.items()},
@@ -2464,7 +2720,7 @@ def main(argv=None) -> int:
                    "series": {tag: p[1] for tag, p in paths.items()},
                    "groupnorm_shapes": shapes, "window_walls": window_walls,
                    "supersteps": supersteps, "resume": resume, "tracing": tracing,
-                   "ranks": ranks, "seconds": time.perf_counter() - t_start}, f, indent=1)
+                   "ranks": ranks, "remat": remat, "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

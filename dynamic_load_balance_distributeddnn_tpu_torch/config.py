@@ -21,9 +21,13 @@ Several processes (``--coordinator host:port --num_processes N
 (``parallel/mesh.py``): the ``-gpu`` map places each process's ``world_size
 / N`` workers, and a process's slice must name one device. Across ranks the
 port runs the vision DBS loop (window-mode elastic epochs), the fused and
-fused-DBS paths, ``--grad_accum``, ``--compress_grads int8`` and
-``--shard_update``; it refuses, by name, the language model,
-``--rebalance window`` and ``--ckpt_dir`` there.
+fused-DBS paths, ``--grad_accum``, ``--compress_grads int8``,
+``--shard_update`` and ``--grad_comm hier`` (with ``--hier_levels``,
+``--hier_hosts``, ``--grad_comm_wire(s)``, ``--dcn_bandwidth_probe`` and
+``--dcn_probe_gate``; in one process it falls back to the flat combine with
+the JAX package's warning); it refuses, by name, the language model,
+``--rebalance window`` and ``--ckpt_dir`` there. ``--remat`` recomputes the
+training forward in the backward (``train/steps.py`` ``forward``).
 Flags that tune only the JAX package's compile service or device cache
 (``aot_*``, ``speculate_scan``, ``warm_start``, ``device_cache*``) have no
 meaning for an eager PyTorch program; they are checked, accepted and have
@@ -61,7 +65,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
+
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.topology import parse_hier_levels
 
 MODELS = [
     "mnistnet",
@@ -94,34 +100,6 @@ def _env_int(name: str, default: int) -> int:
         return int(v)
     except ValueError:
         raise SystemExit(f"env var {name} must be an integer, got {v!r}")
-
-
-def parse_hier_levels(spec: str) -> Tuple[Tuple[str, int], ...]:
-    """A declared topology spec (``--hier_levels host:4,rack:2``) as
-    ``((name, size), ...)`` outermost-first; raises ``ValueError`` on a
-    malformed entry. The JAX package's ``parallel/topology.py`` function,
-    copied for the config check (this port has no hierarchy yet)."""
-    levels: List[Tuple[str, int]] = []
-    seen = set()
-    for part in spec.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        if ":" not in part:
-            raise ValueError(f"hier_levels entry {part!r} must be name:size (e.g. host:4)")
-        name, _, size_s = part.partition(":")
-        name = name.strip()
-        try:
-            size = int(size_s)
-        except ValueError:
-            raise ValueError(f"hier_levels size {size_s!r} is not an integer")
-        if not name or name in seen:
-            raise ValueError(f"hier_levels names must be unique, got {name!r}")
-        if size < 2:
-            raise ValueError(f"hier_levels size for {name!r} must be >= 2")
-        seen.add(name)
-        levels.append((name, size))
-    return tuple(levels)
 
 
 def device_map(v):
@@ -281,9 +259,8 @@ class Config:
         self._reject_unported()
 
     def _check_comm(self) -> None:
-        """The JAX package's checks of the gradient-collective flags. The
-        flags themselves are refused by ``_reject_unported`` when set; a
-        malformed value fails here first, as in the JAX package."""
+        """The JAX package's checks of the gradient-collective flags, in its
+        order, with its exception types and messages."""
         if self.compress_grads not in ("", "int8"):
             raise ValueError("compress_grads must be '' or 'int8'")
         if self.grad_comm not in ("flat", "hier"):
@@ -445,13 +422,8 @@ class Config:
                 "model fails at its first switch (ROADMAP.md lists what is left)"
             )
         unported = {
-            # the hierarchical combine, with its --hier_levels, per-hop
-            # wires and bandwidth probe (the JAX package reads them only
-            # under hier)
-            "grad_comm": self.grad_comm != "flat",
             "elastic": self.elastic != "off",
             "seq_parallel": bool(self.seq_parallel),
-            "remat": self.remat,
         }
         for flag, set_ in unported.items():
             if set_:

@@ -1,6 +1,19 @@
 """Shared model building blocks: GroupNorm (+ relu), seeded dropout, and
 flax's default initializers.
 
+Dropout masks under ``--remat`` (``train/steps.py`` ``forward``): the JAX
+package recomputes the same masks in the backward because a mask is a
+function of its key. Here a mask is drawn from a generator whose state
+moves with every draw, and ``torch.utils.checkpoint`` restores only the
+default generators' states, so a recompute would draw other masks. So
+every mask goes through :func:`keep_mask`: inside a checkpointed forward
+(:func:`mask_replay_contexts`) each mask is kept on a tape as it is drawn,
+and the recompute takes the tape's masks in order instead of drawing. The
+generator then moves exactly as without remat, nothing of its state is
+read or written (so a captured step graph replays it as before), and the
+gradients are the ones without remat. The cost is the masks' bytes (one a
+dropout element) kept until the backward.
+
 Layout: activations are NCHW tensors in ``torch.channels_last`` memory, so a
 ``[B, C, H, W]`` activation is the contiguous ``[B, H*W, C]`` the GroupNorm
 kernel (and the TPU kernel before it) reads.
@@ -8,8 +21,10 @@ kernel (and the TPU kernel before it) reads.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -64,6 +79,53 @@ def group_norm(channels: int, groups: int = 32, relu: bool = False) -> GroupNorm
     return GroupNorm(channels, math.gcd(groups, channels), relu=relu)
 
 
+class _MaskTape:
+    """The masks of one checkpointed forward, in the order drawn; ``at`` is
+    the next one a recompute takes (None while recording)."""
+
+    def __init__(self):
+        self.masks: List[torch.Tensor] = []
+        self.at: Optional[int] = None
+
+
+# the tape of the checkpointed forward (or recompute) this thread runs: the
+# recompute runs in the thread where autograd runs the backward
+_TAPE = threading.local()
+
+
+def keep_mask(shape, p: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Dropout's keep mask (``rand >= p``) drawn from ``generator``; inside
+    a checkpointed forward also kept on its tape, inside its recompute taken
+    from the tape (the module docstring)."""
+    tape = getattr(_TAPE, "tape", None)
+    if tape is not None and tape.at is not None:
+        keep = tape.masks[tape.at]
+        tape.at += 1
+        return keep
+    keep = torch.rand(shape, generator=generator, device=device) >= p
+    if tape is not None:
+        tape.masks.append(keep)
+    return keep
+
+
+@contextlib.contextmanager
+def _on_tape(tape: _MaskTape, replay: bool):
+    outer, _TAPE.tape = getattr(_TAPE, "tape", None), tape
+    if replay:
+        tape.at = 0
+    try:
+        yield
+    finally:
+        _TAPE.tape = outer
+
+
+def mask_replay_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: one tape, recorded by the
+    forward's context and replayed by the recompute's."""
+    tape = _MaskTape()
+    return _on_tape(tape, replay=False), _on_tape(tape, replay=True)
+
+
 class Dropout(nn.Module):
     """Inverted dropout whose mask comes from an explicit generator
     (``self.generator``, set by the trainer for the model's device; the
@@ -79,7 +141,7 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        keep = keep_mask(x.shape, self.p, self.generator, x.device)
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 

@@ -44,7 +44,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from dynamic_load_balance_distributeddnn_tpu_torch.models.common import Dropout
+from dynamic_load_balance_distributeddnn_tpu_torch.models.common import Dropout, keep_mask
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
 )
@@ -123,9 +123,8 @@ class SelfAttention(nn.Module):
         if self.attn_dropout.training and self.attn_dropout.p > 0.0:
             # flax's broadcast_dropout: one [T, T] mask for every batch row
             # and head
-            keep = torch.rand(
-                (1, 1, t, t), generator=self.attn_dropout.generator, device=p.device
-            ) >= self.attn_dropout.p
+            keep = keep_mask((1, 1, t, t), self.attn_dropout.p, self.attn_dropout.generator,
+                             p.device)
             p = p * keep.to(p.dtype) / (1.0 - self.attn_dropout.p)
         return torch.einsum("bhqk,bhkd->bhqd", p, v)
 

@@ -1,4 +1,5 @@
-"""Data parallelism across processes: the data axis over the ranks and its
-collectives (``mesh.py``), each process's workers on its device
-(``topology.py``), the quantized gradient wire (``wire.py``) and JAX's
+"""Data parallelism across processes: the data axis over the ranks, its
+collectives and the topology tree's subgroups (``mesh.py``), each process's
+workers on its device and the tree's factorization (``topology.py``), the
+quantized gradient wires and the tree spine (``wire.py``) and JAX's
 threefry keys on the host (``prng.py``)."""

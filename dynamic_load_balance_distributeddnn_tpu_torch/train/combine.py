@@ -49,6 +49,23 @@ the gathered trace, and so the parameters, are the same.
   way). The gathered quantity is the update up to its ``-lr`` (the JAX
   package gathers the update itself), the same bytes.
 
+**The tree** (``--grad_comm hier``, the JAX ``_hier_combine`` and the hier
+branch of ``_zero1_update``): the buffer is permuted into the JAX
+package's ravel order (one gather by the inverse of ``FlatGrads.index``),
+summed up and down the topology tree (``parallel/wire.py``
+``tree_allreduce`` over the sub-axes of ``DataMesh.tree_axes``, one
+error-feedback residual a hop 0..k-1, zero on fp32 hops, as the JAX
+``attach_comm_residual`` lays them out) and permuted back (one gather by
+``FlatGrads.index``). In that order a rank holds, after each
+reduce-scatter, the chunk the JAX device of its coordinates holds, so each
+hop's shared scale and each element's dither index are the JAX package's
+and the sums, the residuals and the update are its own, bit for bit,
+wherever the per-hop sums are exact (integer codes; two f32 terms). Under
+``--shard_update`` the momentum chunk is the JAX one, in that order: the
+top hop's sum re-split across the outermost level, the trace gathered back
+outermost level first, then permuted to the buffer's layout and applied
+with torch SGD's op, as the flat ZeRO-1 does.
+
 Each combine is timed on the host from a device synchronize to the end of
 its collectives (``collective_s``): under gloo the collectives block the
 host, staged through pinned memory (``parallel/mesh.py``).
@@ -57,7 +74,7 @@ host, staged through pinned memory (``parallel/mesh.py``).
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -127,20 +144,30 @@ def apply_trace(params: Sequence[torch.Tensor], traces: Sequence[torch.Tensor], 
 
 class RankCombine:
     """The combine of one rank (module docstring). ``mesh`` is the data
-    axis (``parallel/mesh.py``; size 1 without a process group)."""
+    axis (``parallel/mesh.py``; size 1 without a process group); ``tree``
+    the topology tree's ``(names, sizes)`` and ``wires`` its hops' codecs
+    under ``--grad_comm hier``."""
 
     def __init__(self, mesh, model: torch.nn.Module, optimizer: torch.optim.SGD,
-                 momentum: float, shard_update: bool = False, compress: str = ""):
+                 momentum: float, shard_update: bool = False, compress: str = "",
+                 tree: Optional[Tuple[Sequence[str], Sequence[int]]] = None,
+                 wires: Sequence[str] = ()):
         self.mesh, self.optimizer = mesh, optimizer
         self.n = mesh.size
         self.momentum = float(momentum)
         self.shard_update, self.compress = bool(shard_update), compress
-        self.grads = FlatGrads(model, self.n, flax_layout=compress == "int8")
+        self.grads = FlatGrads(model, self.n, flax_layout=compress == "int8" or tree is not None)
         self.order, self.params = self.grads.order, self.grads.params
         self.collective_s: List[float] = []  # each combine's collective wall
+        self.axes = None
+        if tree is not None:
+            self._init_tree(*tree, wires)
         if self.shard_update:
             self.chunk = self.grads.padded // self.n
             self.mom = shard_optimizer_state(optimizer, self.params, self.n, mesh.rank)
+            if self.axes is not None:  # the JAX chunk: this rank's block of the permuted vector
+                full = self.mesh.all_gather(torch.empty_like(self.grads.flat), self.mom)
+                self.mom = self._to_jax(full, padded=True)[self.off:self.off + self.chunk].clone()
             for group in optimizer.param_groups:
                 # the trace lives in the chunk: no full buffer is made again
                 # (prepare_step_state) and optimizer.step() is never called
@@ -149,12 +176,51 @@ class RankCombine:
             self.trace = torch.zeros_like(self.grads.flat)
             self.trace_views = self.grads.views(self.trace)
 
+    def _init_tree(self, names: Sequence[str], sizes: Sequence[int], wires: Sequence[str]) -> None:
+        """The tree's sub-axes, the permutation into the JAX ravel order
+        (``perm``: for each JAX position, its buffer element), zero
+        residuals and, under ZeRO-1, this rank's chunk offset in that order
+        (the JAX ``_zero1_update``'s mixed-radix ``off``)."""
+        self.tree = (tuple(names), tuple(int(s) for s in sizes))
+        self.wires = tuple(wires)
+        if len(self.wires) != len(self.tree[0]) or self.wires[-1] != "fp32":
+            raise ValueError(f"wires {self.wires} for levels {self.tree}: one a level, "
+                             "the innermost fp32")
+        self.axes = self.mesh.tree_axes(*self.tree)
+        t, index = self.grads.total, self.grads.index
+        self.perm = torch.empty(t, dtype=torch.int64, device=index.device)
+        self.perm[index[:t]] = torch.arange(t, device=index.device)
+        widths = wirefmt.tree_hop_widths(t, self.tree[1], self.n if self.shard_update else 0)
+        if self.shard_update and widths[-1] != self.grads.padded:
+            raise ValueError(f"the tree pads to {widths[-1]}, ZeRO-1 to {self.grads.padded}")
+        self.residuals = [torch.zeros(w, dtype=torch.float32, device=self.grads.flat.device)
+                          for w in widths[:-1]]
+        chunk = self.grads.padded // self.n
+        self.off = self.axes[0].rank * chunk + sum(a.rank * w for a, w in zip(self.axes[1:], widths))
+
+    def _to_jax(self, buf: torch.Tensor, padded: bool = False) -> torch.Tensor:
+        """The buffer's real elements in the JAX ravel order (``padded``:
+        followed by the buffer's zero padding)."""
+        t = self.grads.total
+        vec = buf[:t][self.perm]
+        return torch.cat([vec, buf.new_zeros(buf.numel() - t)]) if padded else vec
+
+    def _from_jax(self, vec: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+        """``vec`` (the JAX ravel order) written into ``buf``'s layout."""
+        t = self.grads.total
+        buf[:t] = vec[self.grads.index[:t]]
+        return buf
+
     def describe(self) -> Dict[str, object]:
         out = {"flat_elems": self.grads.total, "padded_elems": self.grads.padded,
                "leaves": len(self.params), "shard_update": self.shard_update,
                "compress_grads": self.compress}
         if self.shard_update:
             out["momentum_chunk_elems"] = int(self.mom.numel())
+        if self.axes is not None:
+            out.update(grad_comm="hier", levels=[[a, s] for a, s in zip(*self.tree)],
+                       wires=list(self.wires), residual_elems=[r.numel() for r in self.residuals],
+                       groups=[list(a.ranks) for a in self.axes])
         return out
 
     def momentum_by_name(self) -> Dict[str, torch.Tensor]:
@@ -177,6 +243,9 @@ class RankCombine:
         self._sync()
         t0 = time.perf_counter()
         flat = self.grads.flat
+        if self.axes is not None:
+            self._tree_step(flat, lr, key, t0)
+            return
         if self.shard_update:
             g = self._scatter(flat, key, self.g_chunk)
             self._sync()
@@ -197,6 +266,48 @@ class RankCombine:
         self.collective_s.append(time.perf_counter() - t0)
         self.optimizer.step()
 
+    def _tree_step(self, flat: torch.Tensor, lr: float, key: Key, t0: float) -> None:
+        """The hier combine and update (the JAX ``_hier_combine`` and the
+        replicated update, or the hier branch of ``_zero1_update``), the
+        residuals carried to the next step."""
+        if self.shard_update:
+            g, self.residuals = self._tree_scatter(flat, key, self.residuals)
+            self._sync()
+            self.collective_s.append(time.perf_counter() - t0)
+            with torch.no_grad():
+                self.mom.mul_(self.momentum).add_(g)
+            t1 = time.perf_counter()
+            self._from_jax(self._tree_gather(self.mom), self.trace)
+            self._sync()
+            self.collective_s[-1] += time.perf_counter() - t1
+            apply_trace(self.params, self.trace_views, lr)
+            return
+        out, self.residuals = wirefmt.tree_allreduce(self._to_jax(flat), key, self.axes, self.wires,
+                                                     self.residuals)
+        self._from_jax(out, flat)
+        self._sync()
+        self.collective_s.append(time.perf_counter() - t0)
+        self.optimizer.step()
+
+    def _tree_scatter(self, flat: torch.Tensor, key: Key, residuals):
+        """ZeRO-1's gradient collective on the tree (the hier branch of the
+        JAX ``_zero1_update``): this rank's chunk of the summed gradient
+        and the new residuals, key ``fold_in(key, 0x2E01)`` folded by hop."""
+        a = self.axes[-1]
+        v = a.reduce_scatter(torch.empty(self.grads.padded // a.size, device=flat.device),
+                             self._to_jax(flat, padded=True))
+        total, new = wirefmt.tree_up(v, fold_in(key, 0x2E01), self.axes, self.wires, residuals)
+        r0 = self.axes[0].rank
+        return total[r0 * self.chunk:(r0 + 1) * self.chunk], new
+
+    def _tree_gather(self, chunk: torch.Tensor) -> torch.Tensor:
+        """The chunks gathered back in the JAX order, the outermost level
+        first: the whole padded vector."""
+        out = chunk
+        for a in self.axes:
+            out = a.all_gather(torch.empty(out.numel() * a.size, device=out.device), out)
+        return out
+
     def _compressed(self, flat: torch.Tensor, key: Key) -> torch.Tensor:
         keys = fold_in_many(key, [i + 0x7FFF for i in range(len(self.params))])
         return wirefmt.compressed_reduce_leaves(flat, self.grads.sizes, keys, self.mesh, self.n,
@@ -216,6 +327,8 @@ class RankCombine:
         collectives (``with_comm``) and update math, into new tensors; the
         parameters, ``.grad`` and the momentum are not written."""
         key = (0, 0)  # the result is discarded: any key
+        if self.axes is not None:
+            return self._tree_probe(flat, lr, key, with_comm)
         if self.shard_update:
             if with_comm:
                 g = self._scatter(flat, key, torch.empty_like(self.g_chunk))
@@ -235,6 +348,28 @@ class RankCombine:
                 total = self._compressed(total, key)
             else:
                 self.mesh.all_reduce_(total)
+        return combine_probe(self.optimizer, [self.grads.views(total)], params=self.params)
+
+    def _tree_probe(self, flat: torch.Tensor, lr: float, key: Key, with_comm: bool):
+        """The hier combine's twin: the residuals are read, not written."""
+        if self.shard_update:
+            if with_comm:
+                g, _ = self._tree_scatter(flat, key, self.residuals)
+            else:
+                g = self._to_jax(flat, padded=True)[self.off:self.off + self.chunk]
+            mom = self.mom * self.momentum + g
+            if with_comm:
+                vec = self._tree_gather(mom)
+            else:
+                vec = torch.zeros_like(self.trace)
+                vec[self.off:self.off + self.chunk] = mom
+            trace = self._from_jax(vec, torch.zeros_like(self.trace))
+            return torch._foreach_add(self.params, self.grads.views(trace), alpha=-lr)
+        total = flat.clone()
+        if with_comm:
+            out, _ = wirefmt.tree_allreduce(self._to_jax(flat), key, self.axes, self.wires,
+                                            self.residuals)
+            self._from_jax(out, total)
         return combine_probe(self.optimizer, [self.grads.views(total)], params=self.params)
 
     def probe_psum(self) -> None:

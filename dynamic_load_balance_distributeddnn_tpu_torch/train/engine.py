@@ -116,6 +116,10 @@ one worker a device the fused paths run (``_train_epoch_fused``: ``-dbs
 false``, or ``--fused_dbs`` at the capacity width, with ``--grad_accum``,
 ``--compress_grads int8`` and ``--shard_update``). Validation is split by
 chunks over the ranks (``_validate_sharded``); process 0 writes the series.
+``--grad_comm hier`` (``_setup_grad_comm``, the JAX engine's tree
+resolution, bandwidth probe, learned tree and wires) gives the combine a
+topology tree over the ranks (``train/combine.py``), or falls back to the
+flat combine with the JAX package's warning.
 
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
@@ -185,13 +189,22 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.losses import example_wei
 from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import (
     allgather_host,
     axis_size,
+    broadcast_object,
     data_mesh,
+    probe_link_bandwidth,
     process_count,
     process_index,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.parallel.prng import fold_in, prng_key
-from dynamic_load_balance_distributeddnn_tpu_torch.parallel.topology import WorkerTopology
-from dynamic_load_balance_distributeddnn_tpu_torch.parallel.wire import wire_payload_bytes
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.topology import (
+    TopologyTree,
+    WorkerTopology,
+)
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.wire import (
+    choose_wires,
+    tree_hop_bytes,
+    wire_payload_bytes,
+)
 from dynamic_load_balance_distributeddnn_tpu_torch.train.combine import RankCombine
 from dynamic_load_balance_distributeddnn_tpu_torch.train.checkpoint import (
     flush_checkpoints,
@@ -212,6 +225,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import (
     packed_step,
     prepare_step_state,
     probe_grads,
+    set_remat,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.train.supersteps import StepGraphs
 
@@ -276,9 +290,11 @@ class Trainer:
         self._spool_writer = None
         if cfg.trace != "off" and cfg.trace_spool:
             self._attach_spool()
+        self._setup_grad_comm()
 
         self._setup_data(bundle)
         self._setup_model()
+        set_remat(self.model, cfg.remat)  # --remat: train/steps.py forward
         # the step executor of --superstep auto/on (train/supersteps.py); the
         # dropout generator is registered with every captured step
         self.supersteps = StepGraphs(self.device, generators=[self.dropout_gen],
@@ -347,6 +363,7 @@ class Trainer:
         self.steps_done = 0
         self._flops_per_example: Optional[float] = None
         self._param_elems = int(sum(p.numel() for p in self.params))
+        self._record_grad_comm()
         self.obs = MetricsRegistry(recorder=self.recorder, tracer=self._trace)
         self.obs.attach(host_meter=self._host_meter)
         self._can_use_packed(None)  # --packed on fails here where it cannot engage
@@ -416,13 +433,165 @@ class Trainer:
         wrote the old ``.grad``)."""
         if self._rank_combine is None:
             cfg = self.cfg
+            tree = None if self._topo_tree is None else (self._topo_tree.names,
+                                                         self._topo_tree.sizes)
             self._rank_combine = RankCombine(self.mesh, self.model, self.optimizer, cfg.momentum,
                                              shard_update=cfg.shard_update,
-                                             compress=cfg.compress_grads)
+                                             compress=cfg.compress_grads, tree=tree,
+                                             wires=self._grad_comm_wires)
             if self.supersteps.superstep_cache_size():
                 self.supersteps.clear()
             self.recorder.meta["combine"] = self._rank_combine.describe()
         return self._rank_combine
+
+    def _setup_grad_comm(self) -> None:
+        """``--grad_comm hier`` resolved, as the JAX engine does it:
+        ``self.grad_comm`` is the combine that runs (``"flat"`` when the
+        ranks do not factor into a tree, or when the bandwidth probe's gate
+        or the learned tree says the tree gains nothing), ``_topo_tree`` its
+        tree and ``_grad_comm_wires`` its hops' codecs. The JAX package runs
+        the probe only in one process, so that no two processes take other
+        verdicts; here every rank on one host runs it (its collectives are
+        the world's) and every rank takes rank 0's numbers
+        (``broadcast_object``), so the verdict, the learned tree and the
+        ``auto`` wires are one on every rank. Across hosts the probe does
+        not run and ``--grad_comm`` is trusted, as in the JAX package."""
+        cfg = self.cfg
+        self.grad_comm = "flat"
+        self._topo_tree: Optional[TopologyTree] = None
+        self._hier_hosts = 0
+        self._grad_comm_wires: tuple = ()
+        self._link_bw: Optional[Dict] = None
+        if cfg.grad_comm == "hier":
+            tree, learn = self._resolve_topology_tree()
+            if tree is None:
+                self.logger.warning(
+                    f"grad_comm=hier: no topology-tree factorization of {self.n_dev} ranks "
+                    f"(hier_levels={cfg.hier_levels!r}, hier_hosts={cfg.hier_hosts}, "
+                    f"processes={self.n_proc}) — falling back to the flat combine")
+            else:
+                self.grad_comm, self._topo_tree, self._hier_hosts = "hier", tree, tree.sizes[0]
+        if self.grad_comm == "hier":
+            if not self.mesh.cross_host:
+                self._probe_links()
+                if learn:
+                    self._learn_tree_from_probe()
+            elif cfg.dcn_bandwidth_probe or learn:
+                self.logger.warning(
+                    "the bandwidth probe runs only when every rank is on one host — keeping "
+                    "grad_comm=hier as configured")
+            bw = self._link_bw
+            if cfg.dcn_bandwidth_probe and self.grad_comm == "hier" and bw is not None \
+                    and not bw["hier_wins"]:
+                self.logger.warning(
+                    f"grad_comm=hier: bandwidth probe measured the tree structure at "
+                    f"{bw['hier_wall_s']:.4f}s vs {bw['flat_wall_s']:.4f}s for one flat sum "
+                    f"(ratio {bw['wall_ratio']:.3f}, gate {cfg.dcn_probe_gate}) — falling back "
+                    "to the flat combine")
+                self._go_flat()
+        self._grad_comm_wires = self._resolve_wires()
+
+    def _go_flat(self) -> None:
+        self.grad_comm, self._topo_tree, self._hier_hosts = "flat", None, 0
+
+    def _probe_links(self) -> None:
+        """The bandwidth probe of the current tree on every rank, rank 0's
+        numbers kept on all (``parallel/mesh.py`` ``probe_link_bandwidth``)."""
+        tree = self._topo_tree
+        with self._trace.span("link_probe", cat="probe"):
+            bw = probe_link_bandwidth(self.mesh, tree.names, tree.sizes,
+                                      tracer=self._trace, gate_ratio=self.cfg.dcn_probe_gate)
+        self._link_bw = broadcast_object(bw)
+        self.logger.info(
+            f"bandwidth probe over {list(tree.levels)}: level bytes/s "
+            f"{[round(r) for r in self._link_bw['level_bytes_per_s']]}, tree "
+            f"{self._link_bw['hier_wall_s']}s against flat {self._link_bw['flat_wall_s']}s "
+            f"(ratio {self._link_bw['wall_ratio']}, hier_wins {self._link_bw['hier_wins']}, "
+            f"rank 0's numbers)")
+
+    def _resolve_topology_tree(self):
+        """The JAX ``_resolve_topology_tree``: the declared tree
+        (``--hier_levels``), else the host/device split of the ranks (their
+        hosts, or ``--hier_hosts``). Returns ``(tree or None, learn)``,
+        ``learn`` for a ``learned`` prefix."""
+        cfg = self.cfg
+        spec = cfg.hier_levels.strip()
+        learn = False
+        if spec == "learned" or spec.startswith("learned,"):
+            learn = True
+            spec = spec[len("learned"):].lstrip(",")
+        tree = None
+        if spec:
+            tree = TopologyTree.declared(spec, self.n_dev)
+            if tree is None:
+                self.logger.warning(f"hier_levels={spec!r} does not factor {self.n_dev} ranks — "
+                                    "trying the two-level host/device split")
+        if tree is None:
+            tree = TopologyTree.from_process_topology(self.mesh.hosts, requested=cfg.hier_hosts)
+        return tree, learn
+
+    def _learn_tree_from_probe(self) -> None:
+        """The JAX ``_learn_tree_from_probe``: adjacent levels measured as
+        one link class merge; a merge to one level runs flat; a new tree is
+        probed again, so the rates match the final levels."""
+        rates = (self._link_bw or {}).get("level_bytes_per_s")
+        if not rates or len(rates) != len(self._topo_tree.levels):
+            return
+        merged = TopologyTree.learned(self._topo_tree, rates)
+        if merged is None:
+            self.logger.warning("hier_levels=learned: every level measured as the same link "
+                                "class (symmetric fabric) — falling back to the flat combine")
+            self._go_flat()
+            return
+        if merged.levels != self._topo_tree.levels:
+            self.logger.info(f"hier_levels=learned: merged {self._topo_tree.levels} -> "
+                             f"{merged.levels} from measured link rates")
+            self._topo_tree, self._hier_hosts = merged, merged.sizes[0]
+            self._probe_links()
+
+    def _resolve_wires(self) -> tuple:
+        """The JAX ``_resolve_wires``: one codec a level, outermost first,
+        the innermost fp32: ``--grad_comm_wires`` (one a level), ``auto``
+        (``choose_wires`` over the probe's level rates), else
+        ``--grad_comm_wire`` on the outermost hop and fp32 below."""
+        if self.grad_comm != "hier":
+            return ()
+        cfg = self.cfg
+        sizes = self._topo_tree.sizes
+        k = len(sizes)
+        spec = cfg.grad_comm_wires.strip()
+        if spec == "auto":
+            rates = (self._link_bw or {}).get("level_bytes_per_s")
+            if rates and len(rates) == k:
+                wires = choose_wires(sizes, rates)
+                self.logger.info(f"grad_comm_wires=auto: {dict(zip(self._topo_tree.names, wires))} "
+                                 "from measured link rates")
+                return wires
+            self.logger.warning("grad_comm_wires=auto needs the bandwidth probe's per-level rates "
+                                "(every rank on one host) — using the legacy default")
+            spec = ""
+        if spec:
+            wires = tuple(w.strip() for w in spec.split(","))
+            if len(wires) == k:
+                return wires
+            self.logger.warning(f"grad_comm_wires={spec!r} has {len(wires)} entries but the "
+                                f"resolved tree has {k} levels — using the legacy default")
+        return (cfg.grad_comm_wire,) + ("fp32",) * (k - 1)
+
+    def _record_grad_comm(self) -> None:
+        """Which combine the run's walls were measured under (the JAX
+        recorder's ``grad_comm*`` and ``link_bandwidth``), and the modeled
+        wall of one combine."""
+        meta = self.recorder.meta
+        meta["grad_comm"] = self.grad_comm
+        if self.grad_comm == "hier":
+            meta["grad_comm_wire"] = self.cfg.grad_comm_wire
+            meta["grad_comm_hosts"] = self._hier_hosts
+            meta["grad_comm_levels"] = [[n, int(s)] for n, s in self._topo_tree.levels]
+            meta["grad_comm_wires"] = list(self._grad_comm_wires)
+            meta["modeled_comm_step_s"] = self._modeled_comm_step_s()
+        if self._link_bw is not None:
+            meta["link_bandwidth"] = dict(self._link_bw)
 
     def _setup_data(self, bundle: Optional[DatasetBundle]) -> None:
         cfg = self.cfg
@@ -1458,15 +1627,20 @@ class Trainer:
     # ------------------------------------------------- window-cadence control
 
     def _comm_bytes_per_step(self) -> "tuple[float, float]":
-        """Bytes one combine moves a device (the JAX package's flat
-        formula, the port's element size): the gradient at 4 bytes an
-        element, or ``--compress_grads int8``'s wire
-        (``parallel/wire.py`` ``wire_payload_bytes``); counted "across
-        hosts" only when the ranks span hosts (the port's processes are
-        devices, not hosts)."""
+        """(ICI bytes, DCN bytes) of one combine, a device (the JAX
+        package's formula with the port's element size,
+        ``parallel/wire.py`` ``wire_payload_bytes``). Flat: the gradient at
+        4 bytes an element, or ``--compress_grads int8``'s wire, counted
+        "across hosts" only when the ranks span hosts. Hier: every hop of
+        ``parallel/wire.py`` ``tree_hop_bytes`` but the top one is the ICI
+        class; the top hop's chunk, on the outermost wire, the DCN class."""
         cfg = self.cfg
+        elems = self._param_elems
+        if self.grad_comm == "hier":
+            hops = tree_hop_bytes(elems, self._topo_tree.sizes, self._grad_comm_wires)
+            return float(sum(b for _, b in hops[:-1])), float(hops[-1][1])
         per_elem = wire_payload_bytes("int8", self.n_dev) if cfg.compress_grads == "int8" else 4
-        b = float(self._param_elems * per_elem)
+        b = float(elems * per_elem)
         return b, (b if self.mesh.cross_host else 0.0)
 
     def _record_collective(self, epoch: int) -> None:
@@ -1483,11 +1657,22 @@ class Trainer:
         rc.collective_s = []
 
     def _modeled_comm_step_s(self) -> float:
-        """The modeled wall of one gradient combine, which the JAX package
-        derives from a hierarchical collective's measured link rates. This
-        port's combine is flat (``--grad_comm hier`` is refused), so it is
-        0.0, the JAX package's compute-only model."""
-        return 0.0
+        """The modeled wall of one combine over the bandwidth probe's
+        measured level rates (the JAX package's): each hop's bytes
+        (``tree_hop_bytes``, as :meth:`_comm_bytes_per_step` counts them)
+        over its level's rate, summed (the hops run one after another). 0.0
+        without a tree or without measured rates (the compute-only model)."""
+        if self.grad_comm != "hier" or self._topo_tree is None:
+            return 0.0
+        rates = (self._link_bw or {}).get("level_bytes_per_s")
+        sizes, wires = self._topo_tree.sizes, self._grad_comm_wires
+        if not rates or len(rates) != len(sizes) or len(wires) != len(sizes):
+            return 0.0
+        r = [float(x) if x and float(x) > 0 else 0.0 for x in rates]
+        if any(x <= 0.0 for x in r):
+            return 0.0
+        hops = tree_hop_bytes(self._param_elems, sizes, wires)
+        return float(sum(b / r[level] for level, b in hops))
 
     def _window_controller(self) -> Optional[OnlineRebalanceController]:
         """The online controller under ``--rebalance window`` (built once;
@@ -1752,7 +1937,8 @@ class Trainer:
                         self._rank_step_graphs("fused", [b], slow, body, warm)
                         table[s].copy_(self._worker_loss)
                     rng = fold_in(root, self.steps_done)
-                    self._combine_step(fold_in(rng, 0x7FFF) if cfg.shard_update else rng)
+                    hop = cfg.shard_update or self.grad_comm == "hier"
+                    self._combine_step(fold_in(rng, 0x7FFF) if hop else rng)
         loss_sum, count = self._gather_losses(table, int(sum(n_real)))
         probe_overhead = 0.0
         if self._fused_sync_per_step is None:
@@ -2065,7 +2251,8 @@ class Trainer:
         """This rank at the end of a run: the data axis, the kernels'
         launch counts, a SHA-256 of the parameters' bytes (equal on every
         rank when the ranks agree bit for bit), the combine's buffers, the
-        collective walls, the last epoch's series and the peak device
+        combine that ran with its wires and the bandwidth probe's numbers
+        it took, the collective walls, the last epoch's series and the peak device
         memory."""
         import hashlib
 
@@ -2080,6 +2267,8 @@ class Trainer:
             "workers": list(self._local_workers()), "launches": dict(runtime.LAUNCHES),
             "param_sha256": h.hexdigest(),
             "combine": None if self._rank_combine is None else self._rank_combine.describe(),
+            "grad_comm": self.grad_comm, "grad_comm_wires": list(self._grad_comm_wires),
+            "link_bandwidth": self._link_bw,
             "collective": self.recorder.meta.get("collective"),
             "paths": self.recorder.meta.get("paths"),
             "series": {k: data.get(k) for k in ("train_loss", "val_loss", "accuracy", "partition",

@@ -71,6 +71,18 @@ graph's memory pool. The sums are the same as before in the same order
 on the first step as torch's clone-on-first-step does (``train/state.py``).
 A load's iteration count is an int, or the device int32 scalar that a
 captured load reads (``ops/faultload.py``).
+
+Remat (``--remat``, the JAX ``_apply_train``'s ``jax.checkpoint``): on a
+model marked by ``set_remat`` every training forward (``forward``: the
+steps, the probes) runs under ``torch.utils.checkpoint`` (non-reentrant),
+so its activations are recomputed in the backward instead of kept. The
+recompute runs the same kernels on the same inputs (K1's and K3's forwards
+launch a second time) and takes the forward's dropout masks from a tape
+(``models/common.py`` ``keep_mask``), so the gradients are the ones
+without remat, bit for bit wherever the kernels are deterministic. The
+shared ``cast_compute`` copies stay outside the checkpoint (each worker's
+recompute reuses them); the input's cast is inside. Evaluation never goes
+through ``forward``.
 """
 
 from __future__ import annotations
@@ -78,7 +90,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from dynamic_load_balance_distributeddnn_tpu_torch.models.common import mask_replay_contexts
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import softmax_xent
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, y, w)
@@ -98,18 +112,37 @@ def cast_compute(named: Iterable[Tuple[str, torch.Tensor]], dtype: Optional[torc
     return {k: t.to(dtype) if t.dtype == torch.float32 else t for k, t in named}
 
 
+_REMAT = "_remat_forward"  # the attribute set_remat puts on a model
+
+
+def set_remat(model: torch.nn.Module, remat: bool) -> None:
+    """Mark ``model`` so that ``forward`` recomputes its training forward in
+    the backward (``--remat``), or unmark it."""
+    setattr(model, _REMAT, bool(remat))
+
+
+def _apply(model: torch.nn.Module, x, compute_dtype: Optional[torch.dtype], cast: Cast):
+    if compute_dtype is None:
+        return model(x)
+    if x.dtype == torch.float32:
+        x = x.to(compute_dtype)
+    return torch.func.functional_call(model, cast, (x,))
+
+
 def forward(model: torch.nn.Module, x, compute_dtype: Optional[torch.dtype] = None,
             cast: Cast = None) -> torch.Tensor:
     """The training forward: ``model(x)``, or under ``compute_dtype`` the
     model on ``cast`` (``cast_compute`` of its parameters, made here when
-    not given) with an f32 input cast too."""
-    if compute_dtype is None:
-        return model(x)
-    if cast is None:
+    not given) with an f32 input cast too; on a model marked by
+    ``set_remat``, under ``torch.utils.checkpoint`` (the module docstring)."""
+    if compute_dtype is not None and cast is None:
         cast = cast_compute(model.named_parameters(), compute_dtype)
-    if x.dtype == torch.float32:
-        x = x.to(compute_dtype)
-    return torch.func.functional_call(model, cast, (x,))
+    if getattr(model, _REMAT, False):
+        # no default generator draws here (every mask is keep_mask's), so
+        # their states need not be kept; reading them is not capture-safe
+        return checkpoint(_apply, model, x, compute_dtype, cast, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=mask_replay_contexts)
+    return _apply(model, x, compute_dtype, cast)
 
 
 def weighted_loss(model: torch.nn.Module, x, y, w, compute_dtype: Optional[torch.dtype] = None,

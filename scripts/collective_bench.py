@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a combine's collective time goes with two ranks on one NVIDIA card.
+"""Where a combine's collective time goes with ranks on one NVIDIA card.
 
     python3 scripts/collective_bench.py [--ranks 2] [--reps 20] [--out DIR]
 
@@ -18,7 +18,18 @@ runs each:
   combine: each leaf's scale, the murmur dither at each element's flax
   ravel position, the float16 sum);
 - ``zero1``: ZeRO-1's reduce-scatter and all-gather of the buffer;
-- ``zero1_int8``: the same with the int8 reduce-scatter.
+- ``zero1_int8``: the same with the int8 reduce-scatter;
+
+and with 4 or more ranks (an even count) the ``--grad_comm hier`` combine
+on the tree (2, ranks / 2), a synthetic two-host split
+(``train/combine.py`` ``RankCombine`` on the tree): the buffer permuted
+into the JAX ravel order, ``tree_allreduce`` with its residuals, and the
+permutation back,
+
+- ``hier_fp32``, ``hier_int8``, ``hier_int4``: on the wires fp32, int8 and
+  int4 over the outer hop (fp32 inside);
+- ``hier_zero1``: ZeRO-1 on the tree, int8 over the outer hop: the
+  scatter up the tree, then the gather of the chunks back down.
 
 Each rank prints its medians beside the card's name and power limit (its
 output in ``<out>/rank<i>.out``, printed at the end); rank 0's table also
@@ -83,7 +94,10 @@ def rank_main(args) -> None:
             torch.cuda.synchronize(dev)
         return run
 
-    work = {
+    work = {}
+    if args.ranks >= 4 and args.ranks % 2 == 0:
+        work.update(hier_work(args, model, mesh, dev))
+    work_flat = {
         "d2h": d2h,
         "gloo_sum": lambda: dist.all_reduce(host),
         "h2d": h2d,
@@ -94,6 +108,7 @@ def rank_main(args) -> None:
         "zero1_int8": sync_after(lambda: mesh.all_gather(gathered, wire.compressed_reduce_scatter(
             flat, keys[0], mesh, args.ranks, "int8", fg.index))),
     }
+    work = dict(work_flat, **work)
     out = {"card": card(), "rank": args.rank, "ranks": args.ranks, "elems": int(flat.numel()),
            "leaves": len(fg.sizes), "ms": {}}
     for name, fn in work.items():
@@ -113,6 +128,43 @@ def rank_main(args) -> None:
         with open(os.path.join(args.out, "collective_bench.json"), "w") as f:
             json.dump(out, f, indent=1)
     dist.destroy_process_group()
+
+
+def hier_work(args, model, mesh, dev):
+    """The hier arms (module docstring): each a ``RankCombine`` of its own
+    on the tree (2, ranks / 2), its buffer filled from a seed, its
+    collective timed without the optimizer's update."""
+    import torch
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel import wire
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.prng import prng_key
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.combine import RankCombine
+
+    tree = (("host", "device"), (2, args.ranks // 2))
+    opt = torch.optim.SGD(model.parameters(), lr=0.0, momentum=0.9)
+    key = prng_key(args.rank)
+    work = {}
+    for name, wires, zero1 in (("hier_fp32", ("fp32", "fp32"), False),
+                               ("hier_int8", ("int8", "fp32"), False),
+                               ("hier_int4", ("int4", "fp32"), False),
+                               ("hier_zero1", ("int8", "fp32"), True)):
+        rc = RankCombine(mesh, model, opt, 0.9, shard_update=zero1, tree=tree, wires=wires)
+        rc.grads.flat.copy_(torch.randn(rc.grads.flat.numel(), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(args.rank)) * 1e-3)
+
+        def run(rc=rc):
+            flat = rc.grads.flat
+            if rc.shard_update:
+                g, rc.residuals = rc._tree_scatter(flat, key, rc.residuals)
+                rc._from_jax(rc._tree_gather(g), rc.trace)
+            else:
+                out, rc.residuals = wire.tree_allreduce(rc._to_jax(flat), key, rc.axes, rc.wires,
+                                                        rc.residuals)
+                rc._from_jax(out, torch.empty_like(flat))
+            torch.cuda.synchronize(dev)
+
+        work[name] = run
+    return work
 
 
 def main() -> int:

@@ -7,7 +7,7 @@ a fresh ``python -c`` child that imports it (the test modules import JAX).
 ``launch(world, jobs, tmp)`` starts ``world`` ranks, each with one torch
 thread, that rendezvous through ``file://`` under ``tmp`` and run the same
 ``jobs`` in order in one process group (a job is a dict with a ``kind``:
-``train``, ``collectives`` or ``combine``); ``scripts/rank_launch.py``
+``train``, ``collectives``, ``combine`` or ``tree``); ``scripts/rank_launch.py``
 ``launch_ranks`` joins them with a timeout, kills them all when it expires
 or a rank fails, and raises with their logs, so a hang fails the test
 instead of the tier. It returns each rank's results.
@@ -109,7 +109,9 @@ def train_outputs(tr) -> dict:
     return {
         "data": {k: list(v) for k, v in tr.recorder.data.items()},
         "meta": {k: tr.recorder.meta.get(k) for k in ("paths", "ranks", "combine", "collective",
-                                                      "supersteps")},
+                                                      "supersteps", "grad_comm", "grad_comm_levels",
+                                                      "grad_comm_wires", "link_bandwidth",
+                                                      "modeled_comm_step_s")},
         "params": {k: p.detach().clone() for k, p in named.items()},
         "momentum": {k: b.clone() for k, b in bufs.items() if b is not None},
         "chunk": None if rc is None or not rc.shard_update else rc.mom.clone(),
@@ -183,7 +185,35 @@ def _combine(job: dict, rank: int, world: int) -> dict:
             named[k].grad.copy_(g)
         rc.step(1.0, key)
         out[name] = {k: p.detach().clone() for k, p in named.items()}
+        if rc.axes is not None:
+            out[name + ":residuals"] = [r.clone() for r in rc.residuals]
     return out
 
 
-_JOBS = {"train": _train, "collectives": _collectives, "combine": _combine}
+def _tree(job: dict, rank: int, world: int) -> dict:
+    """``parallel/wire.py`` ``tree_allreduce`` of this rank's row of
+    ``job["v"]`` for each of ``job["cases"]`` (name: ``(names, sizes,
+    wires, residuals)``, ``residuals`` None or one ``[world, W_i]`` array a
+    hop), key ``fold_in(PRNGKey(job["seed"]), rank)``: the output and the
+    new residuals of each case, and on two levels whether
+    ``hier_tree_allreduce`` gives the same."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel import wire
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import data_mesh
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.prng import fold_in, prng_key
+
+    mesh = data_mesh("cpu")
+    key = fold_in(prng_key(job["seed"]), rank)
+    v = torch.from_numpy(job["v"][rank])
+    out = {}
+    for name, (names, sizes, wires, res) in job["cases"].items():
+        axes = mesh.tree_axes(names, sizes)
+        res = None if res is None else [torch.from_numpy(r[rank]) for r in res]
+        total, new = wire.tree_allreduce(v, key, axes, wires, res)
+        out[name] = {"out": total, "residuals": new, "groups": [a.ranks for a in axes]}
+        if len(axes) == 2:  # the two-level delegate gives the same
+            t2, r2 = wire.hier_tree_allreduce(v, key, *axes, wires[0], None if res is None else res[0])
+            out[name]["two_level_same"] = torch.equal(t2, total) and torch.equal(r2, new[0])
+    return out
+
+
+_JOBS = {"train": _train, "collectives": _collectives, "combine": _combine, "tree": _tree}

@@ -11,8 +11,8 @@ More than one process (``num_processes`` / ``process_id``) is accepted, and
 what the port does not run across processes (the language model,
 ``--rebalance window``, ``--ckpt_dir``) raises ``NotImplementedError`` naming
 its flag. The flags the slices ported (``trace``, ``trace_spool``,
-``ckpt_dir``, ``profile_dir``, ``fused_dbs``, ``coordinator``, ...) are
-accepted; the flags that stay refused still raise naming themselves.
+``ckpt_dir``, ``profile_dir``, ``fused_dbs``, ``coordinator``,
+``grad_comm``, ``remat``, ...) are accepted; the flags that stay refused still raise naming themselves.
 """
 
 import pytest
@@ -111,10 +111,11 @@ def test_more_than_one_process_raises_naming_the_flag(flag, value):
 
 
 @pytest.mark.parametrize("override", [
-    {"grad_comm": "hier", "trace": "on"}, {"grad_comm": "hier", "hier_levels": "host:2"},
-    {"elastic": "on", "ckpt_dir": "ck"}, {"remat": True, "profile_dir": "prof"},
+    {"elastic": "on", "grad_comm": "hier", "trace": "on"},
+    {"seq_parallel": "ring", "hier_levels": "host:2"},
+    {"elastic": "on", "ckpt_dir": "ck"}, {"seq_parallel": "ring", "remat": True, "profile_dir": "prof"},
     {"seq_parallel": "ulysses", "trace": "ring", "trace_spool": "s"},
-    {"grad_comm": "hier", "dcn_bandwidth_probe": True},
+    {"elastic": "on", "grad_comm": "hier", "dcn_bandwidth_probe": True},
 ])
 def test_flags_that_stay_refused_raise_beside_the_ported_ones(override):
     flag = next(iter(override))

@@ -6,8 +6,8 @@ package's checks of them, on the port's ``Config`` beside the JAX one.
   accepted where the JAX ``Config`` accepts it.
 - The JAX package's checks (``compress_grads`` and ``grad_accum`` ride a
   fused path) raise the JAX exception type and message.
-- What stays refused raises ``NotImplementedError`` naming its flag:
-  ``--grad_comm hier`` (with its levels, wires and probe), the language
+- What stays refused raises ``NotImplementedError`` naming its flag (also
+  beside ``--grad_comm hier`` and ``--remat``, which run): the language
   model, ``--rebalance window`` and ``--ckpt_dir`` across processes, a
   ``-gpu`` slice naming several devices in one process (the message points
   to the multi-process flags), ``--coordinator`` without the process count
@@ -58,9 +58,11 @@ def test_the_jax_fused_path_checks_raise_the_jax_message(bad):
 
 
 @pytest.mark.parametrize("override,flag", [
-    ({"grad_comm": "hier"}, "--grad_comm"),
-    ({"grad_comm": "hier", "hier_levels": "host:2", "grad_comm_wires": "int8,fp32"}, "--grad_comm"),
-    ({"grad_comm": "hier", "dcn_bandwidth_probe": True}, "--grad_comm"),
+    ({**LM, "grad_comm": "hier", "num_processes": 4}, "--model"),
+    ({"rebalance": "window", "grad_comm": "hier", "hier_levels": "host:2",
+      "grad_comm_wires": "int8,fp32", "num_processes": 4}, "--rebalance"),
+    ({"ckpt_dir": "ck", "grad_comm": "hier", "dcn_bandwidth_probe": True, "num_processes": 4},
+     "--ckpt_dir"),
     ({**LM, "num_processes": 2}, "--model"),
     ({"rebalance": "window", "num_processes": 2}, "--rebalance"),
     ({"ckpt_dir": "ck", "num_processes": 4, "process_id": 2}, "--ckpt_dir"),
@@ -73,7 +75,7 @@ def test_the_jax_fused_path_checks_raise_the_jax_message(bad):
     ({**LM, "shard_update": True}, "--shard_update"),
     ({"elastic": "on", "num_processes": 2}, "--elastic"),
     ({"seq_parallel": "ring", "num_processes": 2}, "--seq_parallel"),
-    ({"remat": True, "num_processes": 2}, "--remat"),
+    ({"elastic": "on", "remat": True, "num_processes": 2}, "--elastic"),
 ])
 def test_refusals_raise_naming_the_flag(override, flag):
     with pytest.raises(NotImplementedError, match=flag):

@@ -65,13 +65,14 @@ LM = dict(model="transformer", dataset="wikitext2")  # the LM's fused paths are 
 
 @pytest.mark.parametrize("override", [
     {"num_processes": 2, **LM}, {"fused_dbs": True, **LM}, {"shard_update": True, **LM},
-    {"grad_comm": "hier"}, {"compress_grads": "int8", **LM, "dynamic_batch_size": False},
+    {"elastic": "on", "grad_comm": "hier"},
+    {"compress_grads": "int8", **LM, "dynamic_batch_size": False},
     {"grad_accum": 2, **LM, "dynamic_batch_size": False}, {"process_id": 1, "rebalance": "window"},
     {"elastic": "on"}, {"coordinator": "localhost:1"}, {"elastic": "on", "trace": "on"},
-    {"remat": True, "fault_schedule": "sin", "straggler": "2,1,1,1"},
-    {"seq_parallel": "ulysses"}, {"remat": True},
+    {"seq_parallel": "ring", "remat": True, "fault_schedule": "sin", "straggler": "2,1,1,1"},
+    {"seq_parallel": "ulysses"}, {"elastic": "on", "remat": True},
     {"shard_update": True, "ckpt_dir": "ck", **LM},
-    {"remat": True, "trace": "ring"}, {"seq_parallel": "ring"},
+    {"seq_parallel": "ulysses", "remat": True, "trace": "ring"}, {"seq_parallel": "ring"},
     {"device": [0, 1], "world_size": 2},
 ])
 def test_unported_settings_raise_naming_the_flag(override):

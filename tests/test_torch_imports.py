@@ -125,3 +125,11 @@ def test_lm_cli_defaults_to_cuda(tmp_path, no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(argv)
     assert not (tmp_path / "logs").exists()  # refused before touching disk
+
+
+def test_the_import_checks_cover_the_sweep_and_the_tree():
+    """The walk above covers the sweep harness and the modules of the
+    topology tree and the remat tape as well."""
+    mods = set(_modules())
+    for name in ("sweep", "parallel.topology", "parallel.wire", "models.common", "train.steps"):
+        assert f"{port.__name__}.{name}" in mods, name

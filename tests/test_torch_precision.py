@@ -480,11 +480,12 @@ def test_cli_trains_in_bf16(tmp_path, spies, recipe):
 
 _LM = dict(model="transformer", dataset="wikitext2")  # the LM's fused paths are not ported
 STILL_UNPORTED = [
-    {"fused_dbs": True, **_LM}, {"shard_update": True, **_LM}, {"grad_comm": "hier"},
+    {"fused_dbs": True, **_LM}, {"shard_update": True, **_LM},
+    {"elastic": "on", "grad_comm": "hier", "hier_hosts": 2},
     {"compress_grads": "int8", **_LM, "dynamic_batch_size": False},
     {"grad_accum": 2, **_LM, "dynamic_batch_size": False}, {"elastic": "on"},
     {"coordinator": "localhost:1"}, {"num_processes": 2, **_LM}, {"seq_parallel": "ring"},
-    {"remat": True}, {"process_id": 1}, {"seq_parallel": "ulysses"},
+    {"seq_parallel": "ring", "remat": True}, {"process_id": 1}, {"seq_parallel": "ulysses"},
 ]
 
 
