@@ -165,45 +165,76 @@ phase runs.
    layer's gradient, the card's error within ``BF16_CARD_MULTIPLE`` times
    the CPU's bf16 error.
 
-7. Data parallelism across processes: two ranks on ``cuda:0``, each a
-   ``python -m dynamic_load_balance_distributeddnn_tpu_torch.cli`` process
-   (``-m densenet -ds cifar10 -ws 2 -b 512 -gpu 0,0 --straggler 3,1
-   --fault_mode virtual -e 2 --n_train 4096 --coordinator 127.0.0.1:<free
-   port> --num_processes 2 --process_id <i>``: DenseNet-121 at its
-   published width, B = 512 over two ranks), the gradient collectives on gloo through
-   pinned host memory (two ranks share the card), in three arms: (a) the
-   default DBS path (window-mode elastic epochs), (b) ``--fused_dbs true``,
-   (c) ``-dbs false --grad_accum 2 --compress_grads int8 --shard_update
-   true`` (the fused path, ZeRO-1 on the int8 wire). Each rank writes a
-   report beside the run's statistics (``cli.rank_report_file``,
-   ``Trainer.rank_report``). Checks: gloo with 2
+7. Data parallelism across processes: two ranks on ``cuda:0``, the
+   gradient collectives on gloo through pinned host memory (two ranks share
+   the card). The ranks of [7], [7c] and [8] are started once
+   (``scripts/rank_launch.py`` ``run_rank_jobs``: one process group, every
+   arm a ``cli.main`` call that reuses it, from zeroed launch counters and
+   peak statistics) and run every arm in turn; each arm is the cli on
+   ``<flags> --num_processes 2 --process_id <i>``. [7]: ``-m densenet -ds
+   cifar10 -ws 2 -b 512 -gpu 0,0 --straggler 3,1 --fault_mode virtual -e 2
+   --n_train 4096`` (DenseNet-121 at its published width, B = 512 over two
+   ranks) in three arms: (a) the default DBS path (window-mode elastic
+   epochs), (b) ``--fused_dbs true``, (c) ``-dbs false --grad_accum 2
+   --compress_grads int8 --shard_update true`` (the fused path, ZeRO-1 on
+   the int8 wire). Each rank writes a report beside the run's statistics
+   (``cli.rank_report_file``, ``Trainer.rank_report``). Checks: gloo with 2
    ranks; the ranks' parameters bit for bit equal (their SHA-256); finite,
-   falling losses; in (a) and (b) worker 0's share below 0.40 by the last epoch;
-   K1 and K2 launched on each rank; in (c) each rank's momentum chunk half
-   the padded flat parameter count. Printed: the epoch walls, each epoch's
-   collective walls (mean and max a step), ``sync_time``,
-   ``comm_bytes_*`` and each rank's peak memory. A rank that fails or
-   outlives ``DIST_TIMEOUT_S`` fails the phase: both are killed and their
-   logs printed. It runs right after [3b], while this process holds the
-   least device memory (the ranks share the card with it).
-7b. ``--grad_comm hier`` across four ranks on ``cuda:0`` over gloo
-   (``-m densenet -ds cifar10 -ws 4 -b 512 -gpu 0,0,0,0 --straggler 3,1,1,1
-   -e 2 --n_train 4096 --grad_comm hier --hier_hosts 2``: the tree (2, 2) on
-   a synthetic two-host split), three arms: (a) the default wires (int8 on
-   the outer hop, fp32 inside), DBS on; (b) ``--grad_comm_wires int4,fp32
-   --shard_update true`` (ZeRO-1 on the tree); (c) ``--hier_levels learned
-   --dcn_bandwidth_probe true --grad_comm_wires auto`` (the bandwidth probe,
-   the learned tree and the wires it picks; on one host it may merge to
-   flat). Checks: gloo with 4 ranks; the ranks' parameters bit for bit
-   equal; finite, falling losses; one combine, one set of wires and one
+   falling losses; in (a) and (b) worker 0's share below 0.40 by the last
+   epoch; K1 and K2 launched on each rank; in (c) each rank's momentum chunk
+   half the padded flat parameter count. Printed: each arm's wall, the
+   epoch walls, each epoch's collective walls (mean and max a step),
+   ``sync_time``, ``comm_bytes_*`` and each rank's peak memory. A rank that
+   fails or outlives the launch's limit fails the phase: every rank is
+   killed and their logs printed. It runs right after [3b], while this
+   process holds the least device memory (the ranks share the card with
+   it).
+7c. The language model across ranks, in the same launch: ``-m transformer
+   -ds wikitext2 -d false -ws 2 -b 80 -gpu 0,0 --bptt 35 --grad_clip 0.25
+   --straggler 3,1 --fault_mode virtual --use_flash_attention true -e 2``
+   (``BASELINE.md`` config 5 at full width) in [7]'s three arms. Checks:
+   the ranks' parameters bit for bit equal; finite, falling losses; share
+   off worker 0 in (a) and (b); ``comm_bytes_ici`` the flat formula (4
+   bytes an element, or the int8 wire's) times each epoch's combines; K2
+   and K3 launched on each rank; in (c) the half momentum chunk.
+8. Sequence parallelism, in the same launch: ``-m transformer -ds
+   wikitext2 -d false -ws 2 -b 32 -gpu 0,0 --bptt 1024 -e 2 --seq_parallel
+   ring``, then ``ulysses`` (6 windows of [32, 1024] an epoch, each rank
+   512 positions). Checks: the ranks' parameters bit for bit equal;
+   finite, falling losses; the recorder's series; K2 launched on each
+   rank. In the ranks (``sp_checks``): the first window's loss and
+   gradients through ``seq_parallel_value_and_grad`` of both modes against
+   the one-device LM on the card with the same weights, dropout 0 (rtol
+   1e-5, atol 5e-4: the CPU tests' tolerances), and
+   ``ulysses_self_attention(use_flash=True)`` at that shape (one head a
+   rank after the all-to-all, T = 1,024: K3's tiled route) against
+   ``use_flash=False`` (atol 2e-5 forward, 5e-4 gradients).
+7b. ``--grad_comm hier`` across four ranks on ``cuda:0`` over gloo, started
+   once for every arm (``-m densenet -ds cifar10 -ws 4 -b 512 -gpu 0,0,0,0
+   --straggler 3,1,1,1 -e 2 --n_train 4096 --grad_comm hier --hier_hosts
+   2``: the tree (2, 2) on a synthetic two-host split), three arms: (a) the
+   default wires (int8 on the outer hop, fp32 inside), DBS on; (b)
+   ``--grad_comm_wires int4,fp32 --shard_update true`` (ZeRO-1 on the
+   tree); (c) ``--hier_levels learned --dcn_bandwidth_probe true
+   --grad_comm_wires auto`` (the bandwidth probe, the learned tree and the
+   wires it picks; on one host it may merge to flat); and a fourth, the
+   language model (``-m transformer -ds wikitext2 -d false -ws 4 -b 80
+   --bptt 35 --use_flash_attention true`` on the same tree, DBS on, the
+   default wires). Checks: gloo with 4 ranks; the ranks' parameters bit for
+   bit equal; finite, falling losses; one combine, one set of wires and one
    probe verdict on every rank; ``comm_bytes_ici``/``_dcn`` the hier
    formula times each epoch's combines (the flat one if (c) merged); in (b)
-   each rank's momentum chunk a quarter of the padded flat parameter
-   count. Printed: the probe's rates and verdict, the epoch walls, the
-   collective a step and each rank's peak memory. It runs right after [7].
+   each rank's momentum chunk a quarter of the padded flat parameter count;
+   K1 and K2 (the LM: K2 and K3) launched on each rank. Printed: the
+   probe's rates and verdict, the epoch walls, the collective a step and
+   each rank's peak memory. It runs right after [7]-[8].
+
+Every phase's seconds (each header to the next) and each rank phase's
+seconds inside its launch are printed before the JSON lines.
 
 The last two lines are the kernels' JSON record (launches summed over every
-path of this process; [7]'s ranks report their own) and the result line. Full tables go to ``chiprun_out/chip_smoke/``.
+path of this process; the ranks of [7]-[8] report their own) and the result line. Full tables go
+to ``OUT``.
 """
 
 from __future__ import annotations
@@ -302,7 +333,6 @@ DIST_ARMS = (
      ["-dbs", "false", "--grad_accum", "2", "--compress_grads", "int8", "--shard_update", "true"]),
 )
 DIST_RANKS = 2
-DIST_TIMEOUT_S = 150
 DIST_SHARE_MAX = 0.40
 # [7b]: four ranks on cuda:0 over gloo, DenseNet-121 at its published width,
 # --grad_comm hier on a synthetic two-host split (the tree (2, 2)), 2 epochs
@@ -316,7 +346,31 @@ HIER_ARMS = (
      ["--hier_levels", "learned", "--dcn_bandwidth_probe", "true", "--grad_comm_wires", "auto"]),
 )
 HIER_RANKS = 4
-HIER_TIMEOUT_S = 300
+# [7c]: the language model over two ranks on cuda:0 (gloo), BASELINE.md
+# config 5 at full width ([5]'s recipe at -ws 2), the arms of [7]
+LM_DIST_ARGV = ("-m transformer -ds wikitext2 -d false -ws 2 -b 80 -gpu 0,0 --bptt 35 "
+                "--grad_clip 0.25 --straggler 3,1 --fault_mode virtual "
+                "--use_flash_attention true -e 2").split()
+LM_DIST_ARMS = (
+    ("a", "the default DBS path (window-mode elastic epochs)", []),
+    ("b", "--fused_dbs true", ["--fused_dbs", "true"]),
+    ("c", "the fused path, --grad_accum 2, the int8 wire, ZeRO-1",
+     ["-dbs", "false", "--grad_accum", "2", "--compress_grads", "int8", "--shard_update", "true"]),
+)
+# [7b]'s fourth arm: the language model on the tree (2, 2), 4 ranks
+HIER_LM_ARGV = ("-m transformer -ds wikitext2 -d false -ws 4 -b 80 -gpu 0,0,0,0 --bptt 35 "
+                "--grad_clip 0.25 --straggler 3,1,1,1 --fault_mode virtual "
+                "--use_flash_attention true -e 2 --grad_comm hier --hier_hosts 2").split()
+# [8]: sequence parallelism over two ranks on cuda:0, the LM at full width on
+# [B = 32, T = 1024] windows (6 full windows an epoch of the committed files)
+SP_ARGV = "-m transformer -ds wikitext2 -d false -ws 2 -b 32 -gpu 0,0 --bptt 1024 -e 2".split()
+SP_MODES = ("ring", "ulysses")
+SP_B, SP_T = 32, 1024
+SP_ATTN_TOL = (2e-5, 5e-4)  # forward, gradients: K3 against the plain local attention
+SP_LOSS_RTOL, SP_GRAD_ATOL = 1e-5, 5e-4  # the CPU tests' (tests/test_torch_seq_parallel.py)
+# each launch's time limit: the ranks start once and run every arm of their phases
+RANKS2_TIMEOUT_S = 900
+RANKS4_TIMEOUT_S = 600
 
 
 def with_epochs(argv, epochs: int):
@@ -404,6 +458,9 @@ XENT_LM_SHAPE = (40 * 35, XENT_LM_V)
 XENT_PATH_ROWS = (105, 700, 910, 40 * 35)
 XENT_VAL_ROWS = 1024 * 35
 XENT_FULL_V = 33278  # wikitext-2's vocabulary once train.txt is present
+# K2 in [8]: a rank's half of the [32, 1024] window (its step) and of a
+# validation chunk of 10 windows
+XENT_SP_ROWS = (SP_B * SP_T // DIST_RANKS, 10 * SP_T // DIST_RANKS)
 CNN_KERNELS = ("groupnorm_fwd", "groupnorm_bwd", "xent_fwd", "xent_bwd")
 SYNTH_ITERS = 1000  # the synthetic load's timed call
 GN_GENERAL = ("groupnorm_fwd_general", "groupnorm_bwd_general")
@@ -606,7 +663,8 @@ def check_xent(torch, dev, records):
     """K2 forward and backward against their plain versions (the backward's
     with the kernel's own lse) on the same inputs: [128, 10] (one DenseNet
     worker's logits), [512, 10] (a packed step's), [1400, 18328] (the language model's), [105, 33278]
-    (the full wikitext-2 vocabulary, rows off 16-byte boundaries), each in
+    (the full wikitext-2 vocabulary, rows off 16-byte boundaries), [16384,
+    18328] and [5120, 18328] (a rank's step and validation chunk in [8]), each in
     f32 and bf16, with two labels out of range in the first; and logits[1:]
     of a [14, 10] tensor, a base off a 16-byte boundary. Tolerance: loss and
     lse atol 1e-5 (f32 sums in another order); each gradient entry within
@@ -623,7 +681,8 @@ def check_xent(torch, dev, records):
 
     gen = torch.Generator().manual_seed(1)
     err = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    cases = [(128, 10), (512, 10), XENT_LM_SHAPE, (105, XENT_FULL_V)]
+    cases = [(128, 10), (512, 10), XENT_LM_SHAPE, (105, XENT_FULL_V)] + [
+        (r, XENT_LM_V) for r in XENT_SP_ROWS]
     for dtype in (torch.float32, torch.bfloat16):
         rtol = 1e-5 if dtype == torch.float32 else 2.0**-8 + 1e-5
         for i, (r, v) in enumerate(cases + [(14, 10)]):
@@ -2295,61 +2354,103 @@ def time_kernels(torch, dev):
     return timing, gt, gp, gp16, xt, at, shapes, gn_routes
 
 
-def run_ranks(tag: str, argv, ranks: int = DIST_RANKS, timeout: float = DIST_TIMEOUT_S):
-    """``ranks`` cli processes of one recipe, ranks of one gloo group on
-    ``cuda:0``, through ``scripts/rank_launch.py`` ``run_cli_ranks``:
-    joined with ``timeout`` seconds, all killed (and their logs printed)
-    when one fails or the time runs out. Returns (each rank's report, rank
-    0's series, the arm's wall)."""
-    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
-    from scripts.rank_launch import RanksFailed, run_cli_ranks
+def run_rank_phases(tag: str, jobs, ranks: int, timeout: float):
+    """``ranks`` ranks of one gloo group on ``cuda:0``, started once, running
+    ``jobs`` in order (``scripts/rank_launch.py`` ``run_rank_jobs``: each cli
+    job reuses the group, each starts from zeroed launch counters): joined
+    with ``timeout`` seconds, all killed (and their logs printed) when one
+    fails or the time runs out. Returns ``(the jobs' results by name, the
+    launch's directory)``; logs the launch's wall and start-up."""
+    from scripts.rank_launch import RanksFailed, run_rank_jobs
 
     run_dir = os.path.join(OUT, tag)
     shutil.rmtree(run_dir, ignore_errors=True)
-    log("  python -m dynamic_load_balance_distributeddnn_tpu_torch.cli " + " ".join(argv)
-        + f" --coordinator 127.0.0.1:<free port> --num_processes {ranks} --process_id <i>")
+    for name, job in jobs.items():
+        what = ("python -m dynamic_load_balance_distributeddnn_tpu_torch.cli " + " ".join(job["argv"])
+                + f" --num_processes {ranks} --process_id <i>") if "argv" in job else job["call"]
+        log(f"  {name}: {what}")
     try:
-        reports, wall, argv0 = run_cli_ranks(argv, ranks, run_dir, timeout)
+        got, wall, startup = run_rank_jobs(jobs, ranks, run_dir, timeout)
     except RanksFailed as e:
         log(str(e))
         raise AssertionError(f"{tag}: the ranks failed") from None
-    cfg = config_from_args(argv0)
+    jobs_s = sum(max(r["wall"] for r in res) for res in got.values())
+    log(f"  {ranks} ranks started once for {len(jobs)} jobs: launch wall {wall:.1f}s, of which "
+        f"the jobs {jobs_s:.1f}s and each rank's start-up (imports, CUDA, rendezvous) "
+        f"{[round(x, 1) for x in startup]} s")
+    return got, run_dir
+
+
+def job_wall(results) -> float:
+    """A job's wall: the slowest rank's (every job starts behind a barrier)."""
+    return max(r["wall"] for r in results)
+
+
+def cli_series(run_dir: str, name: str, argv, ranks: int):
+    """Rank 0's series of cli job ``name`` of a ``run_rank_phases`` launch."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+    from scripts.rank_launch import cli_job_argv
+
+    full = cli_job_argv({"argv": argv}, ranks, os.path.join(run_dir, name)) + ["--process_id", "0"]
+    cfg = config_from_args(full)
     with open(os.path.join(cfg.stat_dir, cfg.base_filename().format(0) + ".json")) as f:
-        series = json.load(f)
-    return reports, series, wall
+        return json.load(f)
 
 
-def check_ranks(arm: str, reports, series, wall):
-    """[7]'s checks of one arm (the module docstring) and its numbers."""
+def cli_arm(got, run_dir: str, name: str, argv, ranks: int):
+    """(each rank's report, rank 0's series, the job's wall) of a cli job."""
+    return ([r["report"] for r in got[name]], cli_series(run_dir, name, argv, ranks),
+            job_wall(got[name]))
+
+
+def check_ranks(arm: str, reports, series, wall, tag: str = "[7]", kernels=CNN_KERNELS):
+    """The checks of one arm of [7] (DenseNet-121) or of [7c] (the LM,
+    ``kernels`` ``LM_KERNELS``; the module docstring): gloo over 2 ranks
+    staged through pinned memory, ``kernels`` launched on each rank, the
+    ranks' parameters bit for bit equal, finite and falling losses, share
+    moved off worker 0 in (a) and (b), ``comm_bytes_ici`` the flat formula
+    (4 bytes an element, or the int8 wire's) times each epoch's combines,
+    in (c) each rank's momentum chunk half the padded parameter count. Logs
+    the walls, the collective a step, the bytes and each rank's launches
+    and peak."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.wire import wire_payload_bytes
+
     for r in reports:
         assert r["ranks"]["backend"] == "gloo" and r["ranks"]["size"] == DIST_RANKS, r["ranks"]
         assert r["ranks"]["staged_through_host"], r["ranks"]
-        for k in CNN_KERNELS:
-            assert r["launches"][k] > 0, (arm, r["rank"], k, r["launches"])
+        for k in kernels:
+            assert r["launches"][k] > 0, (tag, arm, r["rank"], k, r["launches"])
     digests = {r["param_sha256"] for r in reports}
-    assert len(digests) == 1, f"[7] ({arm}): the ranks' parameters differ: {digests}"
+    assert len(digests) == 1, f"{tag} ({arm}): the ranks' parameters differ: {digests}"
     losses = series["train_loss"]
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
     share = series["partition"][-1][0]
     if arm in ("a", "b"):
-        assert share < DIST_SHARE_MAX, f"[7] ({arm}): worker 0's share {share} by the last epoch"
+        assert share < DIST_SHARE_MAX, f"{tag} ({arm}): worker 0's share {share} by the last epoch"
+    comb = reports[0]["combine"]
+    elems = comb["flat_elems"]
+    per_elem = wire_payload_bytes("int8", DIST_RANKS) if comb["compress_grads"] == "int8" else 4
+    steps = [c["steps"] for c in reports[0]["collective"]]
+    want = [float(elems * per_elem) * n for n in steps]
+    assert series["comm_bytes_ici"] == want, (tag, arm, series["comm_bytes_ici"], want)
     if arm == "c":
         for r in reports:
             c = r["combine"]
             assert c["shard_update"] and 2 * c["momentum_chunk_elems"] == c["padded_elems"], c
     walls = epoch_walls(series)
-    log(f"  ({arm}) arm wall {wall:.1f}s (two processes, start-up included); paths "
+    log(f"  ({arm}) arm wall {wall:.1f}s (its job in the ranks' one launch); paths "
         f"{reports[0]['paths']}; epoch walls {[round(w, 3) for w in walls]} s; train loss "
-        f"{[round(x, 4) for x in losses]}; partition {series['partition']}")
-    log(f"  ({arm}) sync_time {series['sync_time']} s; comm_bytes_ici {series['comm_bytes_ici']}; "
-        f"comm_bytes_dcn {series['comm_bytes_dcn']}; combine {reports[0]['combine']}")
+        f"{[round(x, 4) for x in losses]}; val loss {[round(x, 4) for x in series['val_loss']]}; "
+        f"partition {series['partition']}")
+    log(f"  ({arm}) bytes a step {elems * per_elem:.0f} ({elems:,} elements x {per_elem}) x steps "
+        f"{steps}: comm_bytes_ici {series['comm_bytes_ici']}; sync_time {series['sync_time']} s; "
+        f"combine {comb}")
     for r in reports:
         coll = [(c["epoch"], round(1e3 * c["mean_s"], 2), round(1e3 * c["max_s"], 2))
                 for c in r["collective"] or []]
         log(f"  ({arm}) rank {r['rank']}: collective wall a step (epoch, mean ms, max ms) {coll}; "
-            f"K1 {r['launches']['groupnorm_fwd']}+{r['launches']['groupnorm_bwd']} and K2 "
-            f"{r['launches']['xent_fwd']}+{r['launches']['xent_bwd']} launches; peak device "
-            f"memory {r['peak_bytes'] / 2**30:.2f} GiB; parameters sha256 {r['param_sha256'][:16]}")
+            f"launches {launch_text(r['launches'], kernels)}; peak device memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; parameters sha256 {r['param_sha256'][:16]}")
     return {"wall": wall, "epoch_walls": walls, "series": series, "reports": reports}
 
 
@@ -2364,7 +2465,7 @@ def hier_bytes(elems: int, sizes, wires):
     return float(sum(b for _, b in hops[:-1])), float(hops[-1][1])
 
 
-def check_hier_ranks(arm: str, reports, series, wall):
+def check_hier_ranks(arm: str, reports, series, wall, kernels=CNN_KERNELS):
     """[7b]'s checks of one arm: gloo over 4 ranks staged through pinned
     memory, K1 and K2 launched on each rank, the ranks' parameters bit for
     bit equal, finite and falling losses, one combine and one bandwidth
@@ -2375,7 +2476,7 @@ def check_hier_ranks(arm: str, reports, series, wall):
     for r in reports:
         assert r["ranks"]["backend"] == "gloo" and r["ranks"]["size"] == HIER_RANKS, r["ranks"]
         assert r["ranks"]["staged_through_host"], r["ranks"]
-        for k in CNN_KERNELS:
+        for k in kernels:
             assert r["launches"][k] > 0, (arm, r["rank"], k, r["launches"])
     digests = {r["param_sha256"] for r in reports}
     assert len(digests) == 1, f"[7b] ({arm}): the ranks' parameters differ: {digests}"
@@ -2401,7 +2502,7 @@ def check_hier_ranks(arm: str, reports, series, wall):
         assert comb["shard_update"] and 4 * comb["momentum_chunk_elems"] == comb["padded_elems"], comb
     bw = r0["link_bandwidth"]
     walls = epoch_walls(series)
-    log(f"  ({arm}) arm wall {wall:.1f}s (four processes, start-up included); combine {kind}, "
+    log(f"  ({arm}) arm wall {wall:.1f}s (its job in the ranks' one launch); combine {kind}, "
         f"levels {meta.get('grad_comm_levels')}, wires {wires}, modeled combine "
         f"{meta.get('modeled_comm_step_s')} s; epoch walls {[round(w, 3) for w in walls]} s; "
         f"train loss {[round(x, 4) for x in losses]}; partition {series['partition']}")
@@ -2417,14 +2518,149 @@ def check_hier_ranks(arm: str, reports, series, wall):
         coll = [(c["epoch"], round(1e3 * c["mean_s"], 2), round(1e3 * c["max_s"], 2))
                 for c in r["collective"] or []]
         log(f"  ({arm}) rank {r['rank']}: collective wall a step (epoch, mean ms, max ms) {coll}; "
-            f"K1 {r['launches']['groupnorm_fwd']}+{r['launches']['groupnorm_bwd']} and K2 "
-            f"{r['launches']['xent_fwd']}+{r['launches']['xent_bwd']} launches; peak device "
+            f"launches {launch_text(r['launches'], kernels)}; peak device "
             f"memory {r['peak_bytes'] / 2**30:.2f} GiB")
     return {"wall": wall, "epoch_walls": walls, "series": series, "reports": reports}
 
 
+def launch_text(launches, kernels) -> str:
+    return ", ".join(f"{k} {launches[k]}" for k in kernels)
+
+
+def sp_checks(args, rank: int, world: int, device: str):
+    """[8]'s checks inside each rank (a ``run_rank_jobs`` call): (1) the
+    first full window of ``SP_ARGV``'s training stream, ``[SP_B, SP_T]``,
+    through ``seq_parallel_value_and_grad`` of the ring and the Ulysses LM
+    (dropout 0) against the one-device LM on the card with the same weights
+    (``TransformerLM`` without ``seq_axis``, the whole window, its loss the
+    mean of the plain per-token losses, ``xent_fwd_ref``, so that K2 is on
+    one side only): the loss's relative difference and the gradients'
+    largest difference; (2) ``ulysses_self_attention`` with
+    ``use_flash=True`` (one head a rank, T = ``SP_T``: K3's tiled route)
+    against ``use_flash=False`` on the same random blocks: the output's and
+    the gradients' largest differences, and K3's tiled launches."""
+    import torch
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
+    from dynamic_load_balance_distributeddnn_tpu_torch.data import Corpus, batchify, bptt_windows
+    from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
+    from dynamic_load_balance_distributeddnn_tpu_torch.models.common import init_flax_defaults
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import xent_fwd_ref
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import data_mesh
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.seq_parallel import (
+        seq_parallel_value_and_grad,
+    )
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.ulysses import (
+        ulysses_self_attention,
+    )
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.sp_engine import SeqParallelLMTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = data_mesh(dev)
+    corpus = Corpus(Config().lm_data_dir)
+    b, t_all = SP_B, SP_T
+    x, y, _ = bptt_windows(batchify(corpus.train, b), t_all)
+    tokens, targets = (torch.from_numpy(a[0]).to(dev) for a in (x, y))
+    t = t_all // world
+    lo = rank * t
+    sp_cls = SeqParallelLMTrainer
+    dims = dict(ntoken=corpus.ntokens, ninp=sp_cls.EMSIZE, nhead=sp_cls.NHEAD, nhid=sp_cls.NHID,
+                nlayers=sp_cls.NLAYERS, dropout=0.0)
+    single = build_model("transformer", **dims)
+    init_flax_defaults(single, torch.Generator().manual_seed(1))
+    single = single.to(dev)
+    loss_ref = xent_fwd_ref(single(tokens).reshape(-1, corpus.ntokens), targets.reshape(-1))[0].mean()
+    grads_ref = torch.autograd.grad(loss_ref, list(single.parameters()))
+    out = {"one_device_loss": float(loss_ref)}
+    for mode in SP_MODES:
+        sp = build_model("transformer", **dims, seq_axis=mesh, sp_mode=mode).to(dev)
+        sp.load_state_dict(single.state_dict())
+        loss, grads = seq_parallel_value_and_grad(sp, tokens[:, lo:lo + t], targets[:, lo:lo + t],
+                                                  mesh)
+        out[mode] = {"loss": float(loss),
+                     "loss_rel": abs(float(loss) - float(loss_ref)) / abs(float(loss_ref)),
+                     "grad_max_abs": max(float((g - r).abs().max())
+                                         for g, r in zip(grads, grads_ref))}
+        del sp, grads
+    del single, grads_ref
+    gen = torch.Generator(device=dev).manual_seed(7 + rank)
+    shape = (b, sp_cls.NHEAD, t, sp_cls.EMSIZE // sp_cls.NHEAD)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    res = {}
+    before = runtime.LAUNCHES["attn_fwd_tiled"]
+    for flash in (True, False):
+        qs, ks, vs = (a.clone().requires_grad_() for a in (q, k, v))
+        o = ulysses_self_attention(qs, ks, vs, mesh, causal=True, use_flash=flash)
+        (o * g).sum().backward()
+        res[flash] = (o.detach(), qs.grad, ks.grad, vs.grad)
+    out["ulysses_flash"] = {
+        "out_max_abs": float((res[True][0] - res[False][0]).abs().max()),
+        "grad_max_abs": max(float((a - b).abs().max()) for a, b in zip(res[True][1:], res[False][1:])),
+        "tiled_fwd_launches": runtime.LAUNCHES["attn_fwd_tiled"] - before,
+        "shape_a_rank": list(shape), "heads_a_rank_after_all_to_all": sp_cls.NHEAD // world,
+    }
+    return out
+
+
+def check_sp_ranks(mode: str, reports, series, wall):
+    """[8]'s checks of one arm (``--seq_parallel <mode>``): gloo over 2 ranks
+    staged through pinned memory, the ranks' parameters bit for bit equal,
+    finite and falling losses, the recorder's sequence-parallel series, K2
+    launched on each rank (the loss; the attention is plain, as the JAX
+    model's). Logs the walls, tokens/s, the collectives a step and the
+    peaks."""
+    for r in reports:
+        assert r["ranks"]["backend"] == "gloo" and r["ranks"]["size"] == DIST_RANKS, r["ranks"]
+        assert r["ranks"]["staged_through_host"], r["ranks"]
+        for k in ("xent_fwd", "xent_bwd"):
+            assert r["launches"][k] > 0, (mode, r["rank"], k, r["launches"])
+    digests = {r["param_sha256"] for r in reports}
+    assert len(digests) == 1, f"[8] ({mode}): the ranks' parameters differ: {digests}"
+    losses = series["train_loss"]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    assert series["partition"] == [[0.5, 0.5]] * len(losses), series["partition"]
+    assert series["accuracy"] == [1.0 - v for v in series["val_loss"]]
+    assert series["_meta"]["paths"] == [f"seq_parallel_{mode}"] * len(losses)
+    walls = epoch_walls(series)
+    log(f"  ({mode}) arm wall {wall:.1f}s (its job in the ranks' one launch); epoch walls "
+        f"{[round(w, 3) for w in walls]} s; tokens/s {[round(x) for x in series['tokens_per_s']]}; "
+        f"train loss {[round(x, 4) for x in losses]}; val loss "
+        f"{[round(x, 4) for x in series['val_loss']]}")
+    for r in reports:
+        coll = [(c["epoch"], c["steps"], round(1e3 * c["mean_s"], 2), round(1e3 * c["max_s"], 2))
+                for c in r["collective"] or []]
+        log(f"  ({mode}) rank {r['rank']}: collectives' host wall a step (epoch, steps, mean ms, "
+            f"max ms) {coll}; launches {launch_text(r['launches'], LM_KERNELS + ATTN_TILED)}; "
+            f"peak device memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    return {"wall": wall, "epoch_walls": walls, "series": series, "reports": reports}
+
+
+def check_sp_values(results):
+    """[8]'s in-rank checks (``sp_checks``) against their tolerances."""
+    for rank, r in enumerate(x["result"] for x in results):
+        for mode in SP_MODES:
+            m = r[mode]
+            assert m["loss_rel"] <= SP_LOSS_RTOL, (rank, mode, m)
+            assert m["grad_max_abs"] <= SP_GRAD_ATOL, (rank, mode, m)
+            log(f"  rank {rank} {mode}: first step's loss {m['loss']:.6f} against the one-device "
+                f"LM's {r['one_device_loss']:.6f} (relative {m['loss_rel']:.2e}, limit "
+                f"{SP_LOSS_RTOL}), gradients' largest difference {m['grad_max_abs']:.2e} (limit "
+                f"{SP_GRAD_ATOL})")
+        u = r["ulysses_flash"]
+        assert u["out_max_abs"] <= SP_ATTN_TOL[0] and u["grad_max_abs"] <= SP_ATTN_TOL[1], (rank, u)
+        assert u["tiled_fwd_launches"] > 0, (rank, u)
+        log(f"  rank {rank} ulysses use_flash=True against False at {u['shape_a_rank']} a rank "
+            f"({u['heads_a_rank_after_all_to_all']} head a rank after the all-to-all, K3's tiled "
+            f"route, {u['tiled_fwd_launches']} forward launches): output {u['out_max_abs']:.2e}, "
+            f"gradients {u['grad_max_abs']:.2e} (limits {SP_ATTN_TOL})")
+    return [x["result"] for x in results]
+
+
 PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4i", "4g", "4j",
-          "6", "6b", "7", "7b")
+          "6", "6b", "7", "7b", "7c", "8")
 
 
 def main(argv=None) -> int:
@@ -2453,9 +2689,20 @@ def main(argv=None) -> int:
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
 
     t_start = time.perf_counter()
+    marks = []  # (phase header, script clock at it)
+    rank_phase_s = {}  # a rank phase's seconds: its jobs' walls in the ranks
 
     def phase(title):  # each phase's header, with the script's clock
-        log(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
+        marks.append((title.split(" ")[0], time.perf_counter() - t_start))
+        log(f"{title} (at {marks[-1][1]:.1f}s)")
+
+    def phase_seconds():
+        """Each header's seconds to the next (the last to now), logged."""
+        ends = [t for _, t in marks[1:]] + [time.perf_counter() - t_start]
+        out = {name: round(end - t, 1) for (name, t), end in zip(marks, ends)}
+        log(f"  seconds a phase: {out}; the rank phases' jobs: "
+            f"{ {k: round(v, 1) for k, v in rank_phase_s.items()} }")
+        return out
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda", 0)
@@ -2494,27 +2741,69 @@ def main(argv=None) -> int:
         timing["synthetic_load"] = load["timing"]
 
     ranks = {}
+    # [7], [7c] and [8]: every arm by two ranks started once; [7b]: by four
+    jobs2 = {}
     if want("7"):
+        jobs2.update({f"dist_{arm}": {"argv": DIST_ARGV + extra} for arm, _, extra in DIST_ARMS})
+    if want("7c"):
+        jobs2.update({f"lm_{arm}": {"argv": LM_DIST_ARGV + extra} for arm, _, extra in LM_DIST_ARMS})
+    if want("8"):
+        jobs2.update({f"sp_{m}": {"argv": SP_ARGV + ["--seq_parallel", m]} for m in SP_MODES})
+        jobs2["sp_checks"] = {"call": "chip_smoke:sp_checks"}
+    if jobs2:
         # here, before the paths: the ranks are other processes on this card,
         # and this one holds the least device memory now
-        phase(f"[7] data parallelism: {DIST_RANKS} ranks on cuda:0 over gloo, DenseNet-121, B=512")
+        phase(f"[7]/[7c]/[8]: {DIST_RANKS} ranks on cuda:0 over gloo, started once for every arm")
         gc.collect()
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info(dev)
         log(f"  this process: {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved; card "
             f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
-        for arm, what, extra in DIST_ARMS:
-            log(f"  ({arm}) {what}")
-            ranks[arm] = check_ranks(arm, *run_ranks(f"ranks_{arm}", DIST_ARGV + extra))
+        got, run_dir = run_rank_phases("ranks2", jobs2, DIST_RANKS, RANKS2_TIMEOUT_S)
+        if want("7"):
+            phase("[7] data parallelism: DenseNet-121, B=512, 2 ranks")
+            for arm, what, extra in DIST_ARMS:
+                log(f"  ({arm}) {what}")
+                ranks[arm] = check_ranks(arm, *cli_arm(got, run_dir, f"dist_{arm}",
+                                                       DIST_ARGV + extra, DIST_RANKS))
+            rank_phase_s["7"] = sum(ranks[a]["wall"] for a, _, _ in DIST_ARMS)
+        if want("7c"):
+            phase("[7c] the language model across ranks: 2 ranks, BASELINE.md config 5, B=80")
+            for arm, what, extra in LM_DIST_ARMS:
+                log(f"  ({arm}) {what}")
+                ranks["lm_" + arm] = check_ranks(arm, *cli_arm(got, run_dir, f"lm_{arm}",
+                                                               LM_DIST_ARGV + extra, DIST_RANKS),
+                                                 tag="[7c]", kernels=LM_KERNELS)
+            rank_phase_s["7c"] = sum(ranks["lm_" + a]["wall"] for a, _, _ in LM_DIST_ARMS)
+        if want("8"):
+            phase(f"[8] sequence parallelism: 2 ranks, the LM at [B={SP_B}, T={SP_T}]")
+            for m in SP_MODES:
+                log(f"  ({m}) --seq_parallel {m}")
+                ranks["sp_" + m] = check_sp_ranks(m, *cli_arm(got, run_dir, f"sp_{m}",
+                                                              SP_ARGV + ["--seq_parallel", m],
+                                                              DIST_RANKS))
+            ranks["sp_checks"] = check_sp_values(got["sp_checks"])
+            rank_phase_s["8"] = (sum(ranks["sp_" + m]["wall"] for m in SP_MODES)
+                                 + job_wall(got["sp_checks"]))
 
     if want("7b"):
-        phase(f"[7b] --grad_comm hier: {HIER_RANKS} ranks on cuda:0 over gloo, DenseNet-121, B=512")
+        phase(f"[7b] --grad_comm hier: {HIER_RANKS} ranks on cuda:0 over gloo, started once: "
+              "DenseNet-121 (B=512) in three arms, the language model in a fourth")
         gc.collect()
         torch.cuda.empty_cache()
+        jobs4 = {f"hier_{arm}": {"argv": HIER_ARGV + extra} for arm, _, extra in HIER_ARMS}
+        jobs4["hier_lm"] = {"argv": HIER_LM_ARGV}
+        got, run_dir = run_rank_phases("ranks4", jobs4, HIER_RANKS, RANKS4_TIMEOUT_S)
         for arm, what, extra in HIER_ARMS:
             log(f"  ({arm}) {what}")
             ranks["hier_" + arm] = check_hier_ranks(
-                arm, *run_ranks(f"hier_{arm}", HIER_ARGV + extra, HIER_RANKS, HIER_TIMEOUT_S))
+                arm, *cli_arm(got, run_dir, f"hier_{arm}", HIER_ARGV + extra, HIER_RANKS))
+        log("  (lm) the language model, DBS on, the default wires (int8 outer hop)")
+        ranks["hier_lm"] = check_hier_ranks(
+            "lm", *cli_arm(got, run_dir, "hier_lm", HIER_LM_ARGV, HIER_RANKS), kernels=LM_KERNELS)
+        rank_phase_s["7b"] = sum(job_wall(r) for r in got.values())
+    for name, secs in rank_phase_s.items():
+        log(f"  [{name}]: {secs:.1f}s of jobs in the ranks (their start-up shared)")
 
     paths = {}  # tag: (launch counts, series, wall, peak bytes)
     if want("4"):
@@ -2641,9 +2930,11 @@ def main(argv=None) -> int:
         phase("[6b] bf16 on the card against the CPU's f64 run (the CPU's bf16 run the yardstick)")
         bf16_vs_cpu = [check_bf16_against_cpu(torch, dev, which) for which in ("densenet", "lm")]
 
+    seconds = phase_seconds()
     if not every:
         with open(os.path.join(OUT, "phases.json"), "w") as f:
             json.dump({"card": smi, "phases": chosen, "errors": err, "supersteps": supersteps,
+                       "phase_seconds": seconds, "rank_phase_seconds": rank_phase_s,
                        "ranks": ranks, "remat": remat,
                        "resume": resume, "tracing": tracing,
                        "launches": {tag: p[0] for tag, p in paths.items()},
@@ -2720,7 +3011,9 @@ def main(argv=None) -> int:
                    "series": {tag: p[1] for tag, p in paths.items()},
                    "groupnorm_shapes": shapes, "window_walls": window_walls,
                    "supersteps": supersteps, "resume": resume, "tracing": tracing,
-                   "ranks": ranks, "remat": remat, "seconds": time.perf_counter() - t_start}, f, indent=1)
+                   "ranks": ranks, "remat": remat, "phase_seconds": seconds,
+                   "rank_phase_seconds": rank_phase_s,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"  total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,11 @@ Parses the JAX package's flags (``config.py``), joins the ranks when
 --num_processes N --process_id i``, or ``DBS_COORDINATOR``,
 ``DBS_NUM_PROCESSES``, ``DBS_PROCESS_ID``), skips a run whose completion
 sentinel process 0 finds, then trains on the card (``device="cuda"``) unless
-the caller passes ``device="cpu"``: ``-m transformer`` with the
-language-model trainer (``train/lm_engine.py``), every other model with the
-vision one.
+the caller passes ``device="cpu"``: ``-m transformer --seq_parallel
+ring|ulysses`` with the sequence-parallel trainer (``train/sp_engine.py``),
+``-m transformer`` with the language-model trainer (``train/lm_engine.py``),
+every other model with the vision one (which, as the JAX package's, reads
+no ``--seq_parallel``).
 
 When the run has several processes, each writes a JSON report of its rank
 after the run (``Trainer.rank_report``: the collectives' backend, launch
@@ -37,6 +39,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import (
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
 from dynamic_load_balance_distributeddnn_tpu_torch.train.lm_engine import LMTrainer
+from dynamic_load_balance_distributeddnn_tpu_torch.train.sp_engine import SeqParallelLMTrainer
 
 
 def _maybe_init_distributed(cfg) -> None:
@@ -81,7 +84,10 @@ def _main(cfg, device) -> int:
         print("Had finished this experiment, skipping...")
         print("===========================\n")
         return 0
-    trainer = (LMTrainer if cfg.model == "transformer" else Trainer)(cfg, device=device)
+    if cfg.model == "transformer" and cfg.seq_parallel:
+        trainer = SeqParallelLMTrainer(cfg, device=device)
+    else:
+        trainer = (LMTrainer if cfg.model == "transformer" else Trainer)(cfg, device=device)
     trainer.run()
     mark_run_done(cfg)
     if cfg.num_processes > 1:

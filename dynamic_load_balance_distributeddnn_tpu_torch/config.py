@@ -20,13 +20,16 @@ Several processes (``--coordinator host:port --num_processes N
 --process_id i``, or the ``DBS_*`` environment) each own one device
 (``parallel/mesh.py``): the ``-gpu`` map places each process's ``world_size
 / N`` workers, and a process's slice must name one device. Across ranks the
-port runs the vision DBS loop (window-mode elastic epochs), the fused and
-fused-DBS paths, ``--grad_accum``, ``--compress_grads int8``,
-``--shard_update`` and ``--grad_comm hier`` (with ``--hier_levels``,
-``--hier_hosts``, ``--grad_comm_wire(s)``, ``--dcn_bandwidth_probe`` and
+port runs the DBS loop of the vision models and of the language model
+(window-mode elastic epochs), the fused and fused-DBS paths,
+``--grad_accum``, ``--compress_grads int8``, ``--shard_update`` and
+``--grad_comm hier`` (with ``--hier_levels``, ``--hier_hosts``,
+``--grad_comm_wire(s)``, ``--dcn_bandwidth_probe`` and
 ``--dcn_probe_gate``; in one process it falls back to the flat combine with
-the JAX package's warning); it refuses, by name, the language model,
-``--rebalance window`` and ``--ckpt_dir`` there. ``--remat`` recomputes the
+the JAX package's warning); it refuses, by name, ``--rebalance window``
+and ``--ckpt_dir`` there. ``--seq_parallel ring|ulysses`` trains the
+language model with its sequence sharded over the ranks
+(``train/sp_engine.py``). ``--remat`` recomputes the
 training forward in the backward (``train/steps.py`` ``forward``).
 Flags that tune only the JAX package's compile service or device cache
 (``aot_*``, ``speculate_scan``, ``warm_start``, ``device_cache*``) have no
@@ -394,7 +397,6 @@ class Config:
                     )
         if n_proc > 1:
             across = {
-                "model": self.model == "transformer",
                 "rebalance": self.rebalance == "window",
                 "ckpt_dir": bool(self.ckpt_dir),
             }
@@ -404,16 +406,6 @@ class Config:
                         f"--{flag}={getattr(self, flag)!r} with --num_processes {n_proc} is not "
                         "implemented by this port yet (ROADMAP.md lists what is left)"
                     )
-        if self.model == "transformer":
-            lm = {"fused_dbs": self.fused_dbs, "shard_update": self.shard_update,
-                  "compress_grads": bool(self.compress_grads), "grad_accum": self.grad_accum != 1}
-            for flag, set_ in lm.items():
-                if set_:
-                    raise NotImplementedError(
-                        f"--{flag}={getattr(self, flag)!r} with -m transformer is not "
-                        "implemented by this port yet: the language model's fused paths "
-                        "are not ported (ROADMAP.md lists what is left)"
-                    )
         if self.rebalance == "window" and self.model == "transformer":
             raise NotImplementedError(
                 "--rebalance='window' with -m transformer is not implemented by "
@@ -421,16 +413,11 @@ class Config:
                 "stream folded into bptt windows, and the JAX package's language "
                 "model fails at its first switch (ROADMAP.md lists what is left)"
             )
-        unported = {
-            "elastic": self.elastic != "off",
-            "seq_parallel": bool(self.seq_parallel),
-        }
-        for flag, set_ in unported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"--{flag}={getattr(self, flag)!r} is not implemented by "
-                    "this port yet (ROADMAP.md lists what is left)"
-                )
+        if self.elastic != "off":
+            raise NotImplementedError(
+                f"--elastic={self.elastic!r} is not implemented by this port yet "
+                "(ROADMAP.md lists what is left)"
+            )
 
     def straggler_factors(self) -> List[float]:
         return [float(x) for x in self.straggler.split(",")] if self.straggler else []

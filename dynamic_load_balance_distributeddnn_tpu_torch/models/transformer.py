@@ -24,6 +24,17 @@ Attention has two branches, as in the JAX package:
 Both keep the residual and feed-forward dropouts. LayerNorm eps is flax's
 1e-6, not torch's 1e-5.
 
+Sequence parallelism (``seq_axis``, the JAX ``seq_axis``/``sp_mode``):
+tokens arrive as this rank's block ``[B, T/n]`` of a sequence sharded over
+the ranks of ``seq_axis`` (``parallel/mesh.py``), attention runs over the
+whole sequence through ``RingSelfAttention`` (``parallel/ring.py``) or
+``UlyssesSelfAttention`` (``parallel/ulysses.py``, its local attention
+plain, as the JAX model calls it), neither with dropout on the
+probabilities, and the positions are offset by ``rank * T/n`` in a table
+of ``min(max_len, n * T/n)`` rows. The attention variants keep the
+``query``/``key``/``value``/``out`` names, so one state dict serves every
+mode.
+
 Mixed dtypes, as flax has them under the JAX package's bf16 compute dtype
 (parameters cast to bf16, tokens left integers): the embedding gathers in
 bf16 and ``x * sqrt(ninp)`` multiplies in bf16 by the factor rounded to bf16
@@ -48,6 +59,8 @@ from dynamic_load_balance_distributeddnn_tpu_torch.models.common import Dropout,
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.ring import ring_self_attention
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.ulysses import ulysses_self_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -108,11 +121,13 @@ class SelfAttention(nn.Module):
             proj(x).view(b, t, self.nhead, e // self.nhead).transpose(1, 2)
             for proj in (self.query, self.key, self.value)
         ]  # [B, H, T, hd] each
-        if self.use_flash:
-            o = flash_attention(*heads, causal=True)
-        else:
-            o = self._plain(*heads)
+        o = self._attend(*heads)
         return self.out(o.transpose(1, 2).reshape(b, t, e))
+
+    def _attend(self, q, k, v) -> torch.Tensor:
+        if self.use_flash:
+            return flash_attention(q, k, v, causal=True)
+        return self._plain(q, k, v)
 
     def _plain(self, q, k, v) -> torch.Tensor:
         t = q.shape[2]
@@ -129,12 +144,49 @@ class SelfAttention(nn.Module):
         return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
+class RingSelfAttention(SelfAttention):
+    """Causal self-attention over a sequence sharded on ``axis``: this
+    rank's block attends to the whole sequence through the ring
+    (``parallel/ring.py``); no dropout on the probabilities."""
+
+    def __init__(self, d_model: int, nhead: int, axis):
+        super().__init__(d_model, nhead, 0.0, False)
+        self.axis = axis
+
+    def _attend(self, q, k, v) -> torch.Tensor:
+        return ring_self_attention(q, k, v, self.axis, causal=True)
+
+
+class UlyssesSelfAttention(SelfAttention):
+    """Causal self-attention over a sequence sharded on ``axis`` through the
+    head all-to-all (``parallel/ulysses.py``), its local attention plain as
+    the JAX model calls it; no dropout on the probabilities."""
+
+    def __init__(self, d_model: int, nhead: int, axis):
+        super().__init__(d_model, nhead, 0.0, False)
+        self.axis = axis
+
+    def _attend(self, q, k, v) -> torch.Tensor:
+        return ulysses_self_attention(q, k, v, self.axis, causal=True)
+
+
+def _attention(d_model: int, nhead: int, dropout: float, use_flash: bool, seq_axis,
+               sp_mode: str) -> SelfAttention:
+    """The JAX ``EncoderLayer``'s choice: Ulysses or the ring over
+    ``seq_axis`` when one is given, else flash or plain attention."""
+    if seq_axis is not None:
+        cls = UlyssesSelfAttention if sp_mode == "ulysses" else RingSelfAttention
+        return cls(d_model, nhead, seq_axis)
+    return SelfAttention(d_model, nhead, dropout, use_flash)
+
+
 class EncoderLayer(nn.Module):
     """Post-LN encoder layer (torch's convention, as the reference uses)."""
 
-    def __init__(self, d_model: int, nhead: int, d_ff: int, dropout: float, use_flash: bool):
+    def __init__(self, d_model: int, nhead: int, d_ff: int, dropout: float, use_flash: bool,
+                 seq_axis=None, sp_mode: str = "ring"):
         super().__init__()
-        self.attn = SelfAttention(d_model, nhead, dropout, use_flash)
+        self.attn = _attention(d_model, nhead, dropout, use_flash, seq_axis, sp_mode)
         self.Dropout_0 = Dropout(dropout)
         self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
         self.Dense_0 = Linear(d_model, d_ff)
@@ -151,7 +203,9 @@ class EncoderLayer(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """tokens ``[B, T]`` int -> logits ``[B, T, ntoken]`` f32."""
+    """tokens ``[B, T]`` int -> logits ``[B, T, ntoken]`` f32; with
+    ``seq_axis``, this rank's block of tokens -> its block of logits (the
+    module docstring)."""
 
     def __init__(
         self,
@@ -163,6 +217,8 @@ class TransformerLM(nn.Module):
         dropout: float = 0.2,
         max_len: int = 5000,
         use_flash: bool = False,
+        seq_axis=None,
+        sp_mode: str = "ring",
     ):
         super().__init__()
         if ninp % nhead:
@@ -170,19 +226,27 @@ class TransformerLM(nn.Module):
         self.ninp = ninp
         self.nlayers = nlayers
         self.max_len = max_len
+        self.seq_axis = seq_axis
         self.Embed_0 = nn.Embedding(ntoken, ninp)
         self.Dropout_0 = Dropout(dropout)
         for i in range(nlayers):
-            setattr(self, f"EncoderLayer_{i}", EncoderLayer(ninp, nhead, nhid, dropout, use_flash))
+            setattr(self, f"EncoderLayer_{i}",
+                    EncoderLayer(ninp, nhead, nhid, dropout, use_flash, seq_axis, sp_mode))
         self.Dense_0 = Linear(ninp, ntoken)
         self._pe: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     def _positions(self, t: int, device: torch.device) -> torch.Tensor:
-        """The first ``t`` rows of the sinusoidal table, cached per device."""
+        """The ``t`` rows of the sinusoidal table this block's tokens take,
+        cached per device: the first ``t``, or under ``seq_axis`` those from
+        ``rank * t`` in a table of ``min(max_len, n * t)`` rows (the start
+        clamped into the table, as the JAX ``dynamic_slice`` clamps it)."""
         key = (t, device)
         if key not in self._pe:
-            pe = sinusoidal_positions(min(self.max_len, max(t, 1)), self.ninp)
-            self._pe[key] = torch.from_numpy(pe[:t]).to(device)
+            n, rank = (1, 0) if self.seq_axis is None else (self.seq_axis.size, self.seq_axis.rank)
+            rows = min(self.max_len, max(n * t, 1))
+            off = max(min(rank * t, rows - t), 0)
+            pe = sinusoidal_positions(rows, self.ninp)
+            self._pe[key] = torch.from_numpy(pe[off:off + t]).to(device)
         return self._pe[key]
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,10 @@ Under gloo every collective of a CUDA tensor is staged explicitly through a
 pinned host buffer (one per shape and slot, allocated once): the device
 tensor is copied into it, the stream synchronized, gloo runs on the host
 copy, and the result is copied back on the stream. One code path, whatever
-gloo's own CUDA support.
+gloo's own CUDA support. Besides the sums and gathers, an axis shifts a
+tensor to the next rank (:meth:`_Axis.permute`, the JAX ``ppermute`` of
+ring attention) and exchanges blocks between every pair of ranks
+(:meth:`_Axis.all_to_all`, Ulysses attention), staged the same way.
 
 **The topology tree** (``--grad_comm hier``): the JAX package reshapes its
 devices into an N-level ``tree_mesh`` and reduces over one named axis at a
@@ -172,6 +175,51 @@ class _Axis:
             fn(out, inp, group=self.group)
         return out
 
+    def _peer(self, i: int) -> int:
+        """The global rank of this axis's rank ``i``."""
+        return i
+
+    def permute(self, t: torch.Tensor, shift: int) -> torch.Tensor:
+        """A new tensor holding the ``t`` of rank ``(rank - shift) % size``:
+        each rank sends its ``t`` to ``(rank + shift) % size`` (the JAX
+        ``ppermute`` with ``perm = [(i, (i + shift) % n)]``). ``t`` has
+        one shape on every rank."""
+        send = t.contiguous()
+        out = torch.empty_like(send)
+        if self.size == 1 or shift % self.size == 0:
+            return out.copy_(send)
+        dst = self._peer((self.rank + shift) % self.size)
+        src = self._peer((self.rank - shift) % self.size)
+        if self.staged:
+            send = self._to_host(send, "shift_out")
+            recv = self._host(out, "shift_in")
+        else:
+            recv = out
+        ops = [dist.P2POp(dist.isend, send.reshape(-1), dst, group=self.group),
+               dist.P2POp(dist.irecv, recv.reshape(-1), src, group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if self.staged:
+            out.reshape(-1).copy_(recv, non_blocking=True)
+        return out
+
+    def all_to_all(self, inp: torch.Tensor) -> torch.Tensor:
+        """A new tensor of ``inp``'s shape whose block ``j`` (of ``size``
+        equal blocks along dim 0) is rank ``j``'s block ``rank``: each rank
+        sends its block ``j`` to rank ``j`` (the JAX ``all_to_all``)."""
+        inp = inp.contiguous()
+        out = torch.empty_like(inp)
+        if self.size == 1:
+            return out.copy_(inp)
+        if self.staged:
+            h_in = self._to_host(inp, "a2a_in")
+            h_out = self._host(out, "a2a_out")
+            dist.all_to_all_single(h_out, h_in, group=self.group)
+            out.reshape(-1).copy_(h_out, non_blocking=True)
+        else:
+            dist.all_to_all_single(out.view(-1), inp.view(-1), group=self.group)
+        return out
+
 
 class SubAxis(_Axis):
     """One level of the topology tree as seen from this rank: its group of
@@ -184,6 +232,9 @@ class SubAxis(_Axis):
         self.rank = self.ranks.index(mesh.rank)
         self.staged, self._pinned = mesh.staged, mesh._pinned
         self._tag = f"{name}:{self.ranks}"
+
+    def _peer(self, i: int) -> int:
+        return self.ranks[i]
 
 
 def tree_coords(rank: int, sizes: Sequence[int]) -> Tuple[int, ...]:

@@ -123,7 +123,8 @@ flat combine with the JAX package's warning.
 
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
-``_setup_model``, ``_build_plan``, ``_worker_epoch`` and ``validate``.
+``_setup_model``, ``_build_plan``, ``_worker_epoch``, ``_fused_epoch`` and
+``validate``; every path above but the packed one runs it, across ranks too.
 """
 
 from __future__ import annotations
@@ -230,6 +231,9 @@ from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import (
 from dynamic_load_balance_distributeddnn_tpu_torch.train.supersteps import StepGraphs
 
 _EVAL_CHUNK = 1024
+# the series a rank report carries
+RANK_SERIES = ("train_loss", "val_loss", "accuracy", "partition", "sync_time", "comm_bytes_ici",
+               "comm_bytes_dcn", "wallclock_time")
 _RANK_SEED_STRIDE = 15485863  # a rank's generator seeds: the seed plus its multiple
 _COMBINE_KEY = 0x5D1E  # the elastic combine's key root (JAX steps.py _sharded_combine_body)
 
@@ -249,6 +253,61 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def rank_device(cfg: Config, device, proc_id: int, n_proc: int) -> torch.device:
+    """This process's one device (:func:`resolve_device`): each process owns
+    ``world_size / n_proc`` contiguous workers, ``proc_id``'s slice of the
+    ``-gpu`` map, which must name one device, and the same local ordinal
+    on every process."""
+    if cfg.world_size % n_proc != 0:
+        raise ValueError(f"world_size {cfg.world_size} must divide evenly across {n_proc} processes")
+    ws_local = cfg.world_size // n_proc
+    dev = torch.device(device)
+    n_local = torch.cuda.device_count() if dev.type == "cuda" and torch.cuda.is_available() else 1
+    ids_global = cfg.worker_device_ids(max(n_local, 1))
+    used = sorted(set(ids_global[proc_id * ws_local:(proc_id + 1) * ws_local]))
+    if len(used) != 1:
+        raise NotImplementedError(
+            f"-gpu {cfg.device}: this process's workers name devices {used}; a process "
+            "of this port owns one device (launch one process a device with "
+            "--coordinator/--num_processes/--process_id)"
+        )
+    for p in range(n_proc):
+        slice_p = ids_global[p * ws_local:(p + 1) * ws_local]
+        if sorted(set(slice_p)) != used:
+            raise ValueError(
+                "multi-host topology must be symmetric: every process must map its "
+                f"workers onto the same local device ordinals (process 0 uses {used}, "
+                f"process {p} would use {sorted(set(slice_p))}); adjust the device map"
+            )
+    if dev.type == "cuda" and dev.index is None and cfg.device is not None:
+        dev = torch.device("cuda", used[0])
+    return resolve_device(dev)
+
+
+def rank_report_base(model, proc_id: int, mesh, device, recorder,
+                     series=RANK_SERIES) -> Dict[str, object]:
+    """The fields every trainer's rank report shares: the data axis, the
+    kernels' launch counts, a SHA-256 of the parameters' bytes (equal on
+    every rank when the ranks agree bit for bit), the collective walls, the
+    paths, the run's ``series`` and the peak device memory."""
+    import hashlib
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+
+    h = hashlib.sha256()
+    for _, p in model.named_parameters():
+        h.update(p.detach().to("cpu").contiguous().numpy().tobytes())
+    data = recorder.data
+    return {
+        "rank": proc_id, "ranks": mesh.describe(), "device": str(device),
+        "launches": dict(runtime.LAUNCHES), "param_sha256": h.hexdigest(),
+        "collective": recorder.meta.get("collective"), "paths": recorder.meta.get("paths"),
+        "series": {k: data.get(k) for k in series},
+        "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                       if device.type == "cuda" else None),
+    }
 
 
 class Trainer:
@@ -392,34 +451,9 @@ class Trainer:
             raise ValueError(
                 f"--num_processes {cfg.num_processes} but the process group holds {self.n_proc}"
             )
-        if cfg.world_size % self.n_proc != 0:
-            raise ValueError(
-                f"world_size {cfg.world_size} must divide evenly across {self.n_proc} processes"
-            )
+        self.device = rank_device(cfg, device, self.proc_id, self.n_proc)
         self.ws_local = cfg.world_size // self.n_proc
         self.rank_lo = self.proc_id * self.ws_local
-        dev = torch.device(device)
-        n_local = torch.cuda.device_count() if dev.type == "cuda" and torch.cuda.is_available() else 1
-        ids_global = cfg.worker_device_ids(max(n_local, 1))
-        ids_local = ids_global[self.rank_lo:self.rank_lo + self.ws_local]
-        used = sorted(set(ids_local))
-        if len(used) != 1:
-            raise NotImplementedError(
-                f"-gpu {cfg.device}: this process's workers name devices {used}; a process "
-                "of this port owns one device (launch one process a device with "
-                "--coordinator/--num_processes/--process_id)"
-            )
-        for p in range(self.n_proc):
-            slice_p = ids_global[p * self.ws_local:(p + 1) * self.ws_local]
-            if sorted(set(slice_p)) != used:
-                raise ValueError(
-                    "multi-host topology must be symmetric: every process must map its "
-                    f"workers onto the same local device ordinals (process 0 uses {used}, "
-                    f"process {p} would use {sorted(set(slice_p))}); adjust the device map"
-                )
-        if dev.type == "cuda" and dev.index is None and cfg.device is not None:
-            dev = torch.device("cuda", used[0])
-        self.device = resolve_device(dev)
         self.topology = WorkerTopology.build(self.ws_local, [self.device], [0] * self.ws_local)
         self.mesh = data_mesh(self.device)
         self.n_dev = axis_size(self.mesh)  # the data axis's devices, one a rank
@@ -1166,7 +1200,6 @@ class Trainer:
         probes)."""
         return (
             not self.cfg.dynamic_batch_size
-            and self.bundle is not None  # the language model's fused path is not ported
             and plan.is_uniform()
             and self.topology.one_worker_per_device
             and self.n_dev == self.world_size
@@ -1179,7 +1212,6 @@ class Trainer:
         capacity width ``_cap_b``, one worker a device."""
         return (
             self.cfg.fused_dbs
-            and self.bundle is not None
             and self.cfg.dynamic_batch_size
             and self.topology.one_worker_per_device
             and self.n_dev == self.world_size
@@ -1188,7 +1220,8 @@ class Trainer:
     @property
     def _cap_b(self) -> int:
         """The fused-DBS width a worker: the largest bucketed batch the
-        balancer can assign (``max_share`` of the global batch)."""
+        balancer can assign (``max_share`` of the global batch; the language
+        model's columns)."""
         cfg = self.cfg
         max_share = min(1.0, cfg.capacity_factor / self.world_size)
         return -(-int(np.ceil(max_share * cfg.batch_size)) // cfg.bucket) * cfg.bucket
@@ -1910,21 +1943,11 @@ class Trainer:
         meter = self._host_meter
         meter.reset()
         r = self.rank_lo  # one worker a device
-        idx, w, n_real = self._worker_rows(plan, r)
-        width = self._cap_b if dbs_probe else idx.shape[1]
-        if width > idx.shape[1]:
-            pad = ((0, 0), (0, width - idx.shape[1]))
-            idx, w = np.pad(idx, pad), np.pad(w, pad)
-        idx_t = torch.from_numpy(idx).to(self.device)
-        w_t = torch.from_numpy(w).to(self.device)
+        width, batch, n_real = self._fused_epoch(plan, r, dbs_probe)
         slow = [int(faults.slow_iters_per_step[r])]
         table = torch.zeros((plan.num_steps, 1), device=self.device)
         body, warm = self._fused_body(), self._warmup(self.grad_clip)
         root = fold_in(fold_in(prng_key(0), cfg.seed * 31 + epoch), self.mesh.rank)
-
-        def batch(s: int):
-            return self._prep(self.train_x[idx_t[s]]), self.train_y[idx_t[s]], w_t[s]
-
         first_padded = None
         for w0, w1 in self._chunk_ranges(plan.num_steps):
             if self.augment:
@@ -1958,6 +1981,26 @@ class Trainer:
         out["probe_overhead"] += probe_overhead
         out["host_dispatch_s"] = meter.dispatch_s
         return out
+
+    def _fused_epoch(self, plan, r: int, dbs_probe: bool):
+        """Worker ``r``'s epoch on the fused path: ``(width, batch, counts)``,
+        ``width`` its rows a step (its bucketed batch, or under ``dbs_probe``
+        the capacity ``_cap_b``), ``batch(s)`` step ``s``'s ``(x, y, w)`` on
+        the device at that width (zero-weight rows past the real ones) and
+        ``counts`` the real rows a step. The language model's trainer gives
+        its token windows here (``train/lm_engine.py``)."""
+        idx, w, n_real = self._worker_rows(plan, r)
+        width = self._cap_b if dbs_probe else idx.shape[1]
+        if width > idx.shape[1]:
+            pad = ((0, 0), (0, width - idx.shape[1]))
+            idx, w = np.pad(idx, pad), np.pad(w, pad)
+        idx_t = torch.from_numpy(idx).to(self.device)
+        w_t = torch.from_numpy(w).to(self.device)
+
+        def batch(s: int):
+            return self._prep(self.train_x[idx_t[s]]), self.train_y[idx_t[s]], w_t[s]
+
+        return width, batch, n_real
 
     def _probe_fused_sync(self, batch, slow: int, reps: int = 3) -> float:
         """The fused step's collective cost: one full step's twin (the
@@ -2248,34 +2291,15 @@ class Trainer:
         return float(loss_sum) / max(n, 1), 100.0 * float(stats[:, 1].sum()) / max(n, 1)
 
     def rank_report(self) -> Dict[str, object]:
-        """This rank at the end of a run: the data axis, the kernels'
-        launch counts, a SHA-256 of the parameters' bytes (equal on every
-        rank when the ranks agree bit for bit), the combine's buffers, the
-        combine that ran with its wires and the bandwidth probe's numbers
-        it took, the collective walls, the last epoch's series and the peak device
-        memory."""
-        import hashlib
-
-        from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
-
-        h = hashlib.sha256()
-        for _, p in self.model.named_parameters():
-            h.update(p.detach().to("cpu").contiguous().numpy().tobytes())
-        data = self.recorder.data
+        """This rank at the end of a run (:func:`rank_report_base`), with its
+        workers, the combine's buffers, and the combine that ran with its
+        wires and the bandwidth probe's numbers it took."""
         return {
-            "rank": self.proc_id, "ranks": self.mesh.describe(), "device": str(self.device),
-            "workers": list(self._local_workers()), "launches": dict(runtime.LAUNCHES),
-            "param_sha256": h.hexdigest(),
+            **rank_report_base(self.model, self.proc_id, self.mesh, self.device, self.recorder),
+            "workers": list(self._local_workers()),
             "combine": None if self._rank_combine is None else self._rank_combine.describe(),
             "grad_comm": self.grad_comm, "grad_comm_wires": list(self._grad_comm_wires),
             "link_bandwidth": self._link_bw,
-            "collective": self.recorder.meta.get("collective"),
-            "paths": self.recorder.meta.get("paths"),
-            "series": {k: data.get(k) for k in ("train_loss", "val_loss", "accuracy", "partition",
-                                                "sync_time", "comm_bytes_ici", "comm_bytes_dcn",
-                                                "wallclock_time")},
-            "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
-                           if self.device.type == "cuda" else None),
         }
 
     # --------------------------------------------------------------- record

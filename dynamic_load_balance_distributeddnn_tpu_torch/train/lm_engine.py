@@ -17,8 +17,16 @@ branch does (dbs.py:253-288, 397-419; dataloader.py:100-110):
 
 The plan, the windows and the weights equal the JAX package's. The JAX
 package pads each worker's columns to a bucket multiple with weight-0
-columns for static shapes; eager PyTorch runs each worker at its true
-column count, which changes no sum.
+columns for static shapes; the elastic path here runs each worker at its
+true column count, which changes no sum. The fused paths (``-dbs false``,
+``--fused_dbs``, with ``--grad_accum``, ``--compress_grads int8``,
+``--shard_update`` and ``--grad_comm hier``: one worker a device, as in the
+JAX package) take the JAX layout, ``_fused_epoch``: every step at the
+worker's bucketed width, or the fused-DBS capacity ``_cap_b``, the padded
+columns at weight 0, so ``--grad_accum`` splits the same columns as the JAX
+package's micro-batches. Across ranks each rank builds only its own
+workers' windows, and validation is split by chunks over the ranks
+(``validate``).
 
 Under ``--superstep auto`` (the default) the LM's elastic steps run as
 replays of captured step graphs (``train/supersteps.py``), each key one
@@ -46,6 +54,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.data import (
 from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
 from dynamic_load_balance_distributeddnn_tpu_torch.models.common import init_flax_defaults
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import MAX_LOGITS, softmax_xent
+from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import allgather_host
 from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import _EVAL_CHUNK, Trainer
 from dynamic_load_balance_distributeddnn_tpu_torch.train.state import make_optimizer
 
@@ -190,19 +199,43 @@ class LMTrainer(Trainer):
 
         return step
 
+    def _fused_epoch(self, plan: EpochPlan, rank: int, dbs_probe: bool):
+        """The fused paths' windows of worker ``rank`` (the JAX
+        ``_worker_inputs(pad_to=...)``): every step at its bucketed width,
+        or the capacity ``_cap_b`` under ``dbs_probe``, the padded columns
+        at weight 0; ``(width, batch, counts)`` as the vision trainer's,
+        ``counts`` the real tokens a step."""
+        width = self._cap_b if dbs_probe else plan.workers[rank].padded_batch
+        x, y, w = self._build_windows(plan, rank, pad_to=width)
+        counts = (w > 0).reshape(plan.num_steps, -1).sum(axis=1).tolist()
+        x, y, w = (self._steps_to_device(a) for a in (x, y, w))
+        return x.shape[1], lambda s: (x[s], y[s], w[s]), counts
+
     # ------------------------------------------------------------- validate
 
     @torch.no_grad()
     def validate(self) -> Tuple[float, float]:
-        """Token-weighted NLL over the test windows, in chunks of rows, summed
-        on the device; "accuracy" is ``1 - val_loss``."""
+        """Token-weighted NLL over the test windows, in chunks of rows;
+        "accuracy" is ``1 - val_loss``. Across ranks rank p evaluates the
+        chunks p, p + n, ... (the JAX ``_eval_sharded``); the chunks' sums
+        are gathered and added in chunk order in f32, as one process adds
+        them on the device, so the loss is the one-process value."""
         self.model.eval()
-        loss_sum = torch.zeros((), device=self.device)
         rows = eval_rows(self.cfg.bptt, self.corpus.ntokens)
-        for lo in range(0, len(self.eval_x), rows):
-            sl = slice(lo, lo + rows)
+        starts = list(range(0, len(self.eval_x), rows))
+        sums = torch.zeros(len(starts), device=self.device)
+        for i in range(self.proc_id, len(starts), self.n_proc):
+            sl = slice(starts[i], starts[i] + rows)
             losses = softmax_xent(self.model(self.eval_x[sl]).float(), self.eval_y[sl])
-            loss_sum += torch.sum(losses * self.eval_m[sl])
+            sums[i] = torch.sum(losses * self.eval_m[sl])
         self.model.train()
+        if self.n_proc > 1:
+            got = allgather_host(sums.to("cpu", torch.float64).numpy())
+            chunk = got.reshape(self.n_proc, -1).sum(axis=0).astype(np.float32)
+        else:
+            chunk = sums.cpu().numpy()
+        loss_sum = np.float32(0.0)
+        for v in chunk:
+            loss_sum = np.float32(loss_sum + v)
         val_loss = float(loss_sum) / max(float(self.eval_m.sum()), 1.0)
         return val_loss, 1.0 - val_loss

@@ -3,9 +3,9 @@
 
     python3 scripts/rank_launch.py --ranks 4 [--one-card] [--device cpu] -- <cli flags>
 
-Starts ``--ranks`` processes of ``python -m
-dynamic_load_balance_distributeddnn_tpu_torch.cli <cli flags> --coordinator
-127.0.0.1:<free port> --num_processes N --process_id i``. On a host with
+Starts ``--ranks`` processes that join one process group (rendezvous on
+``127.0.0.1:<free port>``) and run the port's cli on ``<cli flags>
+--num_processes N --process_id i`` (``cli.main`` reuses the group). On a host with
 several cards each rank sees only its own (``CUDA_VISIBLE_DEVICES=i``, so
 its ``cuda:0``; pass ``-gpu 0,0,...`` in the flags), and ``parallel/mesh.py``
 picks NCCL; ``--one-card`` puts every rank on the one visible card (gloo,
@@ -19,10 +19,14 @@ walls, launches and peak memory, beside the card's name and power limit.
 Reports and logs go to ``--out`` (default ``chiprun_out/rank_launch``).
 
 The module is also the one launcher of the repo's other rank harnesses
-(``chip_smoke.py`` [7], ``scripts/collective_bench.py``,
+(``chip_smoke.py`` [7]-[8], ``scripts/collective_bench.py``,
 ``tests/_torch_dist_helpers.py``): :func:`launch_ranks` starts any
-commands as ranks and joins them, :func:`run_cli_ranks` runs the cli so
-and returns the ranks' reports.
+commands as ranks and joins them; :func:`run_rank_jobs` starts ``n``
+ranks once and runs several jobs in order in their one process group (each
+a cli run, which reuses the group, or a call of a function), so the
+processes' start-up, the rendezvous and the kernels' loading are paid once
+for all of them; :func:`run_cli_ranks` runs one cli job so and returns the
+ranks' reports.
 """
 
 from __future__ import annotations
@@ -38,9 +42,6 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CLI = [sys.executable, "-m", "dynamic_load_balance_distributeddnn_tpu_torch.cli"]
-CLI_CPU = [sys.executable, "-c", "import sys; from dynamic_load_balance_distributeddnn_tpu_torch "
-           "import cli; sys.exit(cli.main(sys.argv[1:], device='cpu'))"]
 
 
 class RanksFailed(RuntimeError):
@@ -98,28 +99,107 @@ def launch_ranks(cmds: Sequence[Sequence[str]], out_dir: str, timeout: float,
     return wall
 
 
-def run_cli_ranks(flags: Sequence[str], n: int, out_dir: str, timeout: float,
-                  device: str = "cuda", one_card: bool = True) -> Tuple[List[dict], float, List[str]]:
-    """``n`` processes of the cli on ``flags`` (plus the rendezvous on a
-    free localhost port and the log and stat directories under
-    ``out_dir``), joined by :func:`launch_ranks`. Returns each rank's
-    report, the wall, and the flags as rank 0 ran them."""
-    from dynamic_load_balance_distributeddnn_tpu_torch.cli import rank_report_file
-    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+JOBS_ENTRY = [sys.executable, "-c", "from scripts.rank_launch import rank_jobs_main; rank_jobs_main()"]
 
-    full = list(flags) + ["--coordinator", f"127.0.0.1:{free_port()}", "--num_processes", str(n),
-                          "--log_dir", os.path.join(out_dir, "logs"),
-                          "--stat_dir", os.path.join(out_dir, "statis")]
-    argvs = [full + ["--process_id", str(i)] for i in range(n)]
-    entry = CLI if device == "cuda" else CLI_CPU
+
+def cli_job_argv(job: dict, n: int, job_dir: str) -> List[str]:
+    """A cli job's flags as its ranks run them (rank ``i`` adds
+    ``--process_id i``): the job's, the process count, and its log and stat
+    directories under ``job_dir``."""
+    return list(job["argv"]) + ["--num_processes", str(n),
+                                "--log_dir", os.path.join(job_dir, "logs"),
+                                "--stat_dir", os.path.join(job_dir, "statis")]
+
+
+def run_rank_jobs(jobs: Dict[str, dict], n: int, out_dir: str, timeout: float,
+                  device: str = "cuda", one_card: bool = True):
+    """``n`` ranks started once (one process group, rendezvous on a free
+    localhost port), running ``jobs`` in order: ``{"argv": flags}`` runs
+    the cli on the flags (:func:`cli_job_argv`; its directories under
+    ``job["dir"]``, by default ``<out_dir>/<name>``), ``{"call":
+    "module:function", "args": {...}}`` calls ``function(args, rank, n,
+    device)``, which returns something JSON can hold. Every job starts
+    behind a barrier with the kernels' launch counters at zero, the peak
+    memory statistics reset and the card's cache emptied. Returns
+    ``({name: [each rank's {"wall", "report" or "result"}]}, the launch's
+    wall, each rank's start-up seconds)``."""
+    os.makedirs(out_dir, exist_ok=True)
+    spec = os.path.join(out_dir, "jobs.json")
+    full = {name: (dict(job, argv=cli_job_argv(job, n, job.get("dir", os.path.join(out_dir, name))))
+                   if "argv" in job else job)
+            for name, job in jobs.items()}
+    with open(spec, "w") as f:
+        json.dump({"jobs": full, "device": device}, f)
+    init = f"tcp://127.0.0.1:{free_port()}"
+    outs = [os.path.join(out_dir, f"rank{i}.json") for i in range(n)]
+    cmds = [JOBS_ENTRY + [spec, str(i), str(n), init, outs[i]] for i in range(n)]
     envs = [dict(os.environ, **({} if device != "cuda" or one_card
                                 else {"CUDA_VISIBLE_DEVICES": str(i)})) for i in range(n)]
-    wall = launch_ranks([entry + a for a in argvs], out_dir, timeout, envs)
-    reports = []
-    for i, a in enumerate(argvs):
-        with open(rank_report_file(config_from_args(a), i)) as f:
-            reports.append(json.load(f))
-    return reports, wall, argvs[0]
+    wall = launch_ranks(cmds, out_dir, timeout, envs)
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ({name: [r["jobs"][name] for r in ranks] for name in jobs}, wall,
+            [r["startup_s"] for r in ranks])
+
+
+def rank_jobs_main() -> None:
+    """One rank of :func:`run_rank_jobs`: ``argv`` is the spec, the rank,
+    the process count, the rendezvous address and the output file."""
+    t_enter = time.perf_counter()
+    spec_path, rank, world, init, out = sys.argv[1:]
+    rank, world = int(rank), int(world)
+    import gc
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from dynamic_load_balance_distributeddnn_tpu_torch import cli
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import initialize_multihost
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    initialize_multihost(init, world, rank)
+    startup = time.perf_counter() - t_enter
+    results = {}
+    for name, job in spec["jobs"].items():
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        runtime.reset_launches()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if "argv" in job:
+            argv = job["argv"] + ["--process_id", str(rank)]
+            cli.main(argv, device=device)
+            with open(cli.rank_report_file(config_from_args(argv), rank)) as f:
+                res = {"report": json.load(f)}
+        else:
+            module, fn = job["call"].split(":")
+            res = {"result": getattr(importlib.import_module(module), fn)(
+                job.get("args", {}), rank, world, device)}
+        res["wall"] = time.perf_counter() - t0
+        results[name] = res
+    with open(out, "w") as f:
+        json.dump({"jobs": results, "startup_s": startup}, f)
+    dist.destroy_process_group()
+
+
+def run_cli_ranks(flags: Sequence[str], n: int, out_dir: str, timeout: float,
+                  device: str = "cuda", one_card: bool = True) -> Tuple[List[dict], float, List[str]]:
+    """``n`` ranks of the cli on ``flags`` (:func:`run_rank_jobs`, one
+    job). Returns each rank's report, the wall, and the flags as rank 0 ran
+    them."""
+    job = {"argv": list(flags), "dir": out_dir}
+    got, wall, _ = run_rank_jobs({"run": job}, n, out_dir, timeout, device, one_card)
+    return ([r["report"] for r in got["run"]], wall,
+            cli_job_argv(job, n, out_dir) + ["--process_id", "0"])
 
 
 def main() -> int:

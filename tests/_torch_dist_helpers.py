@@ -7,7 +7,8 @@ a fresh ``python -c`` child that imports it (the test modules import JAX).
 ``launch(world, jobs, tmp)`` starts ``world`` ranks, each with one torch
 thread, that rendezvous through ``file://`` under ``tmp`` and run the same
 ``jobs`` in order in one process group (a job is a dict with a ``kind``:
-``train``, ``collectives``, ``combine`` or ``tree``); ``scripts/rank_launch.py``
+``train``, ``lm_train``, ``collectives``, ``combine``, ``tree``, ``sp_attn``,
+``sp_grad``, ``sp_train`` or ``sp_contracts``); ``scripts/rank_launch.py``
 ``launch_ranks`` joins them with a timeout, kills them all when it expires
 or a rank fails, and raises with their logs, so a hang fails the test
 instead of the tier. It returns each rank's results.
@@ -42,6 +43,26 @@ def launch(world: int, jobs: Dict[str, dict], tmp: Path, timeout: float = 300.0)
              str(tmp / f"rank{r}.pt")] for r in range(world)]
     launch_ranks(cmds, str(tmp), timeout, [env] * world, cwd=str(REPO))
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def computed_once(tmp_path_factory, name: str, fn):
+    """``fn(directory)`` computed once a test session, however many
+    pytest-xdist workers ask: the first takes a file lock under the
+    session's shared temporary root, computes, saves the result
+    (``torch.save``) and releases; the others wait on the lock and load it.
+    ``directory`` is a shared one named ``name``."""
+    from filelock import FileLock
+
+    root = Path(tmp_path_factory.getbasetemp())
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # the session's root, shared by the workers
+    path = root / f"{name}.pt"
+    with FileLock(str(path) + ".lock"):
+        if path.exists():
+            return torch.load(path, weights_only=False)
+        out = fn(root / name)
+        torch.save(out, path)
+        return out
 
 
 def rank_main() -> None:
@@ -126,6 +147,39 @@ def _train(job: dict, rank: int, world: int) -> dict:
     return train_outputs(tr)
 
 
+def lm_trainer(job: dict, rank: int = 0, world: int = 1):
+    """A port ``LMTrainer`` on the CPU for ``job``: its ``cfg`` (this rank's
+    process flags added when ``world > 1``), the corpus under
+    ``job["corpus"]``, the straggler timing model ``job["timing"]``, the
+    weights ``job["state"]``, dropout ``job.get("dropout", 0.0)``, and
+    ``job["max_logits"]`` (if given) as the validation chunk's bound."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
+    from dynamic_load_balance_distributeddnn_tpu_torch.data import Corpus
+    from dynamic_load_balance_distributeddnn_tpu_torch.train import lm_engine
+
+    kw = dict(job["cfg"])
+    if world > 1:
+        kw.update(num_processes=world, process_id=rank)
+    if job.get("max_logits"):
+        lm_engine.MAX_LOGITS = job["max_logits"]
+    cls = type("LM", (lm_engine.LMTrainer,), {"DROPOUT": job.get("dropout", 0.0)})
+    timing = job.get("timing")
+    tr = cls(Config(**kw), bundle=Corpus(job["corpus"]),
+             timing_model=None if timing is None else straggler_time(FACTORS[timing]),
+             device="cpu", log_to_file=False)
+    if job.get("state") is not None:
+        tr.model.load_state_dict(job["state"])
+    return tr
+
+
+def _lm_train(job: dict, rank: int, world: int) -> dict:
+    tr = lm_trainer(job, rank, world)
+    tr.run()
+    out = train_outputs(tr)
+    out["validate"] = tr.validate()
+    return out
+
+
 def _collectives(job: dict, rank: int, world: int) -> dict:
     """``exchange_times``, the probe vote and the compressed wire on the
     job's inputs (``job["v"]``: one row a rank)."""
@@ -158,7 +212,8 @@ def _combine(job: dict, rank: int, world: int) -> dict:
     """One step of the port's combine (``train/combine.py``) on given
     gradients, for each of ``job["variants"]`` (``RankCombine`` keywords,
     ``channels_last`` to lay the convolutions' parameters out so): MnistNet
-    from zero parameters, SGD at lr 1 and momentum 0.9, this rank's
+    (or ``job["model"]``, a ``(name, keywords)`` of ``build_model``) from
+    zero parameters, SGD at lr 1 and momentum 0.9, this rank's
     gradients ``job["grads"][rank]`` (a state dict) in ``.grad``, the key
     ``fold_in(PRNGKey(job["seed"]), rank)``. The parameters after the
     step are minus the combined gradient, exactly."""
@@ -169,10 +224,11 @@ def _combine(job: dict, rank: int, world: int) -> dict:
 
     mesh = data_mesh("cpu")
     key = fold_in(prng_key(job["seed"]), rank)
+    name_kw = job.get("model", ("mnistnet", {"num_classes": 10, "in_channels": 1}))
     out = {}
     for name, variant in job["variants"].items():
         kw = dict(variant)
-        model = build_model("mnistnet", num_classes=10, in_channels=1)
+        model = build_model(name_kw[0], **name_kw[1])
         if kw.pop("channels_last", False):
             model = model.to(memory_format=torch.channels_last)
         named = dict(model.named_parameters())
@@ -216,4 +272,106 @@ def _tree(job: dict, rank: int, world: int) -> dict:
     return out
 
 
-_JOBS = {"train": _train, "collectives": _collectives, "combine": _combine, "tree": _tree}
+def _sp_attn(job: dict, rank: int, world: int) -> dict:
+    """Ring and Ulysses attention on this rank's blocks of ``job["q"]``,
+    ``["k"]``, ``["v"]`` (``[B, H, T, D]``, the sequence split in rank
+    order), causal and not, with the gradients of ``sum(out * job["g"])``
+    (this rank's block of ``g``) with respect to its blocks: the output and
+    the gradients of each (mode, causal, use_flash)."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import data_mesh
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.ring import ring_self_attention
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.ulysses import (
+        ulysses_self_attention,
+    )
+
+    mesh = data_mesh("cpu")
+    t = job["q"].shape[2] // world
+    sl = slice(rank * t, (rank + 1) * t)
+    out = {}
+    for mode, causal, flash in job["cases"]:
+        q, k, v = (torch.from_numpy(job[x][:, :, sl]).requires_grad_() for x in "qkv")
+        if mode == "ring":
+            o = ring_self_attention(q, k, v, mesh, causal=causal)
+        else:
+            o = ulysses_self_attention(q, k, v, mesh, causal=causal, use_flash=flash)
+        (o * torch.from_numpy(job["g"][:, :, sl])).sum().backward()
+        out[(mode, causal, flash)] = {"o": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    return out
+
+
+def _sp_model(job: dict, mesh, mode: str):
+    from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
+
+    model = build_model("transformer", **job["dims"], seq_axis=mesh, sp_mode=mode)
+    model.load_state_dict(job["state"])
+    return model
+
+
+def _sp_grad(job: dict, rank: int, world: int) -> dict:
+    """``seq_parallel_value_and_grad(train=False)`` of the SP model (each of
+    ``job["modes"]``, weights ``job["state"]``, dimensions ``job["dims"]``)
+    on this rank's blocks of ``job["tokens"]`` and ``["targets"]``: the
+    loss and the gradients by parameter name."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import data_mesh
+    from dynamic_load_balance_distributeddnn_tpu_torch.parallel.seq_parallel import (
+        seq_parallel_value_and_grad,
+    )
+
+    mesh = data_mesh("cpu")
+    t = job["tokens"].shape[1] // world
+    x, y = (torch.from_numpy(job[a][:, rank * t:(rank + 1) * t]) for a in ("tokens", "targets"))
+    out = {}
+    for mode in job["modes"]:
+        model = _sp_model(job, mesh, mode)
+        loss, grads = seq_parallel_value_and_grad(model, x, y, mesh)
+        names = [n for n, _ in model.named_parameters()]
+        out[mode] = {"loss": float(loss), "grads": dict(zip(names, grads))}
+    return out
+
+
+def _sp_train(job: dict, rank: int, world: int) -> dict:
+    """A port ``SeqParallelLMTrainer`` on the CPU: its ``cfg`` (this rank's
+    process flags added), the corpus under ``job["corpus"]``, dropout
+    ``job["dropout"]``, the weights ``job["state"]`` if given; the series,
+    the parameters and the rank report after ``run``."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
+    from dynamic_load_balance_distributeddnn_tpu_torch.data import Corpus
+    from dynamic_load_balance_distributeddnn_tpu_torch.train import sp_engine
+
+    kw = dict(job["cfg"], num_processes=world, process_id=rank)
+    cls = type("SP", (sp_engine.SeqParallelLMTrainer,), {"DROPOUT": job["dropout"]})
+    tr = cls(Config(**kw), corpus=Corpus(job["corpus"]), device="cpu", log_to_file=False)
+    if job.get("state") is not None:
+        tr.model.load_state_dict(job["state"])
+    tr.run()
+    return {"data": {k: list(v) for k, v in tr.recorder.data.items()},
+            "meta": dict(tr.recorder.meta),
+            "params": {k: p.detach().clone() for k, p in tr.model.named_parameters()},
+            "report": tr.rank_report()}
+
+
+def _sp_contracts(job: dict, rank: int, world: int) -> dict:
+    """The ``SeqParallelLMTrainer`` contracts that need ranks: ``bptt`` 18
+    (not a multiple of a 4-rank world) and Ulysses' 2 heads over 4 ranks;
+    each raises, and the job returns ``(type name, message)`` of each."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
+    from dynamic_load_balance_distributeddnn_tpu_torch.data import Corpus
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.sp_engine import (
+        SeqParallelLMTrainer,
+    )
+
+    out = {}
+    for name, over in (("bptt", {"bptt": 18, "seq_parallel": "ring"}),
+                       ("ulysses", {"seq_parallel": "ulysses"})):
+        cfg = Config(**dict(job["cfg"], num_processes=world, process_id=rank, **over))
+        try:
+            SeqParallelLMTrainer(cfg, corpus=Corpus(job["corpus"]), device="cpu",
+                                 log_to_file=False)
+        except ValueError as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+_JOBS = {"train": _train, "lm_train": _lm_train, "collectives": _collectives,
+         "combine": _combine, "tree": _tree, "sp_attn": _sp_attn, "sp_grad": _sp_grad,
+         "sp_train": _sp_train, "sp_contracts": _sp_contracts}

@@ -99,12 +99,13 @@ def test_good_values_are_accepted_by_both(ok):
     ("num_processes", 2), ("num_processes", 4), ("process_id", 1), ("process_id", 3),
 ])
 def test_more_than_one_process_raises_naming_the_flag(flag, value):
-    """Several processes run the vision loop; what stays one-process raises
-    naming its flag."""
+    """Several processes run the vision loop and the language model; what
+    stays one-process raises naming its flag."""
     procs = {"num_processes": value} if flag == "num_processes" else {
         "num_processes": 4, "process_id": value}
     Config(**dict(BASE, **procs))
-    for refused in ({"model": "transformer", "dataset": "wikitext2"},
+    Config(**dict(BASE, **procs, model="transformer", dataset="wikitext2"))
+    for refused in ({"ckpt_dir": "ck", "model": "transformer", "dataset": "wikitext2"},
                     {"rebalance": "window"}, {"ckpt_dir": "ck"}):
         with pytest.raises(NotImplementedError, match=f"--{next(iter(refused))}"):
             Config(**dict(BASE, **procs, **refused))
@@ -112,9 +113,10 @@ def test_more_than_one_process_raises_naming_the_flag(flag, value):
 
 @pytest.mark.parametrize("override", [
     {"elastic": "on", "grad_comm": "hier", "trace": "on"},
-    {"seq_parallel": "ring", "hier_levels": "host:2"},
-    {"elastic": "on", "ckpt_dir": "ck"}, {"seq_parallel": "ring", "remat": True, "profile_dir": "prof"},
-    {"seq_parallel": "ulysses", "trace": "ring", "trace_spool": "s"},
+    {"elastic": "on", "seq_parallel": "ring", "hier_levels": "host:2"},
+    {"elastic": "on", "ckpt_dir": "ck"},
+    {"elastic": "on", "seq_parallel": "ring", "remat": True, "profile_dir": "prof"},
+    {"elastic": "on", "seq_parallel": "ulysses", "trace": "ring", "trace_spool": "s"},
     {"elastic": "on", "grad_comm": "hier", "dcn_bandwidth_probe": True},
 ])
 def test_flags_that_stay_refused_raise_beside_the_ported_ones(override):

@@ -1,8 +1,8 @@
 """The rank launcher (``scripts/rank_launch.py``) and the cli across ranks, on the CPU.
 
-- ``run_cli_ranks`` starts two cli processes (``--coordinator`` on a free
-  localhost port, ``--num_processes 2``, ``--process_id i``, gloo on the
-  CPU) on MnistNet; each rank's report lies beside the run's statistics
+- ``run_cli_ranks`` starts two processes that join one process group on a
+  free localhost port and run the cli (``--num_processes 2``,
+  ``--process_id i``, gloo on the CPU) on MnistNet; each rank's report lies beside the run's statistics
   (``cli.rank_report_file``), and the ranks end with equal parameters.
 - ``launch_ranks`` fails a launch when a rank fails (the others killed at
   once, each rank's output in the error) and when the ranks outlive the

@@ -6,12 +6,17 @@ package's checks of them, on the port's ``Config`` beside the JAX one.
   accepted where the JAX ``Config`` accepts it.
 - The JAX package's checks (``compress_grads`` and ``grad_accum`` ride a
   fused path) raise the JAX exception type and message.
+- The language model across processes and on its fused paths
+  (``--fused_dbs``, ``--shard_update``, ``--grad_accum``,
+  ``--compress_grads``, ``--grad_comm hier``) and ``--seq_parallel`` are
+  accepted by both.
 - What stays refused raises ``NotImplementedError`` naming its flag (also
-  beside ``--grad_comm hier`` and ``--remat``, which run): the language
-  model, ``--rebalance window`` and ``--ckpt_dir`` across processes, a
-  ``-gpu`` slice naming several devices in one process (the message points
-  to the multi-process flags), ``--coordinator`` without the process count
-  and id, and the language model's fused-path flags.
+  beside ``--grad_comm hier`` and ``--remat``, which run): ``--rebalance
+  window`` and ``--ckpt_dir`` across processes (the language model's too),
+  ``--rebalance window`` for the language model, ``--elastic``, a ``-gpu``
+  slice naming several devices in one process (the message points to the
+  multi-process flags) and ``--coordinator`` without the process count and
+  id.
 - The engine's runtime gate (the JAX ``_dispatch_epoch``'s) raises the JAX
   message when ``--grad_accum`` or ``--compress_grads`` meets a plan that
   fell back to the elastic path; an asymmetric ``-gpu`` map across
@@ -38,6 +43,12 @@ LM = dict(model="transformer", dataset="wikitext2")
     {"coordinator": "127.0.0.1:1234", "num_processes": 2, "process_id": 1},
     {"num_processes": 4, "process_id": 3, "device": [0, 0, 0, 0]},
     {"num_processes": 2, "process_id": 0, "device": [0, 0, 1, 1]},
+    # the language model across ranks and on its fused paths, and sequence
+    # parallelism (lifted with the language model's ranks)
+    {**LM, "grad_comm": "hier", "num_processes": 4}, {**LM, "num_processes": 2},
+    {**LM, "fused_dbs": True}, {**LM, "shard_update": True},
+    {**LM, "dynamic_batch_size": False, "grad_accum": 2, "compress_grads": "int8"},
+    {**LM, "seq_parallel": "ring", "num_processes": 2}, {**LM, "seq_parallel": "ulysses"},
 ])
 def test_lifted_flags_are_accepted_by_both(ok):
     JaxConfig(**dict(BASE, **ok))
@@ -58,12 +69,12 @@ def test_the_jax_fused_path_checks_raise_the_jax_message(bad):
 
 
 @pytest.mark.parametrize("override,flag", [
-    ({**LM, "grad_comm": "hier", "num_processes": 4}, "--model"),
+    ({**LM, "rebalance": "window", "grad_comm": "hier", "num_processes": 4}, "--rebalance"),
     ({"rebalance": "window", "grad_comm": "hier", "hier_levels": "host:2",
       "grad_comm_wires": "int8,fp32", "num_processes": 4}, "--rebalance"),
     ({"ckpt_dir": "ck", "grad_comm": "hier", "dcn_bandwidth_probe": True, "num_processes": 4},
      "--ckpt_dir"),
-    ({**LM, "num_processes": 2}, "--model"),
+    ({**LM, "ckpt_dir": "ck", "num_processes": 2}, "--ckpt_dir"),
     ({"rebalance": "window", "num_processes": 2}, "--rebalance"),
     ({"ckpt_dir": "ck", "num_processes": 4, "process_id": 2}, "--ckpt_dir"),
     ({"device": [0, 1, 0, 1]}, "-gpu"),
@@ -71,10 +82,10 @@ def test_the_jax_fused_path_checks_raise_the_jax_message(bad):
     ({"coordinator": "127.0.0.1:1"}, "--coordinator"),
     ({"coordinator": "127.0.0.1:1", "num_processes": 2}, "--coordinator"),
     ({"process_id": 2}, "--process_id"),
-    ({**LM, "fused_dbs": True}, "--fused_dbs"),
-    ({**LM, "shard_update": True}, "--shard_update"),
+    ({**LM, "rebalance": "window"}, "--rebalance"),
+    ({**LM, "shard_update": True, "elastic": "on"}, "--elastic"),
     ({"elastic": "on", "num_processes": 2}, "--elastic"),
-    ({"seq_parallel": "ring", "num_processes": 2}, "--seq_parallel"),
+    ({**LM, "seq_parallel": "ring", "num_processes": 2, "elastic": "on"}, "--elastic"),
     ({"elastic": "on", "remat": True, "num_processes": 2}, "--elastic"),
 ])
 def test_refusals_raise_naming_the_flag(override, flag):

@@ -60,19 +60,23 @@ def test_canonical_recipe_parses():
 BASE = dict(model="densenet", dataset="cifar10")
 
 
-LM = dict(model="transformer", dataset="wikitext2")  # the LM's fused paths are not ported
+LM = dict(model="transformer", dataset="wikitext2")
 
 
 @pytest.mark.parametrize("override", [
-    {"num_processes": 2, **LM}, {"fused_dbs": True, **LM}, {"shard_update": True, **LM},
+    {"num_processes": 2, **LM, "rebalance": "window"}, {"rebalance": "window", **LM},
+    {"ckpt_dir": "ck", **LM, "num_processes": 2},
     {"elastic": "on", "grad_comm": "hier"},
-    {"compress_grads": "int8", **LM, "dynamic_batch_size": False},
-    {"grad_accum": 2, **LM, "dynamic_batch_size": False}, {"process_id": 1, "rebalance": "window"},
+    {"elastic": "on", **LM, "compress_grads": "int8", "dynamic_batch_size": False},
+    {"elastic": "on", **LM, "grad_accum": 2, "dynamic_batch_size": False},
+    {"process_id": 1, "rebalance": "window"},
     {"elastic": "on"}, {"coordinator": "localhost:1"}, {"elastic": "on", "trace": "on"},
-    {"seq_parallel": "ring", "remat": True, "fault_schedule": "sin", "straggler": "2,1,1,1"},
-    {"seq_parallel": "ulysses"}, {"elastic": "on", "remat": True},
-    {"shard_update": True, "ckpt_dir": "ck", **LM},
-    {"seq_parallel": "ulysses", "remat": True, "trace": "ring"}, {"seq_parallel": "ring"},
+    {"elastic": "on", "seq_parallel": "ring", "remat": True, "fault_schedule": "sin",
+     "straggler": "2,1,1,1"},
+    {"elastic": "on", "seq_parallel": "ulysses", **LM}, {"elastic": "on", "remat": True},
+    {"ckpt_dir": "ck", "shard_update": True, **LM, "num_processes": 2},
+    {"elastic": "on", "seq_parallel": "ulysses", "remat": True, "trace": "ring"},
+    {"rebalance": "window", "seq_parallel": "ring", **LM},
     {"device": [0, 1], "world_size": 2},
 ])
 def test_unported_settings_raise_naming_the_flag(override):

@@ -133,3 +133,30 @@ def test_the_import_checks_cover_the_sweep_and_the_tree():
     mods = set(_modules())
     for name in ("sweep", "parallel.topology", "parallel.wire", "models.common", "train.steps"):
         assert f"{port.__name__}.{name}" in mods, name
+
+
+def test_sp_trainer_defaults_to_cuda(tmp_path, no_cuda):
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.sp_engine import SeqParallelLMTrainer
+
+    cfg = _cfg(tmp_path, model="transformer", dataset="wikitext2", n_train=400, bptt=8,
+               seq_parallel="ring")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SeqParallelLMTrainer(cfg, log_to_file=False)
+    assert not (tmp_path / "logs").exists()  # refused before touching disk
+    tr = SeqParallelLMTrainer(cfg, device="cpu", log_to_file=False)  # the CPU on request
+    assert tr.n_dev == 1 and tr.grad_clip == 0.25
+
+
+def test_sp_cli_defaults_to_cuda(tmp_path, no_cuda):
+    argv = ["-m", "transformer", "-ds", "wikitext2", "-ws", "2", "-e", "1",
+            "--n_train", "400", "--bptt", "8", "--seq_parallel", "ulysses",
+            "--log_dir", str(tmp_path / "logs"), "--stat_dir", str(tmp_path / "statis")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert not (tmp_path / "logs").exists()  # refused before touching disk
+
+
+def test_the_import_checks_cover_sequence_parallelism():
+    mods = set(_modules())
+    for name in ("parallel.ring", "parallel.ulysses", "parallel.seq_parallel", "train.sp_engine"):
+        assert f"{port.__name__}.{name}" in mods, name

@@ -478,14 +478,19 @@ def test_cli_trains_in_bf16(tmp_path, spies, recipe):
 
 # -------------------------------------------------------------------- flags
 
-_LM = dict(model="transformer", dataset="wikitext2")  # the LM's fused paths are not ported
+_LM = dict(model="transformer", dataset="wikitext2")
 STILL_UNPORTED = [
+    {"elastic": "on", "grad_comm": "hier", "hier_hosts": 2}, {"elastic": "on"},
+    {"coordinator": "localhost:1"}, {"process_id": 1}, {"rebalance": "window", **_LM},
+    {"ckpt_dir": "ck", "num_processes": 2},
+]
+# the language model's fused paths and ranks, and sequence parallelism
+LIFTED = [
     {"fused_dbs": True, **_LM}, {"shard_update": True, **_LM},
-    {"elastic": "on", "grad_comm": "hier", "hier_hosts": 2},
     {"compress_grads": "int8", **_LM, "dynamic_batch_size": False},
-    {"grad_accum": 2, **_LM, "dynamic_batch_size": False}, {"elastic": "on"},
-    {"coordinator": "localhost:1"}, {"num_processes": 2, **_LM}, {"seq_parallel": "ring"},
-    {"seq_parallel": "ring", "remat": True}, {"process_id": 1}, {"seq_parallel": "ulysses"},
+    {"grad_accum": 2, **_LM, "dynamic_batch_size": False}, {"num_processes": 2, **_LM},
+    {"seq_parallel": "ring", **_LM}, {"seq_parallel": "ring", "remat": True, **_LM},
+    {"seq_parallel": "ulysses", **_LM},
 ]
 
 
@@ -501,6 +506,13 @@ def test_precision_flag_is_accepted():
 def test_still_unported_flags_raise_under_bf16(override):
     with pytest.raises(NotImplementedError, match=f"--{next(iter(override))}"):
         Config(**dict(dict(model="densenet", dataset="cifar10", precision="bfloat16"), **override))
+
+
+@pytest.mark.parametrize("override", LIFTED, ids=lambda o: next(iter(o)))
+def test_lifted_flags_are_accepted_under_bf16(override):
+    kw = dict(dict(model="densenet", dataset="cifar10", precision="bfloat16"), **override)
+    JaxConfig(**kw)
+    assert Config(**kw).precision == "bfloat16"
 
 
 # ------------------------------------------------------------ K1's routes
