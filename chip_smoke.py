@@ -39,7 +39,9 @@ phase runs.
    and (``--precision bfloat16``'s K1) bf16, whose bound counts 2-byte
    activations; K1's route for every GroupNorm call of the four families at
    b = 512 in bf16 (the tiled one: C in whole 8-element vectors); K2
-   and K3 at every shape the language-model path gives them (below), K3
+   and K3 at every shape the language-model path gives them (below), K2
+   also at [8]'s (a rank's step, [16,384, 18,328], forward and backward;
+   its validation chunk, [5,120, 18,328], forward), K3
    beside its tiled route; K3's tiled route at the long-context shape and
    at [5c]'s largest training and validation shapes, beside SDPA and two
    bounds (the f32 FMA peak's and the 3xTF32 one it computes in).
@@ -156,6 +158,20 @@ phase runs.
    launches K1's and K3's forwards twice as often as without it and every
    other kernel as often; each arm's peak device memory above the baseline
    and its steady step's device time.
+4k. ``--elastic on`` in one process: [4]'s DenseNet-121 cell (4 workers,
+   B = 512, 3:1 virtual straggler, 4,096 examples) on the elastic path
+   (``--packed off --superstep_window 2``: windows of 2 steps, the
+   liveness checks' boundaries), 6 epochs, through ``Trainer(cfg,
+   injector=PreemptionInjector(4, [PreemptionEvent(worker=3, down_at=1.4,
+   rejoin_epoch=3)], base=<the straggler>))``: worker 3 is confirmed lost
+   in epoch 1, the epoch re-runs over 3 survivors from its snapshot, and
+   worker 3 is readmitted at epoch 3 with a probe-seeded share. Checks:
+   ``workers_alive`` 4, 3, 3, 4, 4, 4 and one recovery; every partition sums
+   to 1 and splits the data disjointly; worker 0 holds the smallest share
+   in the last epoch; finite losses; every epoch replayed from step graphs,
+   the two new fleets' graphs captured anew; K1 (tiled) and K2 launched
+   after the recovery. Printed: detection to resumed training, each
+   snapshot's wall and bytes, the captures each new fleet forced.
 6. DenseNet-121, ResNet-18, RegNetY-400MF and the Transformer LM on the
    card against the same models on the CPU (plain versions), same weights
    and inputs; the CNNs' first-conv gradient against the CPU's f64 run, at
@@ -182,7 +198,12 @@ phase runs.
    ranks; the ranks' parameters bit for bit equal (their SHA-256); finite,
    falling losses; in (a) and (b) worker 0's share below 0.40 by the last
    epoch; K1 and K2 launched on each rank; in (c) each rank's momentum chunk
-   half the padded flat parameter count. Printed: each arm's wall, the
+   half the padded flat parameter count. Arm (c) runs cuDNN deterministic
+   with ``--ckpt_dir`` (a collective save an epoch: the ZeRO-1 chunks
+   gathered, rank 0 writing), and two more jobs follow it: rank 0 copies
+   its epoch-0 checkpoint alone (the run as if stopped there), and the run
+   resumed from that copy ends with (c)'s parameters on every rank (their
+   SHA-256) and (c)'s epoch-1 loss and partition. Printed: each arm's wall, the
    epoch walls, each epoch's collective walls (mean and max a step),
    ``sync_time``, ``comm_bytes_*`` and each rank's peak memory. A rank that
    fails or outlives the launch's limit fails the phase: every rank is
@@ -225,7 +246,9 @@ phase runs.
    probe verdict on every rank; ``comm_bytes_ici``/``_dcn`` the hier
    formula times each epoch's combines (the flat one if (c) merged); in (b)
    each rank's momentum chunk a quarter of the padded flat parameter count;
-   K1 and K2 (the LM: K2 and K3) launched on each rank. Printed: the
+   K1 and K2 (the LM: K2 and K3) launched on each rank; (b) resumed from
+   its epoch-0 checkpoint as [7]'s (c) is (the residual rows of every rank
+   saved and taken back). Printed: the
    probe's rates and verdict, the epoch walls, the collective a step and
    each rank's peak memory. It runs right after [7]-[8].
 
@@ -414,6 +437,22 @@ LM_BF16_ARGV = with_epochs(LM_ARGV, LM_BF16_EPOCHS) + BF16
 # time), every epoch probed (so the whole and the resumed run train the
 # last epoch on one plan)
 RESUME_EPOCHS = 2
+# [4k]: --elastic on in one process at [4]'s width: the elastic path
+# (--packed off) in windows of 2 steps, the boundaries of the liveness
+# checks; worker 3 lost at epoch-time 1.4 and back at epoch 3 (a
+# PreemptionInjector over the 3:1 straggler). 6 epochs: the readmission
+# seeds the shares at the probed clean costs (the returning worker's from
+# a 16-row probe, which over-reads its cost), and the solver takes two
+# epochs after it to move that worker's share above the straggler's
+ELASTIC_ARGV = with_epochs(MAIN_ARGV, 6) + (
+    "--elastic on --superstep auto --packed off --superstep_window 2").split()
+ELASTIC_EVENT = (3, 1.4, 3)  # worker, down_at, rejoin_epoch
+ELASTIC_ALIVE = [4.0, 3.0, 3.0, 4.0, 4.0, 4.0]
+# [7] (c) and [7b] (b): the whole run saves a checkpoint an epoch, and a
+# third job resumes from a copy of its epoch-0 checkpoint alone (the run as
+# if stopped there); 56 MB a checkpoint, so under SCRATCH
+RANK_CKPT = os.path.join(SCRATCH, "ranks_ckpt")
+RESUMED_ARMS = {"dist": "c", "hier": "b"}  # [7]'s and [7b]'s resumed arm
 RESUME_RECIPES = (("densenet packed", with_epochs(with_n_train(MAIN_ARGV, 1024), RESUME_EPOCHS)),
                   ("densenet elastic compute",
                    with_epochs(with_n_train(COMPUTE_ARGV, 1024), RESUME_EPOCHS)),
@@ -861,18 +900,20 @@ def check_synthetic_load(torch, dev):
 
 def time_xent(torch, dev):
     """K2 f32 at one DenseNet worker step's logits, [128, 10], a packed
-    step's, [512, 10], and at every
-    row count of the language model's path over its 18,328-word vocabulary
-    (forward and backward; the validation chunk forward only): the kernels
+    step's, [512, 10], at every row count of the language model's path over
+    its 18,328-word vocabulary, and at [8]'s (``XENT_SP_ROWS``: a rank's
+    step, [16,384, 18,328], and its validation chunk, [5,120, 18,328]),
+    forward and backward (validation chunks forward only): the kernels
     beside their plain versions, ``F.cross_entropy(reduction="none")`` (the
     yardstick; its backward through autograd) and their bounds."""
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import xent_bwd, xent_fwd
 
     out = {}
-    shapes = [(128, 10), (512, 10)] + [(r, XENT_LM_V) for r in XENT_PATH_ROWS + (XENT_VAL_ROWS,)]
+    shapes = [(128, 10), (512, 10)] + [(r, XENT_LM_V) for r in XENT_PATH_ROWS + (XENT_VAL_ROWS,)
+                                       + XENT_SP_ROWS]
     for r, v in shapes:
-        backward = r != XENT_VAL_ROWS  # validation runs no backward
-        reps = 50 if backward else 5
+        backward = r not in (XENT_VAL_ROWS, XENT_SP_ROWS[1])  # validation runs no backward
+        reps = 50 if backward and r * v < 10**8 else 5
         logits, labels, g, lse = xent_inputs(r, v, dev)
         row = xent_yardsticks(logits, labels, g, lse, reps, backward)
         row["xent_fwd"].update(timed(lambda: xent_fwd(logits, labels), reps))
@@ -2117,10 +2158,11 @@ def run_superstep_arms(torch, dev):
         torch.cuda.empty_cache()
     return results
 
-def run_trainer(torch, argv, tag, epochs=None):
+def run_trainer(torch, argv, tag, epochs=None, injector=None, setup=None):
     """The port's trainer on one recipe, as ``cli.main`` builds and runs it
-    (``Trainer.run`` / ``LMTrainer.run``), launch counts zeroed just before
-    and read just after; returns (launch counts, series with their
+    (``Trainer.run`` / ``LMTrainer.run``; ``injector`` given to the trainer,
+    ``setup(trainer)`` called before the run), launch counts zeroed just
+    before and read just after; returns (launch counts, series with their
     "_meta", wall, peak device memory in bytes, the trainer)."""
     from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
@@ -2135,7 +2177,10 @@ def run_trainer(torch, argv, tag, epochs=None):
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launches()
     t0 = time.perf_counter()
-    tr = (LMTrainer if cfg.model == "transformer" else Trainer)(cfg, log_to_file=False)
+    tr = (LMTrainer if cfg.model == "transformer" else Trainer)(cfg, injector=injector,
+                                                                 log_to_file=False)
+    if setup is not None:
+        setup(tr)
     tr.run(epochs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2193,6 +2238,91 @@ def check_resume(torch, name, argv, mode, paths):
     gc.collect()  # the trainers' step graphs and pools go before the next recipe
     torch.cuda.empty_cache()
     return {"saves_s": saves, "restore_s": restore}
+
+
+def check_elastic(torch, paths):
+    """[4k]: ``--elastic on`` in one process at [4]'s width (``ELASTIC_ARGV``),
+    driven through ``Trainer(cfg, injector=...)`` with a
+    ``PreemptionInjector`` over the 3:1 straggler: worker 3 lost at
+    epoch-time 1.4, back at epoch 3. Checks: ``workers_alive`` 4 -> 3 -> 4
+    (``ELASTIC_ALIVE``), one recovery, in epoch 1; every partition sums to 1
+    and splits the data disjointly; worker 0 (the straggler) holds the
+    smallest share in the last epoch; finite losses; every epoch's steps
+    replayed from step graphs, the re-run epoch's and the readmission
+    epoch's graphs captured anew; K1 (tiled route) and K2 launched after
+    the recovery (the counters read as it returns). Logs the seconds from
+    the first miss to resumed training, each snapshot's wall and bytes, and
+    the captures and capture seconds the new fleets forced."""
+    import numpy as np
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.data.partitioner import partition_indices
+    from dynamic_load_balance_distributeddnn_tpu_torch.faults import (
+        PreemptionEvent,
+        PreemptionInjector,
+        StaticStragglerInjector,
+    )
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+
+    worker, down_at, rejoin = ELASTIC_EVENT
+    factors = [float(x) for x in MAIN_ARGV[MAIN_ARGV.index("--straggler") + 1].split(",")]
+    inj = PreemptionInjector(len(factors), [PreemptionEvent(worker, down_at, rejoin)],
+                             base=StaticStragglerInjector(factors, mode="virtual"))
+    at_recovery = {}
+
+    def setup(tr):
+        recover = tr._recover
+
+        def counted(lost, epoch):
+            recover(lost, epoch)
+            at_recovery.update(runtime.LAUNCHES)
+
+        tr._recover = counted
+
+    log("  Trainer(cfg, injector=PreemptionInjector(4, [PreemptionEvent(worker=3, down_at=1.4, "
+        "rejoin_epoch=3)], base=StaticStragglerInjector([3, 1, 1, 1]))) on "
+        + " ".join(ELASTIC_ARGV))
+    *run, tr = run_trainer(torch, ELASTIC_ARGV, "run_elastic_world", injector=inj, setup=setup)
+    counts, series, wall, peak = run
+    paths["vision_elastic_world"] = tuple(run)
+    data, meta = tr.recorder.data, tr.recorder.meta
+    assert data["workers_alive"] == ELASTIC_ALIVE, data["workers_alive"]
+    assert data["recoveries"][-1] == 1.0, data["recoveries"]
+    events = meta["elastic_events"]
+    assert events[0]["lost"] == [worker] and events[0]["epoch"] == int(down_at), events
+    assert any(e.get("readmitted") == [worker] and e["epoch"] == rejoin for e in events), events
+    n = tr.n_train
+    for shares in data["partition"]:
+        assert abs(sum(shares) - 1.0) < 1e-9, shares
+        owned = np.concatenate(partition_indices(n, shares))
+        assert len(set(owned.tolist())) == len(owned) >= n - len(shares), shares
+    final = data["partition"][-1]
+    assert len(final) == len(factors) and min(range(len(final)), key=final.__getitem__) == 0, final
+    assert all(math.isfinite(x) for x in data["train_loss"] + data["val_loss"]), data["train_loss"]
+    recs = meta["supersteps"]
+    assert [r["epoch"] for r in recs] == list(range(len(ELASTIC_ALIVE))), recs
+    assert all(r["replays"] > 0 and r["path"] == "elastic" for r in recs), recs
+    assert recs[int(down_at)]["captures"] > 0 and recs[rejoin]["captures"] > 0, recs
+    after = {k: counts[k] - at_recovery[k] for k in CNN_KERNELS}
+    assert all(v > 0 for v in after.values()), after
+    assert counts["groupnorm_fwd_general"] == counts["groupnorm_bwd_general"] == 0, counts
+    snap_bytes = 2 * 4 * sum(p.numel() for p in tr.params)  # parameters + momentum, f32
+    log(f"  workers_alive {data['workers_alive']}, recoveries {data['recoveries']}; events {events}")
+    log(f"  detection to resumed training {events[0]['detect_to_resume_s']:.4f} s; snapshots "
+        f"({snap_bytes / 1e6:.1f} MB of parameters and momentum to the host each) "
+        f"{[round(t * 1e3, 1) for t in meta['elastic_snapshot_s']]} ms")
+    log(f"  captures a epoch {[r['captures'] for r in recs]}, capture seconds "
+        f"{[round(r['capture_s'], 3) for r in recs]} (the fleets of 3 and 4 workers: epochs "
+        f"{int(down_at)} and {rejoin}); replays {[r['replays'] for r in recs]}")
+    log(f"  launches after the recovery {after} (of {dict((k, counts[k]) for k in CNN_KERNELS)}); "
+        f"partition {data['partition']}; train loss {[round(x, 4) for x in data['train_loss']]}; "
+        f"epoch walls {[round(w, 3) for w in epoch_walls(series)]} s; peak {peak / 2**30:.2f} GiB")
+    out = {"events": events, "snapshot_s": meta["elastic_snapshot_s"], "snapshot_bytes": snap_bytes,
+           "captures": [r["captures"] for r in recs], "capture_s": [r["capture_s"] for r in recs],
+           "after_recovery": after, "wall": wall}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_trace(path_dir, what, mode):
@@ -2454,6 +2584,86 @@ def check_ranks(arm: str, reports, series, wall, tag: str = "[7]", kernels=CNN_K
     return {"wall": wall, "epoch_walls": walls, "series": series, "reports": reports}
 
 
+def arm_argv(prefix: str, arm: str, argv):
+    """A rank arm's flags: the resumed arm's (``RESUMED_ARMS``) save a
+    checkpoint an epoch under ``RANK_CKPT``."""
+    if RESUMED_ARMS.get(prefix) != arm:
+        return list(argv)
+    return list(argv) + ["--ckpt_dir", os.path.join(RANK_CKPT, f"{prefix}_{arm}")]
+
+
+def arm_jobs(prefix: str, base, arms):
+    """The rank jobs of ``arms`` (``(arm, what, extra flags)``) on ``base``;
+    the resumed arm runs deterministic (cuDNN), saving each epoch, and is
+    followed by a job that copies its epoch-0 checkpoint alone
+    (``stop_checkpoint``) and by the run resumed from that copy. Its
+    checkpoint directories are emptied first (a whole run would resume
+    from a stale one)."""
+    jobs = {}
+    for arm, _, extra in arms:
+        jobs[f"{prefix}_{arm}"] = {"argv": arm_argv(prefix, arm, base + extra)}
+        if RESUMED_ARMS.get(prefix) == arm:
+            ck = os.path.join(RANK_CKPT, f"{prefix}_{arm}")
+            for d in (ck, ck + "_stop"):
+                shutil.rmtree(d, ignore_errors=True)
+            jobs[f"{prefix}_{arm}"]["deterministic"] = True
+            jobs[f"{prefix}_{arm}_stop"] = {"call": "chip_smoke:stop_checkpoint",
+                                            "args": {"src": ck, "dst": ck + "_stop", "epoch": 0}}
+            jobs[f"{prefix}_{arm}_resumed"] = {"argv": base + extra + ["--ckpt_dir", ck + "_stop"],
+                                               "deterministic": True}
+    return jobs
+
+
+def stop_checkpoint(args, rank: int, world: int, device: str):
+    """A call job of [7] and [7b]: rank 0 copies the whole run's checkpoint
+    of epoch ``args["epoch"]`` (its directory and its sidecar) alone into
+    ``args["dst"]``, the run as if stopped after that epoch (the next job
+    starts behind a barrier). Returns the state file's bytes on rank 0."""
+    if rank != 0:
+        return None
+    src, dst, e = args["src"], args["dst"], args["epoch"]
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    shutil.copytree(os.path.join(src, str(e)), os.path.join(dst, str(e)))
+    shutil.copy(os.path.join(src, f"controller_{e}.json"), dst)
+    return os.path.getsize(os.path.join(dst, str(e), "state.pt"))
+
+
+def check_rank_resume(tag: str, prefix: str, arm: str, extra, base, got, run_dir: str,
+                      ranks: int):
+    """[7] (c) or [7b] (b) resumed: the run resumed from the whole run's
+    epoch-0 checkpoint ends with the whole run's parameters on every rank
+    (their SHA-256), and its series holds epoch 1 alone, with the whole
+    run's partition and train loss. Logs each save's wall (a collective:
+    ZeRO-1's chunks and the residual rows gathered, rank 0 writing), the
+    restore's and the checkpoint's bytes; removes the checkpoints."""
+    whole, whole_series, _ = cli_arm(got, run_dir, f"{prefix}_{arm}",
+                                     arm_argv(prefix, arm, base + extra), ranks)
+    ck = os.path.join(RANK_CKPT, f"{prefix}_{arm}")
+    resumed, series, wall = cli_arm(got, run_dir, f"{prefix}_{arm}_resumed",
+                                    base + extra + ["--ckpt_dir", ck + "_stop"], ranks)
+    for w, r in zip(whole, resumed):
+        assert w["param_sha256"] == r["param_sha256"], \
+            f"{tag} ({arm}) resumed: rank {r['rank']}'s parameters differ from the whole run's"
+    assert series["epoch"] == [1], series["epoch"]
+    assert series["partition"] == whole_series["partition"][1:], \
+        (series["partition"], whole_series["partition"])
+    assert series["train_loss"] == whole_series["train_loss"][1:], \
+        (series["train_loss"], whole_series["train_loss"])
+    saves = whole_series["_meta"]["checkpoint"]["save_s"]
+    restore = series["_meta"]["checkpoint"]["restore_s"]
+    nbytes = got[f"{prefix}_{arm}_stop"][0]["result"]
+    log(f"  ({arm}) resumed from the whole run's epoch-0 checkpoint ({nbytes / 1e6:.1f} MB): every "
+        f"rank's parameters bit for bit the whole run's (sha256 {resumed[0]['param_sha256'][:16]}), "
+        f"epoch 1's train loss {series['train_loss'][0]:.6f} and partition "
+        f"{series['partition'][0]} its own; saves across {ranks} ranks "
+        f"{[round(t * 1e3, 1) for t in saves]} ms, restore {restore * 1e3:.1f} ms (rank 0); "
+        f"job wall {wall:.1f}s")
+    for d in (ck, ck + "_stop"):
+        shutil.rmtree(d, ignore_errors=True)
+    return {"wall": wall, "saves_s": saves, "restore_s": restore, "bytes": nbytes}
+
+
 def hier_bytes(elems: int, sizes, wires):
     """The hier combine's (ICI, DCN) bytes a step (the JAX package's
     formula, ``Trainer._comm_bytes_per_step``), from the port's per-hop
@@ -2659,7 +2869,7 @@ def check_sp_values(results):
     return [x["result"] for x in results]
 
 
-PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4i", "4g", "4j",
+PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4k", "4i", "4g", "4j",
           "6", "6b", "7", "7b", "7c", "8")
 
 
@@ -2744,7 +2954,7 @@ def main(argv=None) -> int:
     # [7], [7c] and [8]: every arm by two ranks started once; [7b]: by four
     jobs2 = {}
     if want("7"):
-        jobs2.update({f"dist_{arm}": {"argv": DIST_ARGV + extra} for arm, _, extra in DIST_ARMS})
+        jobs2.update(arm_jobs("dist", DIST_ARGV, DIST_ARMS))
     if want("7c"):
         jobs2.update({f"lm_{arm}": {"argv": LM_DIST_ARGV + extra} for arm, _, extra in LM_DIST_ARMS})
     if want("8"):
@@ -2765,8 +2975,13 @@ def main(argv=None) -> int:
             for arm, what, extra in DIST_ARMS:
                 log(f"  ({arm}) {what}")
                 ranks[arm] = check_ranks(arm, *cli_arm(got, run_dir, f"dist_{arm}",
-                                                       DIST_ARGV + extra, DIST_RANKS))
-            rank_phase_s["7"] = sum(ranks[a]["wall"] for a, _, _ in DIST_ARMS)
+                                                       arm_argv("dist", arm, DIST_ARGV + extra),
+                                                       DIST_RANKS))
+                if RESUMED_ARMS["dist"] == arm:
+                    ranks[arm + "_resumed"] = check_rank_resume("[7]", "dist", arm, extra,
+                                                                DIST_ARGV, got, run_dir, DIST_RANKS)
+            rank_phase_s["7"] = (sum(ranks[a]["wall"] for a, _, _ in DIST_ARMS)
+                                 + ranks[RESUMED_ARMS["dist"] + "_resumed"]["wall"])
         if want("7c"):
             phase("[7c] the language model across ranks: 2 ranks, BASELINE.md config 5, B=80")
             for arm, what, extra in LM_DIST_ARMS:
@@ -2791,13 +3006,17 @@ def main(argv=None) -> int:
               "DenseNet-121 (B=512) in three arms, the language model in a fourth")
         gc.collect()
         torch.cuda.empty_cache()
-        jobs4 = {f"hier_{arm}": {"argv": HIER_ARGV + extra} for arm, _, extra in HIER_ARMS}
+        jobs4 = arm_jobs("hier", HIER_ARGV, HIER_ARMS)
         jobs4["hier_lm"] = {"argv": HIER_LM_ARGV}
         got, run_dir = run_rank_phases("ranks4", jobs4, HIER_RANKS, RANKS4_TIMEOUT_S)
         for arm, what, extra in HIER_ARMS:
             log(f"  ({arm}) {what}")
             ranks["hier_" + arm] = check_hier_ranks(
-                arm, *cli_arm(got, run_dir, f"hier_{arm}", HIER_ARGV + extra, HIER_RANKS))
+                arm, *cli_arm(got, run_dir, f"hier_{arm}", arm_argv("hier", arm, HIER_ARGV + extra),
+                              HIER_RANKS))
+            if RESUMED_ARMS["hier"] == arm:
+                ranks[f"hier_{arm}_resumed"] = check_rank_resume(
+                    "[7b]", "hier", arm, extra, HIER_ARGV, got, run_dir, HIER_RANKS)
         log("  (lm) the language model, DBS on, the default wires (int8 outer hop)")
         ranks["hier_lm"] = check_hier_ranks(
             "lm", *cli_arm(got, run_dir, "hier_lm", HIER_LM_ARGV, HIER_RANKS), kernels=LM_KERNELS)
@@ -2887,6 +3106,11 @@ def main(argv=None) -> int:
         finally:
             torch.backends.cudnn.deterministic = False
 
+    elastic = {}
+    if want("4k"):
+        phase("[4k] --elastic on: worker 3 of 4 lost mid-epoch 1, re-solve, readmitted at epoch 3")
+        elastic = check_elastic(torch, paths)
+
     tracing = {}
     if want("4i"):
         phase("[4i] tracing: graftscope attribution, the spools, the profiler, MFU")
@@ -2935,7 +3159,7 @@ def main(argv=None) -> int:
         with open(os.path.join(OUT, "phases.json"), "w") as f:
             json.dump({"card": smi, "phases": chosen, "errors": err, "supersteps": supersteps,
                        "phase_seconds": seconds, "rank_phase_seconds": rank_phase_s,
-                       "ranks": ranks, "remat": remat,
+                       "ranks": ranks, "remat": remat, "elastic": elastic,
                        "resume": resume, "tracing": tracing,
                        "launches": {tag: p[0] for tag, p in paths.items()},
                        "series": {tag: p[1] for tag, p in paths.items()},
@@ -3011,6 +3235,7 @@ def main(argv=None) -> int:
                    "series": {tag: p[1] for tag, p in paths.items()},
                    "groupnorm_shapes": shapes, "window_walls": window_walls,
                    "supersteps": supersteps, "resume": resume, "tracing": tracing,
+                   "elastic": elastic,
                    "ranks": ranks, "remat": remat, "phase_seconds": seconds,
                    "rank_phase_seconds": rank_phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -114,3 +114,15 @@ def rebalance(
         raise ValueError("degenerate split: no worker received any batch")
     new_shares = batches.astype(np.float64) / float(total)
     return new_shares, batches
+
+
+def equilibrium_shares(rates: np.ndarray) -> np.ndarray:
+    """The inverse-time fixed point for per-worker seconds an example:
+    share_i ∝ 1/c_i, the partition at which every worker's step takes the
+    same wall. ``--elastic``'s readmission seeds a returning worker's share
+    here from its probed cost (``train/engine.py`` ``_maybe_readmit``)."""
+    c = np.asarray(rates, dtype=np.float64)
+    if np.any(c <= 0) or not np.isfinite(c).all():
+        raise ValueError("rates must be positive and finite")
+    inv = 1.0 / c
+    return inv / inv.sum()

@@ -26,8 +26,12 @@ port runs the DBS loop of the vision models and of the language model
 ``--grad_comm hier`` (with ``--hier_levels``, ``--hier_hosts``,
 ``--grad_comm_wire(s)``, ``--dcn_bandwidth_probe`` and
 ``--dcn_probe_gate``; in one process it falls back to the flat combine with
-the JAX package's warning); it refuses, by name, ``--rebalance window``
-and ``--ckpt_dir`` there. ``--seq_parallel ring|ulysses`` trains the
+the JAX package's warning) and ``--ckpt_dir`` (a save gathers each rank's
+ZeRO-1 chunk and residuals to rank 0, ``train/checkpoint.py``);
+``--rebalance window`` there runs at epoch cadence with the JAX package's
+warning, as the JAX trainer does; ``--elastic on`` runs in one process only (a lost
+process needs the JAX package's rendezvous, not ported yet) and is refused
+by name across processes. ``--seq_parallel ring|ulysses`` trains the
 language model with its sequence sharded over the ranks
 (``train/sp_engine.py``). ``--remat`` recomputes the
 training forward in the backward (``train/steps.py`` ``forward``).
@@ -395,28 +399,19 @@ class Config:
                         "one process a device with --coordinator, --num_processes and "
                         "--process_id (or DBS_COORDINATOR, DBS_NUM_PROCESSES, DBS_PROCESS_ID)"
                     )
-        if n_proc > 1:
-            across = {
-                "rebalance": self.rebalance == "window",
-                "ckpt_dir": bool(self.ckpt_dir),
-            }
-            for flag, set_ in across.items():
-                if set_:
-                    raise NotImplementedError(
-                        f"--{flag}={getattr(self, flag)!r} with --num_processes {n_proc} is not "
-                        "implemented by this port yet (ROADMAP.md lists what is left)"
-                    )
-        if self.rebalance == "window" and self.model == "transformer":
+        if self.rebalance == "window" and self.model == "transformer" and n_proc == 1 \
+                and not self.seq_parallel:
             raise NotImplementedError(
                 "--rebalance='window' with -m transformer is not implemented by "
                 "this port: a remainder plan re-slices examples, not a token "
                 "stream folded into bptt windows, and the JAX package's language "
                 "model fails at its first switch (ROADMAP.md lists what is left)"
             )
-        if self.elastic != "off":
+        if self.elastic == "on" and n_proc > 1:
             raise NotImplementedError(
-                f"--elastic={self.elastic!r} is not implemented by this port yet "
-                "(ROADMAP.md lists what is left)"
+                f"--elastic={self.elastic!r} with --num_processes {n_proc} is not implemented "
+                "by this port yet: a lost process needs the rendezvous and the stall "
+                "watchdog (ROADMAP.md lists what is left); one process runs it"
             )
 
     def straggler_factors(self) -> List[float]:

@@ -27,16 +27,23 @@ random machine. Every injector draws from explicit seeded generators
 never the module-global ``random`` state, so a seed replays bit for bit and
 the draws equal the JAX package's.
 
-Not ported yet: preemption (``PreemptionInjector``, ``--elastic``).
+``PreemptionInjector`` extends the fault model past stragglers to worker
+*loss* (``--elastic on``): kill, suspend and rejoin schedules, delivered
+virtually (the engine's health checks see the worker as down: the elastic
+recovery path, ``train/engine.py`` ``_recover``) or to real processes by
+signal. Its ``chance`` mode draws from its own seeded generator, so a seed
+gives the JAX package's schedule.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
+
+from dynamic_load_balance_distributeddnn_tpu_torch.obs.trace import get_tracer
 
 
 def seeded_rngs(seed: int, n: int) -> List[random.Random]:
@@ -303,3 +310,256 @@ class ScheduledStragglerInjector(StaticStragglerInjector):
     def faults_at(self, t: float, ctx: FaultContext) -> EpochFaults:
         """Window cadence: the faults at epoch-time ``t``."""
         return self._to_faults(self.factors_at(t), ctx)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreemptionEvent:
+    """One scheduled worker outage.
+
+    ``down_at`` is in fractional epoch-time (1.5 = halfway through epoch 1),
+    so outages land MID-epoch — the case the elastic recovery path must
+    survive, not just the tidy boundary one. ``rejoin_epoch`` is the epoch
+    BOUNDARY at which the worker offers to come back (readmission is
+    boundary-only by design: plans are immutable within an epoch); None
+    means it never returns. ``kind`` distinguishes a preemption that loses
+    the process ("kill") from one that freezes it ("suspend") — virtually
+    identical (the worker is unreachable either way), but real-process
+    delivery sends SIGKILL vs SIGSTOP/SIGCONT."""
+
+    worker: int
+    down_at: float
+    rejoin_epoch: Optional[int] = None
+    kind: str = "kill"
+
+    def __post_init__(self):
+        if self.kind not in ("kill", "suspend"):
+            raise ValueError("kind must be 'kill' or 'suspend'")
+        if self.rejoin_epoch is not None and self.rejoin_epoch <= self.down_at:
+            raise ValueError("rejoin_epoch must be after down_at")
+
+
+class PreemptionInjector(FaultInjector):
+    """Kill/suspend/rejoin schedules — the preemptible-fleet fault model.
+
+    Two delivery modes, mirroring the straggler injectors' virtual/compute
+    split:
+
+    * **virtual** (default): the engine's health checks ask
+      :meth:`down_workers` and see the scheduled workers as unreachable —
+      deterministic, cheap, exactly what the recovery-path tests drive.
+    * **real**: :meth:`attach_process` binds a worker to a live OS pid and
+      :meth:`deliver` sends the due signals (SIGKILL for "kill", SIGSTOP /
+      SIGCONT around a "suspend") — a harness of real worker processes preempts
+      them with it (the JAX package's multi-host chaos tests).
+
+    Schedules are either explicit (``schedule=[PreemptionEvent(...)]``) or
+    drawn per epoch from ``chance`` using an explicit seeded generator —
+    never module-global ``random`` — so a given ``--seed`` replays the same
+    outages (the chaos round-trip tests are deterministic).
+
+    ``base`` optionally composes a straggler injector underneath: a fleet
+    can be slow AND losing workers; ``epoch_faults`` delegates to it, with
+    downed workers' injected load zeroed (a dead worker injects nothing).
+    """
+
+    def __init__(
+        self,
+        world_size: int,
+        schedule: Sequence[PreemptionEvent] = (),
+        *,
+        chance: float = 0.0,
+        max_down_epochs: int = 3,
+        seed: int = 0,
+        rng: Optional[random.Random] = None,
+        base: Optional[FaultInjector] = None,
+        logger=None,
+    ):
+        self.ws = int(world_size)
+        for ev in schedule:
+            if not 0 <= ev.worker < world_size:
+                raise ValueError(f"event worker {ev.worker} out of range")
+        self._events: List[PreemptionEvent] = sorted(
+            schedule, key=lambda e: e.down_at
+        )
+        self.chance = float(chance)
+        self.max_down_epochs = int(max_down_epochs)
+        self._rng = rng if rng is not None else random.Random(seed * 6151 + 17)
+        self.base = base
+        self.logger = logger
+        self._rolled_epochs: Set[int] = set()
+        self._pids: Dict[int, int] = {}
+        self._respawns: Dict[int, object] = {}
+        self._delivered: Set[tuple] = set()
+
+    # ------------------------------------------------------------- schedule
+
+    def _roll(self, epoch: int) -> None:
+        """Random mode: draw this epoch's outages once (idempotent — the
+        engine may re-run an epoch after a recovery; the schedule must not
+        re-roll or the retry would chase fresh faults forever)."""
+        if self.chance <= 0.0 or epoch in self._rolled_epochs:
+            return
+        self._rolled_epochs.add(epoch)
+        down_now = self.down_workers(epoch + 1.0)
+        for r in range(self.ws):
+            if r in down_now:
+                continue
+            if self._rng.random() < self.chance:
+                ev = PreemptionEvent(
+                    worker=r,
+                    down_at=epoch + self._rng.random(),
+                    rejoin_epoch=epoch + 1 + self._rng.randint(
+                        1, self.max_down_epochs
+                    ),
+                    kind="kill" if self._rng.random() < 0.5 else "suspend",
+                )
+                self._events.append(ev)
+                if self.logger:
+                    self.logger.info(
+                        f"preemption scheduled: worker {ev.worker} "
+                        f"{ev.kind} at t={ev.down_at:.2f}, rejoin at "
+                        f"epoch {ev.rejoin_epoch}"
+                    )
+                get_tracer().instant(
+                    "fault_scheduled", cat="fault",
+                    args={
+                        "worker": ev.worker,
+                        "kind": ev.kind,
+                        "down_at": round(ev.down_at, 4),
+                        "rejoin_epoch": ev.rejoin_epoch,
+                    },
+                )
+
+    def schedule(self) -> List[PreemptionEvent]:
+        return list(self._events)
+
+    def down_workers(self, t: float) -> Set[int]:
+        """Workers scheduled down at epoch-time ``t`` (``down_at <= t`` and
+        not yet past their rejoin boundary)."""
+        out: Set[int] = set()
+        for ev in self._events:
+            if ev.down_at <= t and (
+                ev.rejoin_epoch is None or t < ev.rejoin_epoch
+            ):
+                out.add(ev.worker)
+        return out
+
+    def rejoining(self, epoch: int) -> Set[int]:
+        """Workers whose rejoin boundary is exactly ``epoch`` (the engine
+        readmits them before planning that epoch)."""
+        return {
+            ev.worker
+            for ev in self._events
+            if ev.rejoin_epoch is not None and ev.rejoin_epoch == epoch
+        }
+
+    # ----------------------------------------------------- injector surface
+
+    def epoch_faults(self, epoch, num_batches, ctx):
+        self._roll(int(epoch))
+        out = (
+            self.base.epoch_faults(epoch, num_batches, ctx)
+            if self.base is not None
+            else EpochFaults.none(self.ws)
+        )
+        # a downed worker injects nothing — its load is GONE, not slow
+        for r in self.down_workers(float(epoch) + 1.0):
+            if r < len(out.virtual_seconds):
+                out.virtual_seconds[r] = 0.0
+                out.slow_iters_per_step[r] = 0
+                out.time_multipliers[r] = 1.0
+        return out
+
+    # --------------------------------------------------- real-process mode
+
+    def attach_process(self, worker: int, pid: int) -> None:
+        """Bind a worker to a live OS process for real signal delivery."""
+        self._pids[int(worker)] = int(pid)
+
+    def attach_respawn(self, worker: int, spawn) -> None:
+        """Bind a worker to a respawn callable: at a "kill"
+        event's ``rejoin_epoch`` edge, :meth:`deliver` calls ``spawn()``
+        once — the chaos-harness hook that turns a SIGKILLed process into a
+        kill → shrink → rejoin → grow round-trip (the respawned process
+        offers a rendezvous join; the survivors admit it at their next
+        epoch boundary). ``spawn`` may return the new pid (or a Popen with
+        a ``pid``), in which case the worker is re-attached for any later
+        scheduled signals; idempotent per edge like every other delivery."""
+        self._respawns[int(worker)] = spawn
+
+    def deliver(self, t: float) -> List[tuple]:
+        """Send every signal due by epoch-time ``t`` to attached processes
+        (each edge delivered once): SIGKILL for "kill", SIGSTOP at a
+        "suspend" edge, SIGCONT at its rejoin edge. Returns the delivered
+        ``(worker, signal_name)`` edges — the harness asserts on them."""
+        import signal
+
+        sent: List[tuple] = []
+        for ev in self._events:
+            pid = self._pids.get(ev.worker)
+            if pid is None:
+                continue
+            if ev.down_at <= t:
+                key = (ev.worker, ev.down_at, "down")
+                if key not in self._delivered:
+                    self._delivered.add(key)
+                    sig = signal.SIGKILL if ev.kind == "kill" else signal.SIGSTOP
+                    try:
+                        os_kill(pid, sig)
+                        sent.append((ev.worker, sig.name))
+                    except ProcessLookupError:
+                        pass
+            if (
+                ev.kind == "suspend"
+                and ev.rejoin_epoch is not None
+                and ev.rejoin_epoch <= t
+            ):
+                key = (ev.worker, ev.rejoin_epoch, "rejoin")
+                if key not in self._delivered:
+                    self._delivered.add(key)
+                    try:
+                        os_kill(pid, signal.SIGCONT)
+                        sent.append((ev.worker, "SIGCONT"))
+                    except ProcessLookupError:
+                        pass
+            if (
+                ev.kind == "kill"
+                and ev.rejoin_epoch is not None
+                and ev.rejoin_epoch <= t
+                and ev.worker in self._respawns
+            ):
+                # a SIGKILLed PROCESS cannot SIGCONT back — its rejoin edge
+                # is a RESPAWN (the spawned process offers a rendezvous
+                # join and the fleet re-grows at the next epoch boundary)
+                key = (ev.worker, ev.rejoin_epoch, "respawn")
+                if key not in self._delivered:
+                    self._delivered.add(key)
+                    got = self._respawns[ev.worker]()
+                    new_pid = getattr(got, "pid", got)
+                    if isinstance(new_pid, int):
+                        self._pids[ev.worker] = new_pid
+                    sent.append((ev.worker, "RESPAWN"))
+        if sent:
+            # fleet-timeline instants: every REAL signal edge the
+            # chaos harness delivers lands on the flight recorder, so a
+            # postmortem shows the injection beside its consequences
+            tracer = get_tracer()
+            if tracer.enabled:
+                for worker, signame in sent:
+                    tracer.instant(
+                        "fault_deliver", cat="fault",
+                        args={
+                            "worker": int(worker),
+                            "signal": signame,
+                            "t": round(float(t), 4),
+                        },
+                    )
+        return sent
+
+
+def os_kill(pid: int, sig) -> None:
+    """``os.kill`` behind a seam the tests can monkeypatch (virtual harness
+    runs must never signal arbitrary pids by accident)."""
+    import os
+
+    os.kill(pid, sig)

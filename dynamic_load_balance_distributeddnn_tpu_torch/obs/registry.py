@@ -3,8 +3,9 @@ surfaces (the JAX package's ``obs/registry.py``, copied).
 
 The registry binds the :class:`~.recorder.MetricsRecorder` (nine per-epoch
 series and extras), the :class:`~..balance.timing.HostOverheadMeter`
-(dispatch walls), the tracer and the window controller behind one object
-the engine owns:
+(dispatch walls), the tracer, the window controller and the elastic
+runtime's per-worker health (``runtime/health.py``) behind one object the
+engine owns:
 
 * ``registry.last(name)`` / ``registry.series(name)`` — recorder access with
   the None-for-absent contract;
@@ -17,8 +18,8 @@ The JAX package also binds its compile guards' counters, a per-engine
 ``CompileTracker`` and its AOT compile service's stats. This port has no
 compile service and no compile guards yet (ROADMAP.md queue 1, the
 runtime), so those slots and the snapshot's ``compiles`` / ``aot`` keys are
-left out rather than filled with made-up numbers; so are the elastic
-runtime's ``health`` and the many-stream ``scheduler``.
+left out rather than filled with made-up numbers; so is the many-stream
+``scheduler``.
 
 The registry holds *references*, not copies — it is a view, never a second
 source of truth.
@@ -76,13 +77,14 @@ class MetricsRegistry:
         self.tracer = tracer if tracer is not None else get_tracer()
         self.host_meter = None  # balance.timing.HostOverheadMeter
         self.controller = None  # balance.controller.OnlineRebalanceController
+        self.health = None  # runtime.health.WorkerHealth
 
     def attach(self, **surfaces) -> "MetricsRegistry":
         """Register observability surfaces by their well-known slot name
-        (``host_meter``, ``controller``). Unknown names raise — a typo'd
+        (``host_meter``, ``controller``, ``health``). Unknown names raise — a typo'd
         attach would silently hollow the snapshot."""
         for name, obj in surfaces.items():
-            if name not in ("host_meter", "controller"):
+            if name not in ("host_meter", "controller", "health"):
                 raise ValueError(f"unknown registry surface {name!r}")
             setattr(self, name, obj)
         return self
@@ -139,4 +141,6 @@ class MetricsRegistry:
             # ledgers, decision count, and the most recent verdict with the
             # inputs it was decided on
             out["controller"] = self.controller.snapshot()
+        if self.health is not None:
+            out["health"] = self.health.snapshot()
         return out

@@ -355,6 +355,23 @@ def broadcast_flag(flag: bool) -> bool:
     return bool(box[0])
 
 
+def allgather_object(obj) -> list:
+    """Every rank's ``obj`` (picklable), in rank order, over the default
+    group; ``[obj]`` in one process."""
+    if process_count() == 1:
+        return [obj]
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def barrier() -> None:
+    """Every rank of the default group meets here (nothing in one
+    process)."""
+    if process_count() > 1:
+        dist.barrier()
+
+
 def broadcast_object(obj):
     """Process 0's ``obj`` (picklable) on every rank (the identity in one
     process)."""

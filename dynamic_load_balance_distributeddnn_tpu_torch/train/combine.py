@@ -224,12 +224,48 @@ class RankCombine:
         return out
 
     def momentum_by_name(self) -> Dict[str, torch.Tensor]:
-        """ZeRO-1's momentum as each parameter's buffer (views of the
-        chunk), for a checkpoint. One rank only: its chunk is the whole
-        trace (``--ckpt_dir`` across ranks is refused, ``config.py``)."""
-        if not self.shard_update or self.n != 1:
-            raise NotImplementedError("the momentum by name of a rank's 1/n chunk")
-        return dict(zip(self.order, self.grads.views(self.mom)))
+        """ZeRO-1's momentum as each parameter's buffer, for a checkpoint:
+        the chunks of every rank gathered into the buffer's layout (on the
+        tree from the JAX order), views of one flat tensor. A collective
+        across ranks: every rank calls it."""
+        if not self.shard_update:
+            raise ValueError("the momentum lives in the optimizer without --shard_update")
+        if self.n == 1:
+            full = self.mom
+        elif self.axes is not None:
+            full = self._from_jax(self._tree_gather(self.mom), torch.zeros_like(self.trace))
+        else:
+            full = self.mesh.all_gather(torch.empty_like(self.trace), self.mom)
+        return dict(zip(self.order, self.grads.views(full)))
+
+    @torch.no_grad()
+    def load_momentum(self, by_name: Dict[str, torch.Tensor]) -> None:
+        """This rank's chunk, in place, from a checkpoint's momentum by
+        parameter name (:meth:`momentum_by_name`'s inverse): the buffer's
+        1/n block, or on the tree the block at ``off`` of the JAX order."""
+        full = self.grads.ravel([by_name[k].to(self.grads.flat.device) for k in self.order])
+        if self.axes is not None:
+            chunk = self._to_jax(full, padded=True)[self.off:self.off + self.chunk]
+        else:
+            r = self.mesh.rank
+            chunk = full[r * self.chunk:(r + 1) * self.chunk]
+        self.mom.copy_(chunk)
+
+    def residual_rows(self) -> List[torch.Tensor]:
+        """The error-feedback residuals of every rank, one ``[n, width]``
+        tensor a hop (row ``i`` rank ``i``'s, as the JAX ``comm_residual``
+        keeps one row a device). A collective: every rank calls it."""
+        return [self.mesh.all_gather(torch.empty(self.n * r.numel(), device=r.device), r)
+                .view(self.n, -1) for r in self.residuals]
+
+    def load_residual_rows(self, rows: Sequence[torch.Tensor]) -> None:
+        """This rank's residuals from :meth:`residual_rows`' tensors."""
+        if len(rows) != len(self.residuals) or any(
+                tuple(row.shape) != (self.n, r.numel()) for row, r in zip(rows, self.residuals)):
+            raise ValueError(f"residual rows {[tuple(row.shape) for row in rows]} do not fit "
+                             f"{self.n} ranks of {[r.numel() for r in self.residuals]}")
+        self.residuals = [row[self.mesh.rank].to(r.device, r.dtype).clone()
+                          for row, r in zip(rows, self.residuals)]
 
     # ---------------------------------------------------------------- step
 

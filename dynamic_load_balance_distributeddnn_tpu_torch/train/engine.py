@@ -140,6 +140,7 @@ import torch
 from dynamic_load_balance_distributeddnn_tpu_torch.balance import (
     HostOverheadMeter,
     TimeKeeper,
+    equilibrium_shares,
     exchange_times,
     initial_partition,
     integer_batch_split,
@@ -189,7 +190,9 @@ from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.xent import softm
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.losses import example_weights
 from dynamic_load_balance_distributeddnn_tpu_torch.parallel.mesh import (
     allgather_host,
+    allgather_object,
     axis_size,
+    barrier,
     broadcast_object,
     data_mesh,
     probe_link_bandwidth,
@@ -205,6 +208,11 @@ from dynamic_load_balance_distributeddnn_tpu_torch.parallel.wire import (
     choose_wires,
     tree_hop_bytes,
     wire_payload_bytes,
+)
+from dynamic_load_balance_distributeddnn_tpu_torch.runtime.health import (
+    WorkerHealth,
+    WorkerLost,
+    retry_transient,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.train.combine import RankCombine
 from dynamic_load_balance_distributeddnn_tpu_torch.train.checkpoint import (
@@ -423,8 +431,23 @@ class Trainer:
         self._flops_per_example: Optional[float] = None
         self._param_elems = int(sum(p.numel() for p in self.params))
         self._record_grad_comm()
+        # --elastic: the active fleet. ``world_size`` is the runtime world
+        # size, cfg.world_size until a confirmed loss shrinks it (a
+        # readmission grows it back); ``active_ranks`` maps the compact
+        # runtime ranks to the original ones, in which the injector and the
+        # health verdicts speak
+        self.active_ranks = list(range(cfg.world_size))
+        self.health = WorkerHealth(cfg.world_size, detect_misses=cfg.elastic_detect_misses,
+                                   latency_factor=cfg.elastic_latency_factor, logger=self.logger)
+        self._recoveries = 0
+        self._elastic_events: List[Dict] = []
+        self._epoch_snap: Optional[Dict] = None
+        self._detect_t0: Optional[float] = None
+        # the epoch-time each loss was confirmed at: a recovery re-runs the
+        # epoch, whose liveness rounds revisit times before the loss
+        self._lost_t: Dict[int, float] = {}
         self.obs = MetricsRegistry(recorder=self.recorder, tracer=self._trace)
-        self.obs.attach(host_meter=self._host_meter)
+        self.obs.attach(host_meter=self._host_meter, health=self.health)
         self._can_use_packed(None)  # --packed on fails here where it cannot engage
         # the combine across ranks (train/combine.py): made here when the
         # run has several ranks, else on the first fused epoch
@@ -724,9 +747,10 @@ class Trainer:
 
     def run(self, epochs: Optional[int] = None) -> MetricsRecorder:
         """The JAX ``run``: restore from ``--ckpt_dir`` before the first
-        epoch, save after each, make the last durable at the end; the
-        epochs under ``torch.profiler`` with ``--profile_dir``; the metrics
-        and the trace saved at the end."""
+        epoch, save after each, make the last durable at the end; each
+        epoch through ``_run_epoch_elastic_world`` under ``--elastic on``;
+        the epochs under ``torch.profiler`` with ``--profile_dir``; the
+        metrics and the trace saved at the end."""
         cfg = self.cfg
         epochs = cfg.epoch_size if epochs is None else epochs
         self.logger.info(
@@ -739,7 +763,10 @@ class Trainer:
         prof = self._start_profiler() if cfg.profile_dir else None
         try:
             for epoch in range(start_epoch, epochs):
-                self.run_epoch(epoch)
+                if cfg.elastic == "on":
+                    self._run_epoch_elastic_world(epoch)
+                else:
+                    self.run_epoch(epoch)
                 if cfg.ckpt_dir:
                     self._save_checkpoint(epoch)
         finally:
@@ -773,6 +800,10 @@ class Trainer:
         tr = self._trace
         with tr.span("plan_solve"):
             plan, faults = self._plan_epoch(epoch)
+        # the epoch-boundary liveness round: a loss outside the elastic
+        # epoch's window checks (the packed and fused paths) is caught
+        # before any of this epoch's work
+        self._check_health(epoch, 0.0)
         t_epoch = time.perf_counter()
         with tr.span("train"):
             train_metrics = self._dispatch_epoch(plan, faults, epoch)
@@ -881,11 +912,22 @@ class Trainer:
 
     def _save_checkpoint(self, epoch: int) -> None:
         """Epoch ``epoch``'s checkpoint (``train/checkpoint.py``) with the
-        JAX sidecar's controller state; its blocking wall goes to
-        ``_meta["checkpoint"]["save_s"]``."""
+        JAX sidecar's controller state, stamped with the live fleet
+        (``active_ranks``: the survivors after a loss); its blocking wall
+        goes to ``_meta["checkpoint"]["save_s"]``. Across processes the save
+        is collective: ZeRO-1's chunks, the hier residuals and each rank's
+        generator states are gathered, rank 0 writes, and the ranks meet at
+        a barrier after the write."""
         t0 = time.perf_counter()
+        rc = self._rank_combine
         with self._trace.span("checkpoint", cat="checkpoint", args={"epoch": int(epoch)}):
             self._sync()
+            ranks = None
+            if self.n_proc > 1:
+                ranks = {"generators": allgather_object(
+                    {k: g.get_state() for k, g in self._generators().items()})}
+                if rc is not None and rc.axes is not None:
+                    ranks["residuals"] = [r.to("cpu") for r in rc.residual_rows()]
             save_checkpoint(
                 self.cfg.ckpt_dir, epoch, self.model, self.optimizer,
                 {
@@ -893,16 +935,18 @@ class Trainer:
                     "node_times": self.node_times,
                     "total_wallclock": self.total_wallclock,
                     "total_probe_s": self.total_probe_s,
-                    # the JAX key: the fleet the checkpoint was taken at
-                    # (every worker, this port has no elastic fleet yet)
-                    "active_ranks": list(range(self.world_size)),
+                    # the JAX key: the fleet the checkpoint was taken at,
+                    # which a resume after a loss adopts
+                    "active_ranks": list(self.active_ranks),
                 },
                 steps=self.steps_done,
                 generators=self._generators(),
-                # ZeRO-1 keeps the momentum in its chunk, not the optimizer
+                # ZeRO-1 keeps the momentum in its chunks, not the optimizer
                 momentum=(rc.momentum_by_name()
-                          if (rc := self._rank_combine) is not None and rc.shard_update
-                          else None),
+                          if rc is not None and rc.shard_update else None),
+                ranks=ranks,
+                write=self.proc_id == 0,
+                barrier=barrier if self.n_proc > 1 else None,
             )
         self.recorder.meta.setdefault("checkpoint", {}).setdefault("save_s", []).append(
             time.perf_counter() - t0)
@@ -911,24 +955,52 @@ class Trainer:
         """Restore the latest checkpoint under ``--ckpt_dir``; returns the
         first epoch to run (0 when there is none). The JAX package's
         single-process branch: the controller's vectors when their length
-        fits the fleet (else uniform, with a warning) and its wall totals.
+        fits the fleet (else uniform, with a warning) and its wall totals;
+        under ``--elastic on`` a checkpoint stamped with a smaller fleet
+        (saved after a loss) is resumed at that fleet (``_reshard_world``).
         The parameters and momentum buffers are written in place (the
         buffers made first, ``prepare_step_state``), so their addresses do
         not move; a step graph captured before the restore is dropped; the
-        generators' states are set last, where ``StepGraphs`` reads them."""
+        generators' states are set last, where ``StepGraphs`` reads them.
+        Across processes every rank reads the file and takes its own ZeRO-1
+        chunk, residual rows and generator states."""
         t0 = time.perf_counter()
+        rc = self._rank_combine
         with self._trace.span("checkpoint", cat="checkpoint", args={"restore": True}):
             prepare_step_state(self.optimizer)
-            restored = restore_checkpoint(self.cfg.ckpt_dir, self.model, self.optimizer)
+            restored = restore_checkpoint(
+                self.cfg.ckpt_dir, self.model, self.optimizer,
+                load_momentum=rc.load_momentum if rc is not None and rc.shard_update else None)
             if restored is None:
                 return 0
             epoch, state, controller = restored
             if self.supersteps.superstep_cache_size():
                 self.supersteps.clear()
             self.steps_done = state["steps"]
+            gens = state["generators"]
+            if self.n_proc > 1:
+                ranks = state.get("ranks") or {}
+                if len(ranks.get("generators", ())) != self.n_proc:
+                    raise ValueError(f"checkpoint {self.cfg.ckpt_dir}/{epoch} holds no state of "
+                                     f"{self.n_proc} ranks: resume with the ranks that saved it")
+                gens = ranks["generators"][self.proc_id]
+                if rc is not None and rc.axes is not None:
+                    rc.load_residual_rows(ranks["residuals"])
             for name, g in self._generators().items():
-                if name in state["generators"]:
-                    g.set_state(state["generators"][name])
+                if name in gens:
+                    g.set_state(gens[name])
+        saved_active = controller.get("active_ranks")
+        if (self.cfg.elastic == "on" and saved_active is not None
+                and sorted(int(r) for r in saved_active) != self.active_ranks
+                and all(0 <= int(r) < self.cfg.world_size for r in saved_active)):
+            # resume after a loss: the checkpointed survivor fleet
+            self._reshard_world(sorted(int(r) for r in saved_active))
+            self._fix_comm_residual()
+            for r in range(self.cfg.world_size):
+                if r not in self.active_ranks:
+                    self.health.mark_down(r)
+            self.logger.info(f"Resume: adopted checkpointed survivor fleet {self.active_ranks} "
+                             f"(world size {self.world_size})")
         for key, fallback in (
             ("shares", lambda: initial_partition(self.world_size)),
             ("node_times", lambda: np.ones(self.world_size, dtype=np.float64)),
@@ -951,6 +1023,311 @@ class Trainer:
         self.recorder.meta["checkpoint"]["restored_epoch"] = int(epoch)
         self.logger.info(f"Resumed from checkpoint at epoch {epoch}")
         return epoch + 1
+
+    # ------------------------------------------------------- elastic world
+
+    # --elastic on, one process (the JAX package's first tier): worker loss
+    # is detected by health checks at the epoch start and at every window
+    # boundary, fed by the preemption injector's schedule; ``detect_misses``
+    # consecutive misses confirm it (``WorkerLost``), and the run survives:
+    # re-solve over the survivors, re-shard, restore the epoch-start
+    # snapshot and re-run the epoch. A worker that signals again is
+    # readmitted at the next epoch boundary with a probe-seeded share.
+
+    def _check_health(self, epoch: int, frac: float = 0.0) -> None:
+        """One liveness round over the active fleet at epoch-time ``epoch +
+        frac``: a worker the injector schedules down accrues a miss, and
+        ``detect_misses`` of them in a row raise :class:`WorkerLost`. A
+        dropped worker no longer down (past its confirmed loss time: the
+        re-run epoch revisits earlier times) signals again and becomes
+        RECOVERING, for ``_maybe_readmit``."""
+        if self.cfg.elastic != "on":
+            return
+        t = float(epoch) + min(max(frac, 0.0), 0.999)
+        down_workers = getattr(self.injector, "down_workers", None)
+        down = set(down_workers(t)) if down_workers is not None else set()
+        confirmed = []
+        for r in self.active_ranks:
+            if r in down:
+                if self._detect_t0 is None:
+                    self._detect_t0 = time.perf_counter()  # the first miss seen
+                if self.health.report_miss(r):
+                    confirmed.append(r)
+                    self._lost_t[r] = t
+            else:
+                self.health.report_alive(r)
+        for r in self.health.lost():
+            if r not in down and r not in self.active_ranks and t >= self._lost_t.get(r, -1.0):
+                self.health.report_alive(r)
+        if not any(r in down for r in self.active_ranks) and not confirmed:
+            self._detect_t0 = None
+        if confirmed:
+            raise WorkerLost(confirmed)
+
+    def _run_epoch_elastic_world(self, epoch: int) -> Dict[str, float]:
+        """One epoch under ``--elastic on``: readmit recovered workers at
+        the boundary, snapshot the state, and on a confirmed loss recover
+        and re-run the epoch over the survivors from the snapshot (no
+        example is half-applied), at most ``elastic_max_recoveries`` times
+        in a run."""
+        self._maybe_readmit(epoch)
+        while True:
+            self._snapshot_epoch_state()
+            try:
+                return self.run_epoch(epoch)
+            except WorkerLost as e:
+                if self._recoveries >= self.cfg.elastic_max_recoveries:
+                    self.logger.error(
+                        f"elastic: recovery budget exhausted ({self._recoveries}) — giving up")
+                    raise
+                self._recover(e.ranks, epoch)
+
+    def _snapshot_epoch_state(self) -> None:
+        """The epoch-start state a recovery restores: an owned host copy of
+        the training state (``_state_to_host``) and the controller's
+        vectors. Its wall goes to ``_meta["elastic_snapshot_s"]``."""
+        t0 = time.perf_counter()
+        self._epoch_snap = {
+            "state": self._state_to_host(),
+            "shares": self.shares.copy(),
+            "node_times": self.node_times.copy(),
+            "per_example_cost": self.per_example_cost.copy(),
+            "active": list(self.active_ranks),
+            "total_wallclock": self.total_wallclock,
+            "total_probe_s": self.total_probe_s,
+        }
+        self.recorder.meta.setdefault("elastic_snapshot_s", []).append(time.perf_counter() - t0)
+
+    def _state_to_host(self) -> Dict[str, object]:
+        """Owned CPU copies of the parameters, the momentum (the optimizer's
+        buffers, made first where absent, ``prepare_step_state``; or
+        ZeRO-1's chunk), the step counter and the generators' states. The
+        live tensors are not rebound: ``_state_from_host`` copies back into
+        them, so a captured step graph keeps its addresses."""
+        prepare_step_state(self.optimizer)
+        self._sync()
+        rc = self._rank_combine
+        return {
+            "params": [p.detach().to("cpu", copy=True) for p in self.params],
+            "momentum": [None if (b := self.optimizer.state.get(p, {}).get("momentum_buffer"))
+                         is None else b.detach().to("cpu", copy=True) for p in self.params],
+            "chunk": (rc.mom.detach().to("cpu", copy=True)
+                      if rc is not None and rc.shard_update else None),
+            "steps": self.steps_done,
+            "generators": {k: g.get_state() for k, g in self._generators().items()},
+        }
+
+    @torch.no_grad()
+    def _state_from_host(self, snap: Dict[str, object]) -> None:
+        """Write a host snapshot back in place (``Tensor.copy_``). ZeRO-1's
+        chunk comes back as it was, or zero where the combine was made after
+        the snapshot (it was made from zero momentum)."""
+        prepare_step_state(self.optimizer)
+        for p, v in zip(self.params, snap["params"]):
+            p.copy_(v)
+        for p, m in zip(self.params, snap["momentum"]):
+            buf = self.optimizer.state.get(p, {}).get("momentum_buffer")
+            if buf is not None:
+                buf.copy_(m) if m is not None else buf.zero_()
+        rc = self._rank_combine
+        if rc is not None and rc.shard_update:
+            rc.mom.copy_(snap["chunk"]) if snap["chunk"] is not None else rc.mom.zero_()
+        self.steps_done = int(snap["steps"])
+        for name, g in self._generators().items():
+            g.set_state(snap["generators"][name])
+
+    def _reshard_world(self, active: List[int]) -> None:
+        """Point the engine at a new active fleet (the JAX ``_reshard_world``,
+        its one-process branch): the world size, the topology of workers on
+        this process's device, the time keeper, the window controller
+        (rebuilt lazily) and the probes' cached sync cost are fleet-shaped
+        and made anew; every step graph is dropped (its key holds the old
+        workers' batches). The combine stays flat: one process has one
+        device. The caller restores the state (``_state_from_host``)."""
+        self.active_ranks = sorted(int(r) for r in active)
+        self.world_size = len(self.active_ranks)
+        if self.world_size < 1:
+            raise RuntimeError("elastic: no surviving workers")
+        self.ws_local, self.rank_lo = self.world_size, 0
+        self.topology = WorkerTopology.build(self.world_size, [self.device], [0] * self.world_size)
+        self._worker_loss = torch.zeros(self.ws_local, device=self.device)
+        self.supersteps.clear()
+        self._superstep_keys = set()
+        self._sync_per_step = 0.0
+        self._fused_sync_per_step = None
+        self.timekeeper = TimeKeeper(self.world_size)
+        self._clean_compute_s = self._clean_examples = None
+        # the controller's rate track and step-time model are fleet-shaped:
+        # a new fleet, a new account; its executed switches stay recorded
+        self._rebalance_ctl = None
+        self.obs.controller = None
+        self._switches_last = 0
+        if self._rank_combine is not None:
+            self._rank_combine.collective_s = []
+
+    def _recover(self, lost: List[int], epoch: int) -> None:
+        """A confirmed loss (the JAX ``_recover``, its one-process branch):
+        flush the checkpoints, re-solve over the survivors from the epoch's
+        snapshot (their shares renormalized, their cost anchors kept),
+        re-shard, restore the snapshot's state, and record the event with
+        its seconds from the first miss to resumed training; the run loop
+        then re-runs the epoch."""
+        cfg = self.cfg
+        t0 = self._detect_t0 or time.perf_counter()
+        snap = self._epoch_snap
+        with self._trace.span("recover", cat="recover"):
+            self._trace.instant("worker_lost", cat="elastic",
+                                args={"ranks": sorted(int(r) for r in lost), "epoch": int(epoch)})
+            self.logger.warning(f"elastic: worker(s) {sorted(lost)} confirmed lost at epoch "
+                                f"{epoch} — re-solving over survivors")
+            if cfg.ckpt_dir:
+                # durable before the fleet changes: a crash mid-recovery
+                # leaves a consistent checkpoint behind
+                flush_checkpoints(cfg.ckpt_dir)
+            for r in lost:
+                self.health.mark_down(r)
+            prev_active = snap["active"] if snap else list(self.active_ranks)
+            survivors = [r for r in prev_active if r not in set(lost)]
+            keep = [i for i, r in enumerate(prev_active) if r not in set(lost)]
+            retry_transient(lambda: self._reshard_world(survivors), logger=self.logger,
+                            desc="survivor re-shard")
+            src = snap if snap is not None else {
+                "shares": self.shares, "node_times": self.node_times,
+                "per_example_cost": self.per_example_cost}
+            shares = np.asarray(src["shares"])[keep]
+            self.shares = shares / max(shares.sum(), 1e-12)
+            self.node_times = np.asarray(src["node_times"])[keep]
+            self.per_example_cost = np.asarray(src["per_example_cost"])[keep]
+            if snap is not None:
+                self.total_wallclock = snap["total_wallclock"]
+                self.total_probe_s = snap["total_probe_s"]
+                self._state_from_host(snap["state"])
+            self._fix_comm_residual()
+            self._sync()
+            self._recoveries += 1
+            self._detect_t0 = None
+            dt = time.perf_counter() - t0
+            ev = {"epoch": int(epoch), "lost": sorted(int(r) for r in lost),
+                  "world_size": int(self.world_size), "detect_to_resume_s": round(dt, 4)}
+            self._elastic_events.append(ev)
+            self.recorder.meta["elastic_events"] = self._elastic_events
+            self._trace.instant("recovered", cat="elastic", args=dict(ev))
+            self.logger.info(
+                f"elastic: recovered over {self.world_size} survivors {self.active_ranks} in "
+                f"{dt:.3f}s (detection to resumed training); epoch re-runs from the snapshot")
+
+    def _fix_comm_residual(self) -> None:
+        """Re-base the error-feedback residuals on the current combine after
+        a fleet change (the JAX ``_fix_comm_residual``): the old fleet's
+        rows mean nothing to another one, so they restart at zero. One
+        process combines flat (``--grad_comm hier`` needs ranks), so this
+        finds no residual there."""
+        rc = self._rank_combine
+        if rc is not None and rc.axes is not None:
+            rc.residuals = [torch.zeros_like(r) for r in rc.residuals]
+
+    def _maybe_readmit(self, epoch: int) -> None:
+        """Readmission at the epoch boundary: workers whose rejoin boundary
+        is ``epoch`` (the injector's schedule) or that signal again (health
+        RECOVERING), and are not down at the boundary, re-enter the fleet.
+        Each newcomer's cost an example comes from one standalone probe
+        step (``_probe_readmitted``), or the others' mean; the shares seed
+        at the solver's equilibrium of the costs (share ∝ 1 / cost) and the
+        node times at cost × share, so the next rebalance starts at its
+        fixed point."""
+        cfg = self.cfg
+        if cfg.elastic != "on" or cfg.elastic_readmit != "epoch":
+            return
+        rejoin = set(self.health.recovering())
+        rejoining = getattr(self.injector, "rejoining", None)
+        if rejoining is not None:
+            rejoin |= set(rejoining(epoch))
+        down_workers = getattr(self.injector, "down_workers", None)
+        down_now = set(down_workers(float(epoch))) if down_workers is not None else set()
+        cands = sorted(r for r in rejoin if r not in self.active_ranks and r not in down_now
+                       and 0 <= r < cfg.world_size)
+        if not cands:
+            return
+        with self._trace.span("readmit", cat="recover"):
+            self._trace.instant("readmitted", cat="elastic",
+                                args={"ranks": [int(r) for r in cands], "epoch": int(epoch)})
+            self.logger.info(f"elastic: readmitting worker(s) {cands} at epoch {epoch}")
+            if cfg.ckpt_dir:
+                flush_checkpoints(cfg.ckpt_dir)
+            host_state = self._state_to_host()
+            prev_active = list(self.active_ranks)
+            prev_cost = self.per_example_cost.copy()
+            retry_transient(lambda: self._reshard_world(sorted(prev_active + cands)),
+                            logger=self.logger, desc="readmission re-shard")
+            self._state_from_host(host_state)
+            self._fix_comm_residual()
+            cost = np.full(self.world_size, np.nan)
+            for i, r in enumerate(self.active_ranks):
+                if r in prev_active:
+                    cost[i] = prev_cost[prev_active.index(r)]
+            fallback = float(np.nanmean(prev_cost)) if np.isfinite(prev_cost).any() else np.nan
+            for r in cands:
+                i = self.active_ranks.index(r)
+                # the health slot first: readmit() resets the latency track
+                # the probe feeds
+                self.health.readmit(r)
+                probed = self._probe_readmitted(i)
+                cost[i] = probed if probed is not None else fallback
+            self.per_example_cost = cost
+            if np.isfinite(cost).all() and (cost > 0).all():
+                self.shares = equilibrium_shares(cost)
+                self.node_times = np.maximum(cost * self.shares, 1e-9)
+            else:
+                self.shares = initial_partition(self.world_size)
+                self.node_times = np.ones(self.world_size, dtype=np.float64)
+            ev = {"epoch": int(epoch), "readmitted": [int(r) for r in cands],
+                  "world_size": int(self.world_size),
+                  "seeded_shares": [round(float(s), 4) for s in self.shares]}
+            self._elastic_events.append(ev)
+            self.recorder.meta["elastic_events"] = self._elastic_events
+            self.logger.info(f"elastic: fleet back to {self.world_size} workers "
+                             f"{self.active_ranks}; probe-seeded shares "
+                             f"{np.round(self.shares, 4).tolist()}")
+
+    def _dummy_batch(self, b: int):
+        """``b`` rows of the training set, normalised (no augmentation
+        draw), weight ``1 / b`` each: a readmission probe's batch."""
+        x = normalize_images(self.train_x[:b], self.bundle.mean, self.bundle.std)
+        x = x if self.compute_dtype is None else x.to(self.compute_dtype)
+        return x, self.train_y[:b], torch.full((x.shape[0],), 1.0 / x.shape[0], device=self.device)
+
+    def _probe_readmitted(self, compact_rank: int) -> Optional[float]:
+        """A readmitted worker's seconds an example from one standalone
+        forward/backward on the card (a warm run, then the least of 2 timed
+        runs) of the equal split's batch, ``batch_size / world_size`` rows
+        (at least ``bucket``); the dropout generator's state is put back,
+        and nothing else of the training state is touched. None under a
+        timing model (the caller seeds from the others' mean). A probe that
+        fails raises: on the card it is a kernel's failure.
+
+        The JAX package probes ``bucket`` rows. Every worker of this port
+        shares one card, where a step of 16 rows is bound by its launches,
+        not its rows: its cost an example read 5-8x the others' on an
+        H100 and seeded a share of 0.05, which the inverse-time solver then
+        held (the small batch kept its step slow; ``PERF.md`` §6)."""
+        if self.timing_model is not None:
+            return None
+        batch = self._dummy_batch(max(self.cfg.bucket, self.cfg.batch_size // self.world_size, 1))
+        state = self.dropout_gen.get_state()
+        try:
+            probe_grads(self.model, self.params, batch, self.grad_clip, None, 0, self.compute_dtype)
+            dt = float("inf")
+            for _ in range(2):
+                self._sync()
+                t0 = time.perf_counter()
+                probe_grads(self.model, self.params, batch, self.grad_clip, None, 0,
+                            self.compute_dtype)
+                self._sync()
+                dt = min(dt, time.perf_counter() - t0)
+        finally:
+            self.dropout_gen.set_state(state)
+        self.health.observe_latency(self.active_ranks[compact_rank], dt)
+        return max(dt, 1e-9) / int(batch[0].shape[0])  # an example: a column for the LM
 
     # ----------------------------------------------------------------- epoch
 
@@ -989,20 +1366,45 @@ class Trainer:
             f"Epoch {epoch}: batch sizes {plan.batch_sizes.tolist()}, "
             f"steps {plan.num_steps}"
         )
+        # the injector speaks the original ranks (its schedule outlives a
+        # fleet change): the compact vectors scattered to it, its faults
+        # read back at the active ranks
         ctx = FaultContext(
-            batch_sizes=plan.batch_sizes.astype(np.float64),
+            batch_sizes=self._scatter_full(plan.batch_sizes.astype(np.float64)),
             iter_cost_s=(
                 (self._iter_cost_s or self.load.calibrate_iter_cost(self.device))
                 if self._needs_iter_cost
                 else None
             ),
             per_example_cost_s=(
-                self.per_example_cost if np.isfinite(self.per_example_cost).all() else None
+                self._scatter_full(self.per_example_cost)
+                if np.isfinite(self.per_example_cost).all() else None
             ),
         )
-        faults = self.injector.epoch_faults(epoch, plan.num_steps, ctx)
+        faults = self._faults_active(self.injector.epoch_faults(epoch, plan.num_steps, ctx))
         self._probe_this_epoch = self._should_probe(epoch, plan, faults)
         return plan, faults
+
+    def _scatter_full(self, vec: np.ndarray) -> np.ndarray:
+        """A compact vector over the active fleet as one over the original
+        ranks (zeros at lost workers); the identity on a whole fleet."""
+        if len(self.active_ranks) == self.cfg.world_size:
+            return vec
+        full = np.zeros(self.cfg.world_size, dtype=np.float64)
+        full[self.active_ranks] = np.asarray(vec, dtype=np.float64)
+        return full
+
+    def _faults_active(self, faults: EpochFaults) -> EpochFaults:
+        """The injector's faults over the original ranks, read at the
+        active ones; the identity on a whole fleet."""
+        if len(self.active_ranks) == self.cfg.world_size:
+            return faults
+        sel = np.asarray(self.active_ranks)
+        return EpochFaults(
+            virtual_seconds=faults.virtual_seconds[sel],
+            slow_iters_per_step=faults.slow_iters_per_step[sel],
+            time_multipliers=faults.time_multipliers[sel],
+        )
 
     def _build_plan(self, epoch: int, batch_sizes: np.ndarray):
         cfg = self.cfg
@@ -1248,7 +1650,6 @@ class Trainer:
             )
         path = ("fused" if fused else "fused_dbs" if fused_dbs else "packed" if packed
                 else "elastic")
-        self.recorder.meta.setdefault("paths", []).append(path)
         self._packed_epoch = packed
         before = self.supersteps.stats()
         if fused or fused_dbs:
@@ -1257,6 +1658,7 @@ class Trainer:
             out = self._train_epoch_packed(plan, faults, epoch)
         else:
             out = self._train_epoch_elastic(plan, faults, epoch)
+        self.recorder.meta.setdefault("paths", []).append(path)
         self._record_supersteps(epoch, plan, faults, path, before)
         return out
 
@@ -1493,6 +1895,10 @@ class Trainer:
             return batches
 
         for i, (w0, w1) in enumerate(ranges):
+            # liveness at every window boundary: a loss mid-epoch is found
+            # within detect_misses windows and the epoch re-run over the
+            # survivors (_run_epoch_elastic_world)
+            self._check_health(epoch, w0 / max(plan.num_steps, 1))
             pl, off = self._seg_for_step(seg_plans, w0)
             if off not in suppliers:
                 suppliers[off] = [self._worker_epoch(pl, r) for r in range(self.world_size)]
@@ -1592,6 +1998,7 @@ class Trainer:
         sum and real rows over every rank (``_gather_losses``) and this
         rank's rows."""
         self._make_rank_combine()
+        self._window_controller()  # across processes: the JAX fallback's warning
         meter = self._host_meter
         local = list(self._local_workers())
         slow = [int(faults.slow_iters_per_step[r]) for r in local]
@@ -1602,6 +2009,7 @@ class Trainer:
         count = rows = 0
         first = None
         for w0, w1 in self._elastic_ranges(plan.num_steps):
+            self._check_health(epoch, w0 / max(plan.num_steps, 1))
             if self.augment:
                 self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
             with self._trace.span("dispatch_window", cat="dispatch"):
@@ -1709,9 +2117,19 @@ class Trainer:
 
     def _window_controller(self) -> Optional[OnlineRebalanceController]:
         """The online controller under ``--rebalance window`` (built once;
-        its rate track and ledgers persist across epochs), else None."""
+        its rate track and ledgers persist across epochs), else None. Across
+        processes it is None after the JAX package's warning, once: a switch
+        decided on each rank's own walls could differ between ranks and
+        desynchronize their collectives, so the run keeps epoch cadence."""
         cfg = self.cfg
         if cfg.rebalance != "window" or not cfg.dynamic_batch_size:
+            return None
+        if self.n_proc > 1:
+            if not self._window_rebalance_logged:
+                self._window_rebalance_logged = True
+                self.logger.warning(
+                    "rebalance=window is single-process only — falling back to epoch cadence"
+                )
             return None
         if self._rebalance_ctl is None:
             self._rebalance_ctl = OnlineRebalanceController(
@@ -1754,20 +2172,21 @@ class Trainer:
         """The fault context at the current segment's batch sizes (after a
         switch the injected load follows the new split)."""
         return FaultContext(
-            batch_sizes=pl.batch_sizes.astype(np.float64),
+            batch_sizes=self._scatter_full(pl.batch_sizes.astype(np.float64)),
             iter_cost_s=self._iter_cost_s if self._needs_iter_cost else None,
             per_example_cost_s=(
-                self.per_example_cost if np.isfinite(self.per_example_cost).all() else None
+                self._scatter_full(self.per_example_cost)
+                if np.isfinite(self.per_example_cost).all() else None
             ),
         )
 
     def _window_faults_at(self, t: float, pl) -> Optional[EpochFaults]:
-        """The injector's faults at epoch-time ``t``; None for an injector
-        with no time-varying view."""
+        """The injector's faults at epoch-time ``t`` over the active fleet;
+        None for an injector with no time-varying view."""
         fa = getattr(self.injector, "faults_at", None)
         if fa is None:
             return None
-        return fa(t, self._window_ctx(pl))
+        return self._faults_active(fa(t, self._window_ctx(pl)))
 
     def _effective_rates(self, rates: np.ndarray, wf: Optional[EpochFaults],
                          batches: np.ndarray) -> np.ndarray:
@@ -2009,7 +2428,9 @@ class Trainer:
         comm-free twin; if the difference drowns in timer noise, the
         standalone collective of a gradient-sized buffer. Every rank runs
         all three, so the collectives match across ranks. The parameters
-        and the momentum are not written; ``.grad`` is the step's scratch,
+        and the momentum are not written, the dropout generator's state is
+        put back (a resumed run probes in another epoch than the whole run
+        and must draw the same masks); ``.grad`` is the step's scratch,
         zeroed by the next step."""
         rc = self._rank_combine
         lr = learning_rate(self.optimizer)
@@ -2030,9 +2451,13 @@ class Trainer:
                 best = min(best, time.perf_counter() - t0)
             return best
 
-        t_full = timed(lambda: step(True))
-        t_local = timed(lambda: step(False))
-        t_psum = timed(rc.probe_psum)
+        state = self.dropout_gen.get_state()
+        try:
+            t_full = timed(lambda: step(True))
+            t_local = timed(lambda: step(False))
+            t_psum = timed(rc.probe_psum)
+        finally:
+            self.dropout_gen.set_state(state)
         self._release_cache()
         delta = t_full - t_local
         return float(delta) if delta > 0.0 else float(t_psum)
@@ -2351,6 +2776,11 @@ class Trainer:
             f"accuracy {accuracy:.2f}, wall {epoch_wall:.3f}s"
         )
         extras = {"probe_time": probe_s}
+        if cfg.elastic == "on":
+            # the fleet: workers_alive steps down on a loss and back up on a
+            # readmission; recoveries counts completed recoveries
+            extras["workers_alive"] = float(self.world_size)
+            extras["recoveries"] = float(self._recoveries)
         if self._needs_iter_cost:
             prof = self._realized_injection_profile(plan, faults)
             if prof is not None:

@@ -211,6 +211,15 @@ class LMTrainer(Trainer):
         x, y, w = (self._steps_to_device(a) for a in (x, y, w))
         return x.shape[1], lambda s: (x[s], y[s], w[s]), counts
 
+    def _dummy_batch(self, b: int):
+        """A readmission probe's batch: the stream's first ``b`` columns of
+        one bptt window, every token weighted ``1 / tokens``."""
+        bptt = self.cfg.bptt
+        x, y, m = bptt_windows(batchify(self.train_stream[: b * (bptt + 1)], b), bptt)
+        w = m[0] / max(float(m[0].sum()), 1.0)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (x[0], y[0], w))
+
     # ------------------------------------------------------------- validate
 
     @torch.no_grad()

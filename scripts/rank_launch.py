@@ -118,9 +118,12 @@ def run_rank_jobs(jobs: Dict[str, dict], n: int, out_dir: str, timeout: float,
     the cli on the flags (:func:`cli_job_argv`; its directories under
     ``job["dir"]``, by default ``<out_dir>/<name>``), ``{"call":
     "module:function", "args": {...}}`` calls ``function(args, rank, n,
-    device)``, which returns something JSON can hold. Every job starts
-    behind a barrier with the kernels' launch counters at zero, the peak
-    memory statistics reset and the card's cache emptied. Returns
+    device)``, which returns something JSON can hold; a job with
+    ``"deterministic": true`` runs with cuDNN's deterministic algorithms
+    (a run compared bit for bit with another, such as a resumed one).
+    Every job starts behind a barrier with the kernels' launch counters at
+    zero, the peak memory statistics reset and the card's cache emptied.
+    Returns
     ``({name: [each rank's {"wall", "report" or "result"}]}, the launch's
     wall, each rank's start-up seconds)``."""
     os.makedirs(out_dir, exist_ok=True)
@@ -173,6 +176,7 @@ def rank_jobs_main() -> None:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         runtime.reset_launches()
+        torch.backends.cudnn.deterministic = bool(job.get("deterministic"))
         dist.barrier()
         t0 = time.perf_counter()
         if "argv" in job:

@@ -4,6 +4,10 @@ This module imports only torch, numpy, the port and the rank launcher
 (``scripts/rank_launch.py``), never JAX: each rank is
 a fresh ``python -c`` child that imports it (the test modules import JAX).
 
+A ``train``, ``lm_train`` or ``sp_train`` job runs ``job["epochs"]``
+epochs when given (a run stopped there, for a resume from its
+``--ckpt_dir``) and returns the warnings its trainer logged.
+
 ``launch(world, jobs, tmp)`` starts ``world`` ranks, each with one torch
 thread, that rendezvous through ``file://`` under ``tmp`` and run the same
 ``jobs`` in order in one process group (a job is a dict with a ``kind``:
@@ -16,6 +20,7 @@ instead of the tier. It returns each rank's results.
 
 from __future__ import annotations
 
+import logging
 import os
 import sys
 from pathlib import Path
@@ -83,6 +88,29 @@ def rank_main() -> None:
 # ---------------------------------------------------------------- jobs
 
 
+class _Warnings(logging.Handler):
+    """The warnings a trainer's logger emits, kept as their messages."""
+
+    def __init__(self):
+        super().__init__(level=logging.WARNING)
+        self.messages: List[str] = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def _run(tr, job: dict) -> List[str]:
+    """``tr.run`` for ``job["epochs"]`` epochs (all without it); returns
+    the warnings its logger emitted."""
+    h = _Warnings()
+    tr.logger.logger.addHandler(h)
+    try:
+        tr.run(job.get("epochs"))
+    finally:
+        tr.logger.logger.removeHandler(h)
+    return h.messages
+
+
 def straggler_time(factors):
     """Deterministic compute model: time proportional to examples, with the
     worker factors (as ``tests/test_torch_engine.py``'s)."""
@@ -128,6 +156,10 @@ def train_outputs(tr) -> dict:
     bufs = {k: tr.optimizer.state.get(p, {}).get("momentum_buffer") for k, p in named.items()}
     rc = tr._rank_combine
     return {
+        "residuals": (None if rc is None or rc.axes is None
+                      else [r.clone() for r in rc.residuals]),
+        "steps": tr.steps_done,
+        "generators": {k: g.get_state() for k, g in tr._generators().items()},
         "data": {k: list(v) for k, v in tr.recorder.data.items()},
         "meta": {k: tr.recorder.meta.get(k) for k in ("paths", "ranks", "combine", "collective",
                                                       "supersteps", "grad_comm", "grad_comm_levels",
@@ -143,8 +175,8 @@ def train_outputs(tr) -> dict:
 
 def _train(job: dict, rank: int, world: int) -> dict:
     tr = trainer(job, rank, world)
-    tr.run()
-    return train_outputs(tr)
+    warnings = _run(tr, job)
+    return dict(train_outputs(tr), warnings=warnings)
 
 
 def lm_trainer(job: dict, rank: int = 0, world: int = 1):
@@ -174,8 +206,8 @@ def lm_trainer(job: dict, rank: int = 0, world: int = 1):
 
 def _lm_train(job: dict, rank: int, world: int) -> dict:
     tr = lm_trainer(job, rank, world)
-    tr.run()
-    out = train_outputs(tr)
+    warnings = _run(tr, job)
+    out = dict(train_outputs(tr), warnings=warnings)
     out["validate"] = tr.validate()
     return out
 
@@ -343,9 +375,9 @@ def _sp_train(job: dict, rank: int, world: int) -> dict:
     tr = cls(Config(**kw), corpus=Corpus(job["corpus"]), device="cpu", log_to_file=False)
     if job.get("state") is not None:
         tr.model.load_state_dict(job["state"])
-    tr.run()
+    warnings = _run(tr, job)
     return {"data": {k: list(v) for k, v in tr.recorder.data.items()},
-            "meta": dict(tr.recorder.meta),
+            "meta": dict(tr.recorder.meta), "warnings": warnings,
             "params": {k: p.detach().clone() for k, p in tr.model.named_parameters()},
             "report": tr.rank_report()}
 

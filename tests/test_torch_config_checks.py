@@ -8,9 +8,8 @@ as 1). Pairs of bad values show that the checks run in the JAX package's
 order: the first failing check names the same flag on both sides.
 
 More than one process (``num_processes`` / ``process_id``) is accepted, and
-what the port does not run across processes (the language model,
-``--rebalance window``, ``--ckpt_dir``) raises ``NotImplementedError`` naming
-its flag. The flags the slices ported (``trace``, ``trace_spool``,
+what the port does not run across processes (``--elastic``) raises
+``NotImplementedError`` naming its flag. The flags the slices ported (``trace``, ``trace_spool``,
 ``ckpt_dir``, ``profile_dir``, ``fused_dbs``, ``coordinator``,
 ``grad_comm``, ``remat``, ...) are accepted; the flags that stay refused still raise naming themselves.
 """
@@ -89,6 +88,13 @@ def test_bad_value_raises_as_the_jax_config_does(bad):
     {"device_cache": "off"}, {"aot_backend": "process"}, {"aot_pool": 0},
     {"ckpt_dir": "ck"}, {"profile_dir": "prof"}, {"trace_annotations": True},
     {"num_processes": 1, "process_id": 0}, {"num_processes": 0, "process_id": -1},
+    # --elastic in one process, beside the flags it combines with
+    {"elastic": "on", "grad_comm": "hier", "trace": "on"},
+    {"elastic": "on", "seq_parallel": "ring", "hier_levels": "host:2"},
+    {"elastic": "on", "ckpt_dir": "ck"},
+    {"elastic": "on", "seq_parallel": "ring", "remat": True, "profile_dir": "prof"},
+    {"elastic": "on", "seq_parallel": "ulysses", "trace": "ring", "trace_spool": "s"},
+    {"elastic": "on", "grad_comm": "hier", "dcn_bandwidth_probe": True},
 ])
 def test_good_values_are_accepted_by_both(ok):
     JaxConfig(**dict(BASE, **ok))
@@ -99,25 +105,33 @@ def test_good_values_are_accepted_by_both(ok):
     ("num_processes", 2), ("num_processes", 4), ("process_id", 1), ("process_id", 3),
 ])
 def test_more_than_one_process_raises_naming_the_flag(flag, value):
-    """Several processes run the vision loop and the language model; what
-    stays one-process raises naming its flag."""
+    """Several processes run the vision loop and the language model, with
+    checkpoints and ``--rebalance window`` (at epoch cadence, as the JAX
+    trainer runs it there); what stays one-process (``--elastic``) raises
+    naming its flag."""
     procs = {"num_processes": value} if flag == "num_processes" else {
         "num_processes": 4, "process_id": value}
     Config(**dict(BASE, **procs))
     Config(**dict(BASE, **procs, model="transformer", dataset="wikitext2"))
-    for refused in ({"ckpt_dir": "ck", "model": "transformer", "dataset": "wikitext2"},
-                    {"rebalance": "window"}, {"ckpt_dir": "ck"}):
+    for lifted in ({"ckpt_dir": "ck", "model": "transformer", "dataset": "wikitext2"},
+                   {"rebalance": "window"}, {"ckpt_dir": "ck"}):
+        JaxConfig(**dict(BASE, **procs, **lifted))
+        Config(**dict(BASE, **procs, **lifted))
+    for refused in ({"elastic": "on"}, {"elastic": "on", "model": "transformer",
+                                        "dataset": "wikitext2"}):
         with pytest.raises(NotImplementedError, match=f"--{next(iter(refused))}"):
             Config(**dict(BASE, **procs, **refused))
 
 
 @pytest.mark.parametrize("override", [
-    {"elastic": "on", "grad_comm": "hier", "trace": "on"},
-    {"elastic": "on", "seq_parallel": "ring", "hier_levels": "host:2"},
-    {"elastic": "on", "ckpt_dir": "ck"},
-    {"elastic": "on", "seq_parallel": "ring", "remat": True, "profile_dir": "prof"},
-    {"elastic": "on", "seq_parallel": "ulysses", "trace": "ring", "trace_spool": "s"},
-    {"elastic": "on", "grad_comm": "hier", "dcn_bandwidth_probe": True},
+    {"elastic": "on", "grad_comm": "hier", "trace": "on", "num_processes": 4},
+    {"elastic": "on", "seq_parallel": "ring", "hier_levels": "host:2", "num_processes": 2},
+    {"elastic": "on", "ckpt_dir": "ck", "num_processes": 2},
+    {"elastic": "on", "seq_parallel": "ring", "remat": True, "profile_dir": "prof",
+     "num_processes": 4, "process_id": 3},
+    {"elastic": "on", "seq_parallel": "ulysses", "trace": "ring", "trace_spool": "s",
+     "num_processes": 2},
+    {"elastic": "on", "grad_comm": "hier", "dcn_bandwidth_probe": True, "num_processes": 4},
 ])
 def test_flags_that_stay_refused_raise_beside_the_ported_ones(override):
     flag = next(iter(override))

@@ -2,8 +2,9 @@
 package's checks of them, on the port's ``Config`` beside the JAX one.
 
 - Each lifted flag (``fused_dbs``, ``shard_update``, ``compress_grads``,
-  ``grad_accum``, ``coordinator``, ``num_processes``, ``process_id``) is
-  accepted where the JAX ``Config`` accepts it.
+  ``grad_accum``, ``coordinator``, ``num_processes``, ``process_id``;
+  ``--rebalance window`` and ``--ckpt_dir`` across processes; ``--elastic``
+  in one process) is accepted where the JAX ``Config`` accepts it.
 - The JAX package's checks (``compress_grads`` and ``grad_accum`` ride a
   fused path) raise the JAX exception type and message.
 - The language model across processes and on its fused paths
@@ -12,8 +13,8 @@ package's checks of them, on the port's ``Config`` beside the JAX one.
   accepted by both.
 - What stays refused raises ``NotImplementedError`` naming its flag (also
   beside ``--grad_comm hier`` and ``--remat``, which run): ``--rebalance
-  window`` and ``--ckpt_dir`` across processes (the language model's too),
-  ``--rebalance window`` for the language model, ``--elastic``, a ``-gpu``
+  window`` for the language model in one process, ``--elastic`` across
+  processes, a ``-gpu``
   slice naming several devices in one process (the message points to the
   multi-process flags) and ``--coordinator`` without the process count and
   id.
@@ -49,6 +50,17 @@ LM = dict(model="transformer", dataset="wikitext2")
     {**LM, "fused_dbs": True}, {**LM, "shard_update": True},
     {**LM, "dynamic_batch_size": False, "grad_accum": 2, "compress_grads": "int8"},
     {**LM, "seq_parallel": "ring", "num_processes": 2}, {**LM, "seq_parallel": "ulysses"},
+    # --rebalance window and --ckpt_dir across processes (the language
+    # model's too; window cadence falls back to epoch cadence there, as the
+    # JAX trainer's does), and --elastic in one process
+    {**LM, "rebalance": "window", "grad_comm": "hier", "num_processes": 4},
+    {"rebalance": "window", "grad_comm": "hier", "hier_levels": "host:2",
+     "grad_comm_wires": "int8,fp32", "num_processes": 4},
+    {"ckpt_dir": "ck", "grad_comm": "hier", "dcn_bandwidth_probe": True, "num_processes": 4},
+    {**LM, "ckpt_dir": "ck", "num_processes": 2},
+    {"rebalance": "window", "num_processes": 2},
+    {"ckpt_dir": "ck", "num_processes": 4, "process_id": 2},
+    {**LM, "shard_update": True, "elastic": "on"},
 ])
 def test_lifted_flags_are_accepted_by_both(ok):
     JaxConfig(**dict(BASE, **ok))
@@ -69,21 +81,12 @@ def test_the_jax_fused_path_checks_raise_the_jax_message(bad):
 
 
 @pytest.mark.parametrize("override,flag", [
-    ({**LM, "rebalance": "window", "grad_comm": "hier", "num_processes": 4}, "--rebalance"),
-    ({"rebalance": "window", "grad_comm": "hier", "hier_levels": "host:2",
-      "grad_comm_wires": "int8,fp32", "num_processes": 4}, "--rebalance"),
-    ({"ckpt_dir": "ck", "grad_comm": "hier", "dcn_bandwidth_probe": True, "num_processes": 4},
-     "--ckpt_dir"),
-    ({**LM, "ckpt_dir": "ck", "num_processes": 2}, "--ckpt_dir"),
-    ({"rebalance": "window", "num_processes": 2}, "--rebalance"),
-    ({"ckpt_dir": "ck", "num_processes": 4, "process_id": 2}, "--ckpt_dir"),
     ({"device": [0, 1, 0, 1]}, "-gpu"),
     ({"device": [0, 0, 0, 1], "num_processes": 2}, "--num_processes"),
     ({"coordinator": "127.0.0.1:1"}, "--coordinator"),
     ({"coordinator": "127.0.0.1:1", "num_processes": 2}, "--coordinator"),
     ({"process_id": 2}, "--process_id"),
     ({**LM, "rebalance": "window"}, "--rebalance"),
-    ({**LM, "shard_update": True, "elastic": "on"}, "--elastic"),
     ({"elastic": "on", "num_processes": 2}, "--elastic"),
     ({**LM, "seq_parallel": "ring", "num_processes": 2, "elastic": "on"}, "--elastic"),
     ({"elastic": "on", "remat": True, "num_processes": 2}, "--elastic"),

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from dynamic_load_balance_distributeddnn_tpu.balance import solver as jax_solver
+from dynamic_load_balance_distributeddnn_tpu.config import Config as JaxConfig
 from dynamic_load_balance_distributeddnn_tpu.config import get_parser as jax_parser
 from dynamic_load_balance_distributeddnn_tpu.data import partitioner as jax_part
 from dynamic_load_balance_distributeddnn_tpu.obs.recorder import SERIES as JAX_SERIES
@@ -64,19 +65,9 @@ LM = dict(model="transformer", dataset="wikitext2")
 
 
 @pytest.mark.parametrize("override", [
-    {"num_processes": 2, **LM, "rebalance": "window"}, {"rebalance": "window", **LM},
-    {"ckpt_dir": "ck", **LM, "num_processes": 2},
-    {"elastic": "on", "grad_comm": "hier"},
-    {"elastic": "on", **LM, "compress_grads": "int8", "dynamic_batch_size": False},
-    {"elastic": "on", **LM, "grad_accum": 2, "dynamic_batch_size": False},
+    {"rebalance": "window", **LM},
     {"process_id": 1, "rebalance": "window"},
-    {"elastic": "on"}, {"coordinator": "localhost:1"}, {"elastic": "on", "trace": "on"},
-    {"elastic": "on", "seq_parallel": "ring", "remat": True, "fault_schedule": "sin",
-     "straggler": "2,1,1,1"},
-    {"elastic": "on", "seq_parallel": "ulysses", **LM}, {"elastic": "on", "remat": True},
-    {"ckpt_dir": "ck", "shard_update": True, **LM, "num_processes": 2},
-    {"elastic": "on", "seq_parallel": "ulysses", "remat": True, "trace": "ring"},
-    {"rebalance": "window", "seq_parallel": "ring", **LM},
+    {"coordinator": "localhost:1"},
     {"device": [0, 1], "world_size": 2},
 ])
 def test_unported_settings_raise_naming_the_flag(override):
@@ -85,6 +76,28 @@ def test_unported_settings_raise_naming_the_flag(override):
     name = next(iter(override))
     flag = {"device": "-gpu"}.get(name, f"--{name}")
     assert flag in str(e.value)
+
+
+@pytest.mark.parametrize("override", [
+    # across processes the JAX trainer runs --rebalance window at epoch
+    # cadence and checkpoints every rank's state; --elastic runs in one
+    # process, beside every flag the JAX trainers combine it with there
+    {"num_processes": 2, **LM, "rebalance": "window"},
+    {"ckpt_dir": "ck", **LM, "num_processes": 2},
+    {"elastic": "on", "grad_comm": "hier"},
+    {"elastic": "on", **LM, "compress_grads": "int8", "dynamic_batch_size": False},
+    {"elastic": "on", **LM, "grad_accum": 2, "dynamic_batch_size": False},
+    {"elastic": "on"}, {"elastic": "on", "trace": "on"},
+    {"elastic": "on", "seq_parallel": "ring", "remat": True, "fault_schedule": "sin",
+     "straggler": "2,1,1,1"},
+    {"elastic": "on", "seq_parallel": "ulysses", **LM}, {"elastic": "on", "remat": True},
+    {"ckpt_dir": "ck", "shard_update": True, **LM, "num_processes": 2},
+    {"elastic": "on", "seq_parallel": "ulysses", "remat": True, "trace": "ring"},
+    {"rebalance": "window", "seq_parallel": "ring", **LM},
+])
+def test_lifted_settings_are_accepted_as_the_jax_config_accepts_them(override):
+    JaxConfig(**dict(BASE, **override))
+    Config(**dict(BASE, **override))
 
 
 def test_lm_recipe_parses():

@@ -58,6 +58,17 @@ def test_the_import_checks_cover_the_multi_rank_modules():
         assert f"{port.__name__}.{name}" in mods, name
 
 
+def test_the_import_checks_cover_the_runtime():
+    """``runtime/`` (the health verdicts of ``--elastic``) is walked too: its
+    JAX original looks free of jax, but importing it runs the JAX package's
+    ``__init__`` chain, so the port keeps a copy and imports none of it."""
+    mods = set(_modules())
+    for name in ("runtime", "runtime.health", "faults"):
+        assert f"{port.__name__}.{name}" in mods, name
+    text = (PORT_DIR / "runtime" / "health.py").read_text()
+    assert "dynamic_load_balance_distributeddnn_tpu." not in text
+
+
 def test_no_port_module_imports_jax_or_the_jax_package():
     offenders = []
     for path in sorted(PORT_DIR.rglob("*.py")):

@@ -480,12 +480,13 @@ def test_cli_trains_in_bf16(tmp_path, spies, recipe):
 
 _LM = dict(model="transformer", dataset="wikitext2")
 STILL_UNPORTED = [
-    {"elastic": "on", "grad_comm": "hier", "hier_hosts": 2}, {"elastic": "on"},
     {"coordinator": "localhost:1"}, {"process_id": 1}, {"rebalance": "window", **_LM},
-    {"ckpt_dir": "ck", "num_processes": 2},
 ]
-# the language model's fused paths and ranks, and sequence parallelism
+# the language model's fused paths and ranks, sequence parallelism,
+# --elastic in one process and checkpoints across processes
 LIFTED = [
+    {"elastic": "on", "grad_comm": "hier", "hier_hosts": 2}, {"elastic": "on"},
+    {"ckpt_dir": "ck", "num_processes": 2},
     {"fused_dbs": True, **_LM}, {"shard_update": True, **_LM},
     {"compress_grads": "int8", **_LM, "dynamic_batch_size": False},
     {"grad_accum": 2, **_LM, "dynamic_batch_size": False}, {"num_processes": 2, **_LM},
