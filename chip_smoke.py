@@ -252,6 +252,31 @@ phase runs.
    probe's rates and verdict, the epoch walls, the collective a step and
    each rank's peak memory. It runs right after [7]-[8].
 
+7d. ``--elastic on`` across processes: two processes on ``cuda:0`` over
+   gloo, brought up through the port's ``rendezvous.elastic_initialize``
+   by ``tests/_torch_mh_worker.py`` (no JAX): DenseNet-121 at its published
+   width, ``-ws 4 -b 512 --straggler 3,1,1,1 --fault_mode virtual
+   --n_train 4096 --packed off``, ``--ckpt_dir`` under ``SCRATCH``, 4
+   epochs, in a launch of its own. Process 1 is SIGKILLed inside epoch 1's
+   gradient collectives (as soon as it writes its marker before its third
+   combine of the epoch; it is not held, so the kill lands wherever that
+   step is); the survivor re-rendezvouses alone, restores checkpoint 0 and
+   re-runs epoch 1 over its 2 workers. Process 1 is then
+   respawned as a joiner and readmitted at epoch 3. Checks: the survivor's
+   two events (``lost`` [2, 3] at generation 1 from ``checkpoint[0]``;
+   ``readmitted`` [2, 3] at generation 2, epoch 3); both processes end at
+   4 workers over 2 processes with the same parameters (SHA-256) and the
+   joiner's losses the survivor's tail; K1 and K2 launched in both; the
+   parity leg, a fresh one-process 2-worker run from a copy of checkpoint
+   0 with the survivor-restricted sidecar vectors over epoch 1, ends with
+   the survivor's epoch-1 parameters and loss bit for bit (cuDNN
+   deterministic). Printed: the kill to resumed training (the survivor's
+   ``resumed_unix`` stamp against the kill's wall clock), attribution to
+   resumed training (``detect_to_resume_s``, from the first failed
+   collective or stale beacon), each phase's seconds (``agree``,
+   ``teardown``, ``establish``, ``restore``), the grow's seconds and the
+   phase's walls. It runs after [7b].
+
 Every phase's seconds (each header to the next) and each rank phase's
 seconds inside its launch are printed before the JSON lines.
 
@@ -394,6 +419,20 @@ SP_LOSS_RTOL, SP_GRAD_ATOL = 1e-5, 5e-4  # the CPU tests' (tests/test_torch_seq_
 # each launch's time limit: the ranks start once and run every arm of their phases
 RANKS2_TIMEOUT_S = 900
 RANKS4_TIMEOUT_S = 600
+# [7d]: --elastic on across processes, two processes on cuda:0 over gloo
+# brought up through rendezvous.elastic_initialize (tests/_torch_mh_worker.py
+# is the harness): DenseNet-121 at its published width, -ws 4 -b 512
+# --straggler 3,1,1,1 --fault_mode virtual --n_train 4096, 4 epochs; process
+# 1 killed when it writes its marker before its third combine of epoch 1
+# (8 steps an epoch), respawned as a joiner and readmitted at epoch 3. Its
+# checkpoints go under SCRATCH (too big for OUT)
+MH_WORKER = os.path.join(ROOT, "tests", "_torch_mh_worker.py")
+MH_ENV = {"DBS_MH_DEVICE": "cuda", "DBS_MH_MODEL": "densenet", "DBS_MH_DATASET": "cifar10",
+          "DBS_MH_BATCH": "512", "DBS_MH_NTRAIN": "4096", "DBS_MH_STRAGGLER": "3,1,1,1",
+          "DBS_MH_WS": "4", "DBS_MH_EPOCHS": "4", "DBS_MH_JOIN_AT": "3",
+          "DBS_MH_STEP_MARKER": "1:1:2",
+          "DBS_PEER_HB_PERIOD_S": "0.2", "DBS_PEER_HB_STALE_S": "2.0", "DBS_RDZV_TIMEOUT_S": "120"}
+MH_TIMEOUT_S = 400
 
 
 def with_epochs(argv, epochs: int):
@@ -2869,8 +2908,132 @@ def check_sp_values(results):
     return [x["result"] for x in results]
 
 
+def _mh_spawn(env, proc: int, n: int, port: int, log_path: str):
+    import subprocess
+
+    with open(log_path, "w") as f:
+        return subprocess.Popen([sys.executable, MH_WORKER, str(proc), str(n), str(port)],
+                                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+
+
+def _mh_result(path: str) -> dict:
+    with open(path) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+    assert lines, f"[7d]: no RESULT line in {path}:\n{text[-4000:]}"
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+def check_elastic_ranks():
+    """[7d] (the module docstring): shrink, parity, regrow. Returns the
+    survivor's and the joiner's results, the parity leg's and the walls."""
+    import signal
+
+    from scripts.rank_launch import RanksFailed, free_port, launch_ranks
+
+    run, logs = os.path.join(SCRATCH, "mh"), os.path.join(OUT, "mh")
+    for d in (run, logs):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    hb = os.path.join(run, "hb")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]),
+               DBS_PEER_HB_DIR=hb, DBS_MH_CKPT=os.path.join(run, "ck"), **MH_ENV)
+    port = free_port()
+    t0 = time.perf_counter()
+    deadline = t0 + MH_TIMEOUT_S
+
+    def wait_for(path, procs):
+        while not os.path.exists(path):
+            assert time.perf_counter() < deadline, f"[7d]: {path} never appeared"
+            assert any(p.poll() is None for p in procs), f"[7d]: the processes ended before {path}"
+            time.sleep(0.05)
+
+    def wait(p):
+        while p.poll() is None:
+            assert time.perf_counter() < deadline, "[7d]: a process outlived the phase's limit"
+            time.sleep(0.1)
+        return p.returncode
+
+    procs = [_mh_spawn(env, i, 2, port, os.path.join(logs, f"p{i}.log")) for i in range(2)]
+    try:
+        wait_for(os.path.join(hb, "epoch1_step2_p1.marker"), procs)
+        procs[1].send_signal(signal.SIGKILL)
+        t_kill, t_kill_unix = time.perf_counter(), time.time()
+        wait_for(os.path.join(hb, "epoch2_p0.marker"), procs[:1])
+        t_resumed = time.perf_counter()
+        # the parity leg's source, copied while the run still keeps it (a
+        # checkpoint directory keeps the last 3 epochs)
+        ck, ckp = os.path.join(run, "ck"), os.path.join(run, "ck_parity")
+        shutil.copytree(os.path.join(ck, "0"), os.path.join(ckp, "0"))
+        shutil.copy(os.path.join(ck, "controller_0.json"), ckp)
+        procs.append(_mh_spawn(dict(env, DBS_MH_RESPAWNED="1", DBS_MH_IDENT="1"), 1, 2, port,
+                               os.path.join(logs, "p1_respawn.log")))
+        rc0, rcj = wait(procs[0]), wait(procs[2])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for name, rc in (("p0", rc0), ("p1_respawn", rcj)):
+        if rc != 0:
+            with open(os.path.join(logs, f"{name}.log")) as f:
+                log(f.read()[-6000:])
+            raise AssertionError(f"[7d]: {name} exited {rc}")
+    assert procs[1].returncode == -signal.SIGKILL, procs[1].returncode
+    r0, rj = _mh_result(os.path.join(logs, "p0.log")), _mh_result(os.path.join(logs, "p1_respawn.log"))
+    shrink, grow = r0["elastic_events"]
+    assert shrink["lost"] == [2, 3] and shrink["rdzv_gen"] == 1 and shrink["roster"] == [0], shrink
+    assert shrink["world_size"] == 2 and shrink["restored_from"] == "checkpoint[0]", shrink
+    assert grow["readmitted"] == [2, 3] and grow["rdzv_gen"] == 2 and grow["epoch"] == 3, grow
+    for r in (r0, rj):
+        assert r["world_size"] == 4 and r["n_proc"] == 2 and r["roster"] == [0, 1], r
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+        for k in CNN_KERNELS:  # the recovered and regrown epochs ran the kernels
+            assert r["launches"][k] > 0, (k, r["launches"])
+    assert rj["params_hash"] == r0["params_hash"], "[7d]: the regrown ranks' parameters differ"
+    assert rj["losses"] == r0["losses"][-len(rj["losses"]):]
+    # the parity leg: a fresh one-process 2-worker run from a copy of
+    # checkpoint 0 with the survivor-restricted sidecar, over epoch 1 (its
+    # plan comes from the sidecar alone; later plans read the card's probes)
+    with open(os.path.join(ckp, "controller_0.json")) as f:
+        side = json.load(f)
+    sh = [side["shares"][r] for r in (0, 1)]
+    penv = dict(env, DBS_MH_PARITY="1", DBS_MH_CKPT=ckp, DBS_MH_PARITY_UNTIL="2",
+                DBS_MH_PARITY_VECS=json.dumps({"shares": [x / sum(sh) for x in sh],
+                                               "node_times": [side["node_times"][r] for r in (0, 1)]}))
+    t1 = time.perf_counter()
+    try:
+        launch_ranks([[sys.executable, MH_WORKER, "0", "1", "0"]], os.path.join(logs, "parity"),
+                     max(deadline - t1, 60.0), [penv], cwd=ROOT)
+    except RanksFailed as e:
+        log(str(e))
+        raise AssertionError("[7d]: the parity leg failed") from None
+    parity_s = time.perf_counter() - t1
+    pr = _mh_result(os.path.join(logs, "parity", "rank0.out"))
+    assert pr["start_epoch"] == 1 and pr["hashes"]["1"] == r0["hashes"]["1"], (pr, r0["hashes"])
+    assert pr["losses"] == [r0["losses"][1]], (pr["losses"], r0["losses"])
+    log(f"  survivor: losses {[round(x, 4) for x in r0['losses']]}, partitions "
+        f"{[[round(x, 4) for x in p] for p in r0['partitions']]}; launches "
+        f"{launch_text(r0['launches'], CNN_KERNELS)}; joiner launches "
+        f"{launch_text(rj['launches'], CNN_KERNELS)}")
+    kill_to_resume = shrink["resumed_unix"] - t_kill_unix
+    assert 0.0 < kill_to_resume < MH_TIMEOUT_S, kill_to_resume
+    log(f"  shrink: the kill to resumed training {kill_to_resume:.3f}s; attribution to resumed "
+        f"training {shrink['detect_to_resume_s']:.3f}s (phases {shrink['phase_s']} s); the "
+        f"kill to the survivor's epoch-2 start {t_resumed - t_kill:.1f}s (epoch 1 re-run over "
+        f"2 workers included)")
+    log(f"  grow: {grow['detect_to_resume_s']:.3f}s from the join offer's boundary to resumed "
+        f"training (phases {grow['phase_s']} s); the joiner's own join {rj['joined_s']:.1f}s")
+    log(f"  parity against a fresh 2-worker run from checkpoint 0: epoch 1's parameters "
+        f"{pr['hashes']['1'][:16]} = the survivor's, loss {pr['losses'][0]:.6f} "
+        f"({parity_s:.1f}s); the regrown ranks' parameters {r0['params_hash'][:16]} on both")
+    log(f"  [7d] wall {wall:.1f}s (the three processes), parity leg {parity_s:.1f}s")
+    return {"survivor": r0, "joiner": rj, "parity": pr, "wall": wall, "parity_s": parity_s}
+
+
 PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4k", "4i", "4g", "4j",
-          "6", "6b", "7", "7b", "7c", "8")
+          "6", "6b", "7", "7b", "7c", "8", "7d")
 
 
 def main(argv=None) -> int:
@@ -3021,6 +3184,12 @@ def main(argv=None) -> int:
         ranks["hier_lm"] = check_hier_ranks(
             "lm", *cli_arm(got, run_dir, "hier_lm", HIER_LM_ARGV, HIER_RANKS), kernels=LM_KERNELS)
         rank_phase_s["7b"] = sum(job_wall(r) for r in got.values())
+    if want("7d"):
+        phase("[7d] --elastic on across processes: 2 processes on cuda:0 over gloo, process 1 "
+              "SIGKILLed at epoch 1, respawned and readmitted at epoch 3")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks["elastic_mh"] = check_elastic_ranks()
     for name, secs in rank_phase_s.items():
         log(f"  [{name}]: {secs:.1f}s of jobs in the ranks (their start-up shared)")
 

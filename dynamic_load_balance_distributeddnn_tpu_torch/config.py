@@ -29,9 +29,11 @@ port runs the DBS loop of the vision models and of the language model
 the JAX package's warning) and ``--ckpt_dir`` (a save gathers each rank's
 ZeRO-1 chunk and residuals to rank 0, ``train/checkpoint.py``);
 ``--rebalance window`` there runs at epoch cadence with the JAX package's
-warning, as the JAX trainer does; ``--elastic on`` runs in one process only (a lost
-process needs the JAX package's rendezvous, not ported yet) and is refused
-by name across processes. ``--seq_parallel ring|ulysses`` trains the
+warning, as the JAX trainer does; ``--elastic on`` runs in one process and
+across processes (``runtime/rendezvous.py``: a world brought up through
+``elastic_initialize`` with ``DBS_PEER_HB_DIR`` set survives a lost process
+and regrows; the cli's stock world detects the loss and aborts, as the JAX
+trainer's does). ``--seq_parallel ring|ulysses`` trains the
 language model with its sequence sharded over the ranks
 (``train/sp_engine.py``). ``--remat`` recomputes the
 training forward in the backward (``train/steps.py`` ``forward``).
@@ -406,12 +408,6 @@ class Config:
                 "this port: a remainder plan re-slices examples, not a token "
                 "stream folded into bptt windows, and the JAX package's language "
                 "model fails at its first switch (ROADMAP.md lists what is left)"
-            )
-        if self.elastic == "on" and n_proc > 1:
-            raise NotImplementedError(
-                f"--elastic={self.elastic!r} with --num_processes {n_proc} is not implemented "
-                "by this port yet: a lost process needs the rendezvous and the stall "
-                "watchdog (ROADMAP.md lists what is left); one process runs it"
             )
 
     def straggler_factors(self) -> List[float]:

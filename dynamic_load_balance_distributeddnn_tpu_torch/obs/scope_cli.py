@@ -890,14 +890,14 @@ def sweep_cmd(
 
 def conformance(dir_or_file: str, as_json: bool = False) -> "tuple[str, bool]":
     """The JAX package replays every recorded ``rdzv_*`` instant against
-    its rendezvous protocol automaton (``analysis/flow/proto.py``). This
-    port has neither the automaton nor the rendezvous
-    (``runtime/rendezvous.py``) yet, so nothing records those instants:
-    raises ``NotImplementedError`` naming them (the command exits 2)."""
+    its rendezvous protocol automaton (``analysis/flow/proto.py``). The
+    port's rendezvous (``runtime/rendezvous.py``) records the same
+    instants, but the port has no automaton yet: raises
+    ``NotImplementedError`` naming it (the command exits 2)."""
     raise NotImplementedError(
         f"conformance {dir_or_file}: needs the rendezvous protocol automaton "
-        "(analysis/flow/proto.py) and the elastic rendezvous "
-        "(runtime/rendezvous.py), which this port does not have yet"
+        "(analysis/flow/proto.py), which this port does not have yet; the spools "
+        "of its rendezvous carry the rdzv_* instants it would replay"
     )
 
 

@@ -38,6 +38,16 @@ order, as the JAX axis's. A sub-axis runs the collectives of
 :class:`DataMesh` on its group, staged the same way; its pinned buffers are
 keyed by the level as well as by the slot, shape and dtype.
 :func:`probe_link_bandwidth` times the tree's phases against one flat sum.
+
+**A new world** (``--elastic on`` across processes,
+``runtime/rendezvous.py``): a re-rendezvous tears the default group down
+and brings up another over the survivors (or a grown fleet). The old
+axis's groups and pinned buffers are dropped first (:meth:`DataMesh
+.retire`), and the engine makes a new :class:`DataMesh` over the new
+default group, whose :meth:`DataMesh.tree_axes` makes its subgroups again.
+The module-level helpers (:func:`allgather_host`, :func:`barrier`, ...)
+read the live default group, so they follow it. :func:`initialize_multihost`
+(the cli's) makes a stock world, which the elastic tier does not rebuild.
 """
 
 from __future__ import annotations
@@ -296,6 +306,18 @@ class DataMesh(_Axis):
     def describe(self) -> Dict[str, object]:
         return {"backend": self.backend, "size": self.size, "rank": self.rank,
                 "hosts": self.hosts, "staged_through_host": self.staged}
+
+    def retire(self) -> None:
+        """Forget this axis's groups before its world is torn down
+        (``runtime/rendezvous.py`` ``retire_runtime``): the subgroups
+        :meth:`tree_axes` made, the NCCL gradient group and the pinned
+        staging buffers. ``destroy_process_group`` then destroys the groups
+        themselves; an axis over the next world is a new
+        :class:`DataMesh`, whose :meth:`tree_axes` makes its subgroups
+        again."""
+        self._tree_axes.clear()
+        self.group = None
+        self._pinned.clear()
 
     def tree_axes(self, names: Sequence[str], sizes: Sequence[int]) -> List[SubAxis]:
         """This rank's :class:`SubAxis` of each level of the tree

@@ -17,9 +17,10 @@ Three surfaces:
   at the next epoch boundary.
 * :class:`ProcessHeartbeat`, heartbeat-file liveness for real processes:
   each process runs a beacon thread touching its own file, and anyone can
-  ``scan`` the directory for stale peers. It reads the exit-reason tag a
-  stall watchdog leaves behind (:func:`read_exit_reason`). Only the elastic
-  tier across processes uses it, and this port runs that tier not yet.
+  ``scan`` the directory for stale peers. It reads the exit-reason tag the
+  stall watchdog (``runtime/watchdog.py``) leaves behind, so a peer that
+  aborted is told apart from one that stopped pulsing. The elastic tier
+  across processes (``runtime/rendezvous.py``) runs on it.
 * :func:`retry_transient`, bounded exponential backoff for the edges that
   can fail transiently while the fleet changes shape.
 """
@@ -34,10 +35,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 
 from dynamic_load_balance_distributeddnn_tpu_torch.obs.trace import get_tracer
-
-# The stall watchdog's exit tag (the JAX package's ``runtime/watchdog.py``):
-# a process that aborts writes it into its heartbeat file.
-_EXIT_TAG = "DBS_WATCHDOG_EXIT "
+from dynamic_load_balance_distributeddnn_tpu_torch.runtime.watchdog import read_exit_reason
 
 # Verdicts. Plain strings (not an Enum) so snapshots stay JSON-trivial.
 ALIVE = "alive"
@@ -57,19 +55,6 @@ def _verdict_event(worker: int, verdict: str, **extra) -> None:
     args = {"worker": int(worker), "verdict": verdict}
     args.update(extra)
     tracer.instant("health_verdict", cat="health", args=args)
-
-
-def read_exit_reason(hb_path: str) -> Optional[str]:
-    """The exit-reason tag a stall watchdog left in ``hb_path``, or None
-    (absent file, unreadable file, or a plain pulse file with no tag)."""
-    try:
-        with open(hb_path) as f:
-            head = f.read(4096)
-    except OSError:
-        return None
-    if head.startswith(_EXIT_TAG):
-        return head[len(_EXIT_TAG):].strip()
-    return None
 
 
 class WorkerLost(RuntimeError):
@@ -261,11 +246,16 @@ class ProcessHeartbeat:
         self._thread: Optional[threading.Thread] = None
 
     def beacon(self, hb_dir: str, ident: str) -> str:
-        """Start touching ``<hb_dir>/<ident>.hb``; returns the path."""
+        """Start touching ``<hb_dir>/<ident>.hb``; returns the path. The
+        file is touched at once: a respawned process re-arms its dead
+        predecessor's file, whose old pulse would otherwise read stale
+        until the first period passed (the JAX package's beacon only
+        opens the file)."""
         os.makedirs(hb_dir, exist_ok=True)
         path = os.path.join(hb_dir, f"{ident}{self.SUFFIX}")
         with open(path, "a"):
             pass
+        os.utime(path, None)
 
         def _beat() -> None:
             while not self._stop.wait(self.period_s):

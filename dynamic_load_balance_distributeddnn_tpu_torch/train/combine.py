@@ -258,14 +258,17 @@ class RankCombine:
         return [self.mesh.all_gather(torch.empty(self.n * r.numel(), device=r.device), r)
                 .view(self.n, -1) for r in self.residuals]
 
-    def load_residual_rows(self, rows: Sequence[torch.Tensor]) -> None:
-        """This rank's residuals from :meth:`residual_rows`' tensors."""
+    def load_residual_rows(self, rows: Sequence[torch.Tensor], row: Optional[int] = None) -> None:
+        """This rank's residuals from :meth:`residual_rows`' tensors: row
+        ``row`` of each (default this rank's; the elastic tier across
+        processes picks the row of the process's original ident)."""
+        row = self.mesh.rank if row is None else row
         if len(rows) != len(self.residuals) or any(
-                tuple(row.shape) != (self.n, r.numel()) for row, r in zip(rows, self.residuals)):
-            raise ValueError(f"residual rows {[tuple(row.shape) for row in rows]} do not fit "
+                tuple(t.shape) != (self.n, r.numel()) for t, r in zip(rows, self.residuals)):
+            raise ValueError(f"residual rows {[tuple(t.shape) for t in rows]} do not fit "
                              f"{self.n} ranks of {[r.numel() for r in self.residuals]}")
-        self.residuals = [row[self.mesh.rank].to(r.device, r.dtype).clone()
-                          for row, r in zip(rows, self.residuals)]
+        self.residuals = [t[row].to(r.device, r.dtype).clone()
+                          for t, r in zip(rows, self.residuals)]
 
     # ---------------------------------------------------------------- step
 

@@ -121,6 +121,17 @@ resolution, bandwidth probe, learned tree and wires) gives the combine a
 topology tree over the ranks (``train/combine.py``), or falls back to the
 flat combine with the JAX package's warning.
 
+``--elastic on`` (the JAX package's two tiers): in one process a lost
+worker is re-solved around from the epoch's snapshot and readmitted at a
+boundary; across processes each process beacons under ``DBS_PEER_HB_DIR``,
+a lost peer process (a stale beacon, or a collective failing against it)
+is survived by the re-rendezvous of ``runtime/rendezvous.py``
+(``_mh_rerendezvous``: agree, tear the ``torch.distributed`` world down,
+establish a smaller one, rebuild the data axis and the combine, restore
+the flushed checkpoint, re-run the epoch), and a respawned process grows
+the fleet back at an epoch boundary. A world of the cli's stock
+``initialize_multihost`` detects the loss and aborts with the JAX message.
+
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
 ``_setup_model``, ``_build_plan``, ``_worker_epoch``, ``_fused_epoch`` and
@@ -209,10 +220,18 @@ from dynamic_load_balance_distributeddnn_tpu_torch.parallel.wire import (
     tree_hop_bytes,
     wire_payload_bytes,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.runtime import rendezvous as rdzv
 from dynamic_load_balance_distributeddnn_tpu_torch.runtime.health import (
+    ProcessHeartbeat,
     WorkerHealth,
     WorkerLost,
     retry_transient,
+)
+from dynamic_load_balance_distributeddnn_tpu_torch.runtime.watchdog import (
+    heartbeat,
+    register_exit_tag_path,
+    tag_exit_reason,
+    unregister_exit_tag_path,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.train.combine import RankCombine
 from dynamic_load_balance_distributeddnn_tpu_torch.train.checkpoint import (
@@ -244,6 +263,15 @@ RANK_SERIES = ("train_loss", "val_loss", "accuracy", "partition", "sync_time", "
                "comm_bytes_dcn", "wallclock_time")
 _RANK_SEED_STRIDE = 15485863  # a rank's generator seeds: the seed plus its multiple
 _COMBINE_KEY = 0x5D1E  # the elastic combine's key root (JAX steps.py _sharded_combine_body)
+
+
+def _gen0_roster(hb_dir: Optional[str]) -> List[int]:
+    """The generation-0 roster an elastic world published (``ack_g0.json``
+    under the heartbeat directory), or [] where there is none."""
+    if not hb_dir:
+        return []
+    info = rdzv._read_json(os.path.join(hb_dir, "ack_g0.json")) or {}
+    return [int(p) for p in info.get("roster", ())]
 
 
 def resolve_device(device) -> torch.device:
@@ -446,6 +474,21 @@ class Trainer:
         # the epoch-time each loss was confirmed at: a recovery re-runs the
         # epoch, whose liveness rounds revisit times before the loss
         self._lost_t: Dict[int, float] = {}
+        # across processes (the JAX package's second tier): the rendezvous
+        # state machine (armed with the peer beacon when DBS_PEER_HB_DIR is
+        # set and the world came up through rendezvous.elastic_initialize),
+        # and the fleet in ORIGINAL process idents. ``proc_id``/``n_proc``
+        # are the live world's and change across a re-rendezvous;
+        # ``_orig_proc_id``/``_proc_roster``/``_n_proc0`` key the heartbeat
+        # files, the workers' ownership and the protocol
+        self._rdzv: Optional[rdzv.RendezvousStateMachine] = None
+        self._hb_beacon = None
+        self._hb_beacon_path: Optional[str] = None
+        self._peer_watch: Optional[Callable] = None
+        self._peer_scan_cache = None
+        self._proc_roster = list(range(self.n_proc))
+        if cfg.elastic == "on" and self.n_proc > 1:
+            self._arm_peer_heartbeats()
         self.obs = MetricsRegistry(recorder=self.recorder, tracer=self._trace)
         self.obs.attach(host_meter=self._host_meter, health=self.health)
         self._can_use_packed(None)  # --packed on fails here where it cannot engage
@@ -474,8 +517,19 @@ class Trainer:
             raise ValueError(
                 f"--num_processes {cfg.num_processes} but the process group holds {self.n_proc}"
             )
-        self.device = rank_device(cfg, device, self.proc_id, self.n_proc)
-        self.ws_local = cfg.world_size // self.n_proc
+        # the elastic tier across processes (runtime/rendezvous.py) speaks
+        # ORIGINAL process idents and the generation-0 fleet shape: a
+        # respawned joiner carries its ident in DBS_MH_IDENT, and the
+        # gen-0 process count (ack_g0.json) slices the workers among the
+        # idents whatever the live world's size
+        self._orig_proc_id = int(os.environ.get("DBS_MH_IDENT", self.proc_id))
+        self._n_proc0 = self.n_proc
+        if cfg.elastic == "on" and self.n_proc > 1 and rdzv.elastic_world():
+            roster0 = _gen0_roster(os.environ.get("DBS_PEER_HB_DIR"))
+            if roster0:
+                self._n_proc0 = len(roster0)
+        self.device = rank_device(cfg, device, self._orig_proc_id, self._n_proc0)
+        self.ws_local = cfg.world_size // self._n_proc0
         self.rank_lo = self.proc_id * self.ws_local
         self.topology = WorkerTopology.build(self.ws_local, [self.device], [0] * self.ws_local)
         self.mesh = data_mesh(self.device)
@@ -835,9 +889,12 @@ class Trainer:
         from dynamic_load_balance_distributeddnn_tpu_torch.obs.spool import SpoolWriter
 
         cfg = self.cfg
-        path = os.path.join(cfg.trace_spool, f"proc{self.proc_id}.{os.getpid()}.spool")
+        # the original ident and the pid: a respawned joiner shares its
+        # dead predecessor's ident but never writes into its file
+        path = os.path.join(cfg.trace_spool, f"proc{self._orig_proc_id}.{os.getpid()}.spool")
         self._spool_writer = SpoolWriter(
-            path, ident=self.proc_id, flush_interval_s=cfg.trace_spool_flush_s, fsync=cfg.trace_spool_fsync
+            path, ident=self._orig_proc_id, flush_interval_s=cfg.trace_spool_flush_s,
+            fsync=cfg.trace_spool_fsync
         )
         self._trace.attach_spool(self._spool_writer)
         self.logger.info(
@@ -928,6 +985,9 @@ class Trainer:
                     {k: g.get_state() for k, g in self._generators().items()})}
                 if rc is not None and rc.axes is not None:
                     ranks["residuals"] = [r.to("cpu") for r in rc.residual_rows()]
+                if self._rdzv is not None:
+                    # whose rows these are: a re-rendezvous renumbers the ranks
+                    ranks["idents"] = list(self._proc_roster)
             save_checkpoint(
                 self.cfg.ckpt_dir, epoch, self.model, self.optimizer,
                 {
@@ -963,13 +1023,37 @@ class Trainer:
         not move; a step graph captured before the restore is dropped; the
         generators' states are set last, where ``StepGraphs`` reads them.
         Across processes every rank reads the file and takes its own ZeRO-1
-        chunk, residual rows and generator states."""
+        chunk, residual rows and generator states.
+
+        ``--elastic on`` across processes is the JAX package's multi-host
+        branch: the live rendezvous roster, not the checkpoint's stamp, is
+        the fleet (a respawned joiner restores a checkpoint its survivor
+        saved at the reduced fleet); the controller's vectors come from the
+        sidecar through ``_adopt_controller_vectors``; a joiner publishes
+        its own workers' probed costs before the restore barrier (a
+        ``barrier()`` the survivors' grow rendezvous meets) and seeds the
+        shares from the exchange after it. The JAX package needs a ZeRO-1
+        restore template re-padded to the saved fleet
+        (``_zero1_restore_template``); this port's checkpoint holds the
+        momentum gathered into the one-process layout by parameter name,
+        whose padding depends on no rank count, and ``load_momentum``
+        re-chunks it at the live rank count, so no template is needed."""
+        cfg = self.cfg
         t0 = time.perf_counter()
         rc = self._rank_combine
+        elastic_mh = cfg.elastic == "on" and self.n_proc > 1
+        joiner = elastic_mh and self._rdzv is not None and os.environ.get("DBS_MH_IDENT") is not None
+        if joiner:
+            own = {}
+            for r in self._ranks_of_proc(self._orig_proc_id):
+                c = self._probe_local_cost(int(r))
+                if c is not None:
+                    own[int(r)] = float(c)
+            self._publish_probe_costs(own)
         with self._trace.span("checkpoint", cat="checkpoint", args={"restore": True}):
             prepare_step_state(self.optimizer)
             restored = restore_checkpoint(
-                self.cfg.ckpt_dir, self.model, self.optimizer,
+                cfg.ckpt_dir, self.model, self.optimizer,
                 load_momentum=rc.load_momentum if rc is not None and rc.shard_update else None)
             if restored is None:
                 return 0
@@ -978,10 +1062,12 @@ class Trainer:
                 self.supersteps.clear()
             self.steps_done = state["steps"]
             gens = state["generators"]
-            if self.n_proc > 1:
+            if elastic_mh:
+                gens = self._own_rank_state(state, gens, joiner)
+            elif self.n_proc > 1:
                 ranks = state.get("ranks") or {}
                 if len(ranks.get("generators", ())) != self.n_proc:
-                    raise ValueError(f"checkpoint {self.cfg.ckpt_dir}/{epoch} holds no state of "
+                    raise ValueError(f"checkpoint {cfg.ckpt_dir}/{epoch} holds no state of "
                                      f"{self.n_proc} ranks: resume with the ranks that saved it")
                 gens = ranks["generators"][self.proc_id]
                 if rc is not None and rc.axes is not None:
@@ -990,39 +1076,109 @@ class Trainer:
                 if name in gens:
                     g.set_state(gens[name])
         saved_active = controller.get("active_ranks")
-        if (self.cfg.elastic == "on" and saved_active is not None
+        if elastic_mh:
+            # the LIVE rendezvous roster is the fleet, not the stamp
+            live = sorted(r for r in range(cfg.world_size)
+                          if self._proc_of_rank(r) in set(self._proc_roster))
+            if live != self.active_ranks:
+                self._reshard_world(live)
+                self._fix_comm_residual()
+                for r in range(cfg.world_size):
+                    if r not in self.active_ranks:
+                        self.health.mark_down(r)
+            base = ([int(r) for r in saved_active]
+                    if saved_active and all(0 <= int(r) < cfg.world_size for r in saved_active)
+                    else list(self.active_ranks))
+            if "shares" in controller and len(controller["shares"]) == len(base):
+                self._adopt_controller_vectors(base, controller["shares"],
+                                               controller.get("node_times", controller["shares"]))
+            elif "shares" in controller:
+                # a stamp from another layout: the fresh uniform vectors,
+                # as the one-process branch below resets them
+                self.logger.warning(
+                    f"Resume: sidecar vectors ({len(controller['shares'])} entries) do not "
+                    f"match the stamped fleet ({len(base)}) — resetting to uniform")
+            if joiner:
+                barrier()  # the restore barrier: every probe file is on disk past it
+                self._collect_probe_seed()
+        elif (cfg.elastic == "on" and saved_active is not None
                 and sorted(int(r) for r in saved_active) != self.active_ranks
-                and all(0 <= int(r) < self.cfg.world_size for r in saved_active)):
+                and all(0 <= int(r) < cfg.world_size for r in saved_active)):
             # resume after a loss: the checkpointed survivor fleet
             self._reshard_world(sorted(int(r) for r in saved_active))
             self._fix_comm_residual()
-            for r in range(self.cfg.world_size):
+            for r in range(cfg.world_size):
                 if r not in self.active_ranks:
                     self.health.mark_down(r)
             self.logger.info(f"Resume: adopted checkpointed survivor fleet {self.active_ranks} "
                              f"(world size {self.world_size})")
-        for key, fallback in (
-            ("shares", lambda: initial_partition(self.world_size)),
-            ("node_times", lambda: np.ones(self.world_size, dtype=np.float64)),
-        ):
-            if key in controller:
-                vec = np.asarray(controller[key], dtype=np.float64)
-                if len(vec) == self.world_size:
-                    setattr(self, key, vec)
-                else:
-                    self.logger.warning(
-                        f"Resume: checkpointed {key} has length {len(vec)} but the "
-                        f"fleet is {self.world_size} — resetting to uniform"
-                    )
-                    setattr(self, key, fallback())
+        if not elastic_mh:
+            for key, fallback in (
+                ("shares", lambda: initial_partition(self.world_size)),
+                ("node_times", lambda: np.ones(self.world_size, dtype=np.float64)),
+            ):
+                if key in controller:
+                    vec = np.asarray(controller[key], dtype=np.float64)
+                    if len(vec) == self.world_size:
+                        setattr(self, key, vec)
+                    else:
+                        self.logger.warning(
+                            f"Resume: checkpointed {key} has length {len(vec)} but the "
+                            f"fleet is {self.world_size} — resetting to uniform"
+                        )
+                        setattr(self, key, fallback())
         if "total_wallclock" in controller:
             self.total_wallclock = float(controller["total_wallclock"])
         if "total_probe_s" in controller:
             self.total_probe_s = float(controller["total_probe_s"])
         self.recorder.meta.setdefault("checkpoint", {})["restore_s"] = time.perf_counter() - t0
         self.recorder.meta["checkpoint"]["restored_epoch"] = int(epoch)
-        self.logger.info(f"Resumed from checkpoint at epoch {epoch}")
+        self.logger.info(f"Resumed from checkpoint at epoch {epoch}" + (
+            f" over the live fleet {self.active_ranks} (roster {self._proc_roster})"
+            if elastic_mh else ""))
         return epoch + 1
+
+    def _own_rank_state(self, state: Dict, gens: Dict, joiner: bool = False) -> Dict:
+        """This process's generator states from a checkpoint of the elastic
+        tier across processes, and its residual rows loaded: the row of its
+        original ident where the save names the idents (``ranks
+        ["idents"]``: a re-rendezvous renumbers the ranks), else the
+        ``ranks`` row of its rank when the saving world had this one's
+        size; the top-level generators (the writer's) on rank 0 of a world
+        that saved none (a world of one process). A joiner whose ident the
+        reduced fleet's save does not hold keeps its own states, with a
+        warning; any other process the save does not hold raises. The
+        residual rows load (``RankCombine.load_residual_rows``, which
+        raises where they do not fit) when the saving fleet is the live
+        one; another fleet's rows mean nothing here, so they restart at
+        zero (``_fix_comm_residual``)."""
+        ranks = state.get("ranks") or {}
+        rows = ranks.get("generators") or []
+        idents = ranks.get("idents")
+        ident = self._orig_proc_id
+        if idents is not None and ident in idents:
+            row, same_fleet = idents.index(ident), list(idents) == list(self._proc_roster)
+        elif idents is None and rows and len(rows) == self.n_proc:
+            row, same_fleet = self.proc_id, True
+        elif not ranks and self.proc_id == 0 and not joiner:
+            self._fix_comm_residual()
+            return gens
+        elif joiner:
+            self.logger.warning(f"Resume: the checkpoint holds no state of joining process "
+                                f"{ident}: it keeps its own generator states")
+            self._fix_comm_residual()
+            return {}
+        else:
+            raise ValueError(f"checkpoint {self.cfg.ckpt_dir} holds no state of process {ident} "
+                             f"(rank {self.proc_id} of {self.n_proc}): resume with the ranks "
+                             "that saved it")
+        rc = self._rank_combine
+        if rc is not None and rc.axes is not None:
+            if same_fleet and "residuals" in ranks:
+                rc.load_residual_rows(ranks["residuals"], row)
+            else:
+                self._fix_comm_residual()
+        return rows[row]
 
     # ------------------------------------------------------- elastic world
 
@@ -1033,19 +1189,134 @@ class Trainer:
     # re-solve over the survivors, re-shard, restore the epoch-start
     # snapshot and re-run the epoch. A worker that signals again is
     # readmitted at the next epoch boundary with a probe-seeded share.
+    #
+    # Across processes (the second tier): each process beacons a heartbeat
+    # file under DBS_PEER_HB_DIR and a watcher thread marks a stale peer
+    # (``_arm_peer_heartbeats``); the health checks scan the peers
+    # (``_scan_peer_heartbeats``), and a collective that fails against a
+    # dead peer is attributed to the beacons' verdict
+    # (``_attribute_collective_failure``). A lost peer process is survived
+    # by a re-rendezvous over the survivors (``_mh_rerendezvous``: agree,
+    # tear the torch.distributed world down, establish a smaller one,
+    # rebuild the data axis and the combine, restore the flushed checkpoint
+    # and re-run the epoch); a respawned process that offers to join grows
+    # the fleet back the same way at an epoch boundary.
+
+    def _arm_peer_heartbeats(self) -> None:
+        """The detection and recovery channel across processes (the JAX
+        ``_arm_peer_heartbeats``): this process beacons its own file under
+        DBS_PEER_HB_DIR, a watcher thread fires on a stale peer (it runs
+        while the main thread is blocked in a collective against that peer:
+        it logs, emits ``peer_stale`` and drops the marker
+        ``elastic_detected_<peer>_by_proc<ident>.json``), and the beacon is
+        tagged when the stall watchdog aborts this process. The rendezvous
+        state machine is armed only when the world came up through
+        ``rendezvous.elastic_initialize``; a world of the cli's stock
+        ``initialize_multihost`` detects a loss and aborts (``_recover``)."""
+        hb_dir = os.environ.get("DBS_PEER_HB_DIR")
+        if not hb_dir:
+            return
+        if rdzv.elastic_world():
+            self._rdzv = rdzv.RendezvousStateMachine(hb_dir, self._orig_proc_id,
+                                                     logger=self.logger)
+            roster = self._rdzv.current_roster()
+            if len(roster) == self.n_proc:
+                self._proc_roster = roster
+        self._hb_beacon = ProcessHeartbeat(
+            period_s=float(os.environ.get("DBS_PEER_HB_PERIOD_S", "1.0")))
+        beacon_path = self._hb_beacon.beacon(hb_dir, f"proc{self._orig_proc_id}")
+        self._hb_beacon_path = beacon_path
+        # a stall-watchdog abort must be readable by the PEERS too
+        register_exit_tag_path(beacon_path)
+        # tie the beacon and watcher threads and the tag registration to
+        # THIS trainer's lifetime (finalize must not capture self)
+        import weakref
+
+        beacon = self._hb_beacon
+
+        def _teardown() -> None:
+            beacon.stop()
+            unregister_exit_tag_path(beacon_path)
+
+        weakref.finalize(self, _teardown)
+        stale_s = float(os.environ.get("DBS_PEER_HB_STALE_S", "10.0"))
+        peers = [f"proc{p}" for p in self._proc_roster if p != self._orig_proc_id]
+        # the watcher holds the callback: it must not capture self either
+        logger, proc_id, tracer = self.logger, self._orig_proc_id, self._trace
+
+        def _on_stale(ident: str, info: dict) -> None:
+            reason = ProcessHeartbeat.stale_reason(info)
+            logger.warning(
+                f"elastic: peer {ident} unreachable ({reason}) — survivors will "
+                "re-rendezvous at the next boundary (a collective against the dead "
+                "peer fails or times out first)")
+            tracer.instant("peer_stale", cat="elastic", args={"peer": ident, "reason": reason})
+            rdzv._write_json(os.path.join(hb_dir, f"elastic_detected_{ident}_by_proc{proc_id}.json"),
+                             {"peer": ident, "reason": reason})
+
+        self._hb_beacon.watch(hb_dir, peers, stale_s, _on_stale)
+        # re-armable for a grown fleet: a rejoined peer needs a fresh watch
+        self._peer_watch = lambda idents: beacon.watch(hb_dir, idents, stale_s, _on_stale)
+        self.logger.info(f"elastic: process heartbeat beacon + peer watcher armed under {hb_dir}"
+                         + ("" if self._rdzv is not None else
+                            " (no rendezvous channel: this world was not made elastic)"))
+
+    def _ranks_of_proc(self, p: int) -> range:
+        """ORIGINAL worker ranks owned by ORIGINAL process ``p``: the gen-0
+        contiguous slice, the same across re-rendezvous."""
+        wsp = self.cfg.world_size // max(self._n_proc0, 1)
+        return range(p * wsp, (p + 1) * wsp)
+
+    def _proc_of_rank(self, r: int) -> int:
+        return int(r) // (self.cfg.world_size // max(self._n_proc0, 1))
+
+    def _scan_peer_heartbeats(self, force: bool = False) -> set:
+        """Original ranks owned by peers whose heartbeat files went stale,
+        plus those of peers another survivor already claimed lost for this
+        generation (the rendezvous loss files); empty in one process.
+        Throttled to the heartbeat period unless ``force`` (the
+        collective-failure attribution needs a fresh verdict now)."""
+        hb_dir = os.environ.get("DBS_PEER_HB_DIR")
+        if not hb_dir or self.n_proc == 1:
+            return set()
+        period_s = float(os.environ.get("DBS_PEER_HB_PERIOD_S", "1.0"))
+        now = time.perf_counter()
+        cached = self._peer_scan_cache
+        if not force and cached is not None and now - cached[0] < period_s:
+            return cached[1]
+        stale_s = float(os.environ.get("DBS_PEER_HB_STALE_S", "10.0"))
+        down: set = set()
+        scan = ProcessHeartbeat.scan(hb_dir)
+        claimed = self._rdzv.claimed_losses() if self._rdzv is not None else set()
+        for p in self._proc_roster:
+            if p == self._orig_proc_id:
+                continue
+            if p in claimed:
+                # another survivor's published verdict
+                down.update(self._ranks_of_proc(p))
+                continue
+            info = scan.get(f"proc{p}")
+            if info is not None and ProcessHeartbeat.is_stale(info, stale_s):
+                self.logger.warning(f"elastic: peer process {p} unreachable "
+                                    f"({ProcessHeartbeat.stale_reason(info)})")
+                down.update(self._ranks_of_proc(p))
+        self._peer_scan_cache = (now, down)
+        return down
 
     def _check_health(self, epoch: int, frac: float = 0.0) -> None:
         """One liveness round over the active fleet at epoch-time ``epoch +
-        frac``: a worker the injector schedules down accrues a miss, and
-        ``detect_misses`` of them in a row raise :class:`WorkerLost`. A
-        dropped worker no longer down (past its confirmed loss time: the
-        re-run epoch revisits earlier times) signals again and becomes
-        RECOVERING, for ``_maybe_readmit``."""
+        frac``: a worker the injector schedules down, or owned by a stale
+        peer process, accrues a miss, and ``detect_misses`` of them in a
+        row raise :class:`WorkerLost`. A dropped worker no longer down
+        (past its confirmed loss time: the re-run epoch revisits earlier
+        times) signals again and becomes RECOVERING, for
+        ``_maybe_readmit``."""
         if self.cfg.elastic != "on":
             return
         t = float(epoch) + min(max(frac, 0.0), 0.999)
         down_workers = getattr(self.injector, "down_workers", None)
         down = set(down_workers(t)) if down_workers is not None else set()
+        down |= self._scan_peer_heartbeats()
         confirmed = []
         for r in self.active_ranks:
             if r in down:
@@ -1069,18 +1340,59 @@ class Trainer:
         the boundary, snapshot the state, and on a confirmed loss recover
         and re-run the epoch over the survivors from the snapshot (no
         example is half-applied), at most ``elastic_max_recoveries`` times
-        in a run."""
+        in a run. Across processes a peer dying mid-collective surfaces as
+        the collective's error before any health check runs: it is
+        attributed to the beacons' verdict (``_attribute_collective_failure``)
+        and recovered from like a confirmed loss, or re-raised."""
         self._maybe_readmit(epoch)
         while True:
             self._snapshot_epoch_state()
             try:
                 return self.run_epoch(epoch)
             except WorkerLost as e:
-                if self._recoveries >= self.cfg.elastic_max_recoveries:
-                    self.logger.error(
-                        f"elastic: recovery budget exhausted ({self._recoveries}) — giving up")
-                    raise
+                self._check_budget()
                 self._recover(e.ranks, epoch)
+            except Exception as e:  # noqa: BLE001 — attributed or re-raised
+                lost = self._attribute_collective_failure(e, epoch)
+                if lost is None:
+                    raise
+                self._check_budget()
+                self.logger.warning(f"elastic: dispatch failure attributed to lost worker(s) "
+                                    f"{lost} — recovering")
+                self._recover(lost, epoch)
+
+    def _check_budget(self) -> None:
+        """Inside the handler of a loss: re-raise it once
+        ``elastic_max_recoveries`` recoveries ran."""
+        if self._recoveries >= self.cfg.elastic_max_recoveries:
+            self.logger.error(
+                f"elastic: recovery budget exhausted ({self._recoveries}) — giving up")
+            raise
+
+    def _attribute_collective_failure(self, e: Exception, epoch: int) -> Optional[List[int]]:
+        """A failure inside the epoch across processes is usually a
+        collective dying with a peer (gloo raises on the closed socket, or
+        times out against a frozen peer, before the beacon reads stale).
+        Hold the epoch for up to the staleness window plus 3 s and let the
+        beacons' and the claims' verdict decide: the lost ranks, or None
+        (re-raise: a real error, not a fleet change)."""
+        if self.cfg.elastic != "on" or self.n_proc == 1 or self._hb_beacon is None:
+            return None
+        if self._detect_t0 is None:
+            self._detect_t0 = time.perf_counter()
+        stale_s = float(os.environ.get("DBS_PEER_HB_STALE_S", "10.0"))
+        self.logger.warning(
+            f"elastic: epoch {epoch} dispatch failed ({e!r}) — waiting up to "
+            f"{stale_s + 3.0:.0f}s for a peer-liveness verdict before treating it as fatal")
+        deadline = time.monotonic() + stale_s + 3.0
+        while time.monotonic() < deadline:
+            down = self._scan_peer_heartbeats(force=True)
+            lost = sorted(r for r in self.active_ranks if r in down)
+            if lost:
+                return lost
+            heartbeat()  # the wait is deliberate, not a stall
+            time.sleep(0.25)
+        return None
 
     def _snapshot_epoch_state(self) -> None:
         """The epoch-start state a recovery restores: an owned host copy of
@@ -1136,20 +1448,36 @@ class Trainer:
         for name, g in self._generators().items():
             g.set_state(snap["generators"][name])
 
-    def _reshard_world(self, active: List[int]) -> None:
-        """Point the engine at a new active fleet (the JAX ``_reshard_world``,
-        its one-process branch): the world size, the topology of workers on
-        this process's device, the time keeper, the window controller
-        (rebuilt lazily) and the probes' cached sync cost are fleet-shaped
-        and made anew; every step graph is dropped (its key holds the old
-        workers' batches). The combine stays flat: one process has one
-        device. The caller restores the state (``_state_from_host``)."""
+    def _reshard_world(self, active: List[int], new_world: bool = False) -> None:
+        """Point the engine at a new active fleet (the JAX ``_reshard_world``):
+        the world size, the topology of this process's workers on its
+        device, the time keeper, the window controller (rebuilt lazily) and
+        the probes' cached sync cost are fleet-shaped and made anew; every
+        step graph is dropped (its key holds the old workers' batches). In
+        one process the combine stays flat: one process has one device.
+        Across processes each surviving process keeps its own gen-0 slice of
+        the workers (loss is process-granular), at the compact ranks the
+        sorted fleet gives it; ``new_world`` (after a re-rendezvous
+        established another ``torch.distributed`` world) also rebuilds the
+        data axis over the new default group (``parallel/mesh.py``), the
+        ``--grad_comm`` resolution and the combine (``train/combine.py``) at
+        the new rank count; in a world of one process there is no combine
+        and every ``.grad`` is released, as a fresh one-process trainer
+        has it. The device stays the process's own (its gen-0 ident's slice
+        of the ``-gpu`` map), whatever rank the new world gives it. The
+        caller restores the state (``_state_from_host``)."""
         self.active_ranks = sorted(int(r) for r in active)
         self.world_size = len(self.active_ranks)
         if self.world_size < 1:
             raise RuntimeError("elastic: no surviving workers")
-        self.ws_local, self.rank_lo = self.world_size, 0
-        self.topology = WorkerTopology.build(self.world_size, [self.device], [0] * self.world_size)
+        if self._n_proc0 > 1:
+            mine = [r for r in self.active_ranks if self._proc_of_rank(r) == self._orig_proc_id]
+            if not mine:
+                raise RuntimeError("elastic: this process owns no surviving workers")
+            self.ws_local, self.rank_lo = len(mine), self.active_ranks.index(mine[0])
+        else:
+            self.ws_local, self.rank_lo = self.world_size, 0
+        self.topology = WorkerTopology.build(self.ws_local, [self.device], [0] * self.ws_local)
         self._worker_loss = torch.zeros(self.ws_local, device=self.device)
         self.supersteps.clear()
         self._superstep_keys = set()
@@ -1157,21 +1485,58 @@ class Trainer:
         self._fused_sync_per_step = None
         self.timekeeper = TimeKeeper(self.world_size)
         self._clean_compute_s = self._clean_examples = None
+        self._peer_scan_cache = None
         # the controller's rate track and step-time model are fleet-shaped:
         # a new fleet, a new account; its executed switches stay recorded
         self._rebalance_ctl = None
         self.obs.controller = None
         self._switches_last = 0
-        if self._rank_combine is not None:
+        if new_world:
+            self.mesh = data_mesh(self.device)  # a collective of the new world
+            self.n_dev = axis_size(self.mesh)
+            self.recorder.meta["ranks"] = self.mesh.describe()
+            self._setup_grad_comm()
+            self._record_grad_comm()
+            # a replicated flag: the joiners of a grown world start without it
+            self._probes_ran = False
+            self._rank_combine = None
+            if self.n_proc > 1:
+                self._make_rank_combine()
+            else:
+                for p in self.params:
+                    p.grad = None
+        elif self._rank_combine is not None:
             self._rank_combine.collective_s = []
 
     def _recover(self, lost: List[int], epoch: int) -> None:
-        """A confirmed loss (the JAX ``_recover``, its one-process branch):
-        flush the checkpoints, re-solve over the survivors from the epoch's
-        snapshot (their shares renormalized, their cost anchors kept),
-        re-shard, restore the snapshot's state, and record the event with
-        its seconds from the first miss to resumed training; the run loop
-        then re-runs the epoch."""
+        """A confirmed loss (the JAX ``_recover``). Across processes: the
+        JAX package's two refusals (no rendezvous channel; a loss confined
+        to this process's own workers), else ``_recover_multihost``. In one
+        process: flush the checkpoints, re-solve over the survivors from
+        the epoch's snapshot (their shares renormalized, their cost anchors
+        kept), re-shard, restore the snapshot's state, and record the event
+        with its seconds from the first miss to resumed training; the run
+        loop then re-runs the epoch."""
+        if self.n_proc > 1:
+            if self._rdzv is None:
+                raise RuntimeError(
+                    f"elastic: worker(s) {lost} lost but no rendezvous "
+                    "channel is armed (set DBS_PEER_HB_DIR and bring the "
+                    "world up through rendezvous.elastic_initialize) — "
+                    "aborting for resume-from-checkpoint (see README "
+                    "'Fault tolerance')"
+                )
+            if all(self._proc_of_rank(r) == self._orig_proc_id for r in lost):
+                # peers see a live beacon and no claim: none would join a
+                # rendezvous for it
+                raise RuntimeError(
+                    f"elastic: worker(s) {sorted(lost)} on THIS process "
+                    "confirmed lost in a multi-process world — a "
+                    "single-process worker shrink cannot change the "
+                    "global mesh and no peer would join a rendezvous for "
+                    "it; aborting for resume-from-checkpoint"
+                )
+            return self._recover_multihost(lost, epoch)
         cfg = self.cfg
         t0 = self._detect_t0 or time.perf_counter()
         snap = self._epoch_snap
@@ -1226,6 +1591,303 @@ class Trainer:
         if rc is not None and rc.axes is not None:
             rc.residuals = [torch.zeros_like(r) for r in rc.residuals]
 
+    def _adopt_controller_vectors(self, base_active, shares, node_times, cost=None) -> None:
+        """Seed the compact controller vectors of the CURRENT active fleet
+        from a PREVIOUS fleet's (the checkpoint's sidecar or the epoch
+        snapshot): survivors keep their entries, newcomers take the
+        survivors' mean, the shares renormalize. A pure function of the
+        source vectors and the rosters, so every surviving process, and a
+        freshly joined one reading the same sidecar, derives the same seed
+        (the replicated controller across a fleet change)."""
+        base = [int(r) for r in base_active]
+        sel = {r: i for i, r in enumerate(base)}
+
+        def fill(vec, fallback):
+            src = np.asarray(vec, dtype=np.float64)
+            out = np.full(self.world_size, np.nan)
+            for i, r in enumerate(self.active_ranks):
+                if r in sel and sel[r] < len(src):
+                    out[i] = src[sel[r]]
+            mean = np.nanmean(out) if np.isfinite(out).any() else fallback
+            out[~np.isfinite(out)] = mean
+            return out
+
+        sh = fill(shares, 1.0 / max(self.world_size, 1))
+        self.shares = sh / max(sh.sum(), 1e-12)
+        self.node_times = np.maximum(fill(node_times, 1.0), 1e-9)
+        if cost is not None:
+            self.per_example_cost = fill(cost, np.nan)
+        else:
+            self.per_example_cost = np.full(self.world_size, np.nan)
+
+    def _mh_rdzv_failed(self, e: Exception, epoch: int) -> None:
+        """A rendezvous phase died (hard timeout, eviction, a failed
+        connect or teardown): degrade to abort-and-resume, loudly. The
+        beacon is tagged with the phase, so peers and the launcher read an
+        abort rather than a silent freeze; the event lands in the
+        recorder's meta; the raise unwinds the run."""
+        phase = getattr(e, "phase", "unknown")
+        msg = (
+            f"elastic: multi-host re-rendezvous FAILED in phase "
+            f"'{phase}' ({e}) — degrading to abort-and-resume-from-"
+            "checkpoint"
+        )
+        self.logger.error(msg)
+        self._trace.instant("rdzv_failed", cat="rdzv",
+                            args={"phase": str(phase), "epoch": int(epoch)})
+        if self._hb_beacon_path:
+            tag_exit_reason(self._hb_beacon_path, f"rendezvous failed: {phase}")
+        self._elastic_events.append({"epoch": int(epoch), "rdzv_failed_phase": str(phase)})
+        self.recorder.meta["elastic_events"] = self._elastic_events
+        raise RuntimeError(msg) from e
+
+    def _recover_multihost(self, lost: List[int], epoch: int) -> None:
+        """A confirmed PEER-PROCESS loss: publish the verdict (a peer whose
+        beacon scan lags adopts it instead of dispatching another
+        collective at the dead process), then re-rendezvous over the
+        survivors."""
+        if self.cfg.shard_update:
+            # recorded exclusion, the JAX package's
+            raise RuntimeError(
+                f"elastic: worker(s) {sorted(lost)} lost but multi-host "
+                "re-rendezvous does not compose with --shard_update yet — "
+                "aborting for resume-from-checkpoint"
+            )
+        dead_procs = sorted({self._proc_of_rank(r) for r in lost} - {self._orig_proc_id})
+        self.logger.warning(
+            f"elastic: worker(s) {sorted(lost)} (peer process(es) {dead_procs}) confirmed lost "
+            f"at epoch {epoch} — re-rendezvousing over survivors")
+        self._trace.instant("peer_lost", cat="elastic",
+                            args={"ranks": sorted(int(r) for r in lost),
+                                  "procs": [int(p) for p in dead_procs], "epoch": int(epoch)})
+        for r in lost:
+            self.health.mark_down(r)
+        self._rdzv.claim_loss(dead_procs, epoch)
+        survivors = [r for r in self.active_ranks if r not in set(lost)]
+        self._mh_rerendezvous(epoch, survivors, lost=sorted(lost))
+
+    def _maybe_regrow_multihost(self, epoch: int) -> None:
+        """The epoch-boundary grow: (re)spawned processes that offered to
+        join (``join_p*.json`` and a fresh beacon) are admitted by the same
+        rendezvous with them in the roster. Refused without ``--ckpt_dir``:
+        the shared checkpoint is a joiner's only source of the replicated
+        state.
+
+        Every survivor must grow at the same boundary, or one enters the
+        rendezvous while another enters the epoch's first collective and
+        both wait out their timeouts. The JAX package lets each survivor
+        read the directory at its own boundary, which races an offer that
+        lands between two survivors' reads (seen with three processes);
+        here process 0's reading is broadcast to the others, so the
+        decision is one. A broadcast that fails (a peer died at the
+        boundary) skips the grow: the epoch's first collective fails too
+        and is attributed as any loss. After a grow the decision is taken
+        again at the same boundary, by the grown world: a joiner's first
+        boundary is that one, and its decision pairs with the survivors'."""
+        while self._rdzv is not None and self._grow_once(epoch):
+            pass
+
+    def _grow_once(self, epoch: int) -> bool:
+        """One grow decision at the boundary of ``epoch`` (see
+        ``_maybe_regrow_multihost``); True when the fleet grew."""
+        alive = self._rdzv.alive_procs()
+        joins = sorted(p for p in self._rdzv.pending_joins()
+                       if p in alive and p not in set(self._proc_roster))
+        if self.n_proc > 1:
+            try:
+                joins = broadcast_object(joins)
+            except Exception as e:  # noqa: BLE001 — attributed at the next collective
+                self.logger.warning(f"elastic: the grow decision's broadcast failed ({e!r}) — "
+                                    "no grow at this boundary")
+                return False
+        if not joins:
+            return False
+        if not self.cfg.ckpt_dir:
+            self.logger.warning(
+                f"elastic: process(es) {joins} offered to join at epoch {epoch} but no "
+                "--ckpt_dir is configured — a joiner cannot adopt the replicated state; "
+                "refusing the grow")
+            return False
+        self.logger.info(f"elastic: process(es) {joins} offering to join at epoch {epoch} — "
+                         "re-rendezvousing to grow the fleet")
+        active = sorted(set(self.active_ranks) | {r for p in joins for r in self._ranks_of_proc(p)})
+        self._mh_rerendezvous(epoch, active, joining=joins)
+        for p in joins:
+            self._rdzv.clear_join(p)
+        return True
+
+    def _mh_rerendezvous(self, epoch: int, target_active: List[int], lost=(), joining=()) -> None:
+        """The shrink/grow spine (the JAX ``_mh_rerendezvous``): flush ->
+        agree -> drain and retire -> establish -> rebuild (re-shard over the
+        new world, restore) -> re-seed. Every blocking phase is bounded
+        (the state machine's timeouts, the teardown's), and a failed phase
+        degrades through ``_mh_rdzv_failed``. Shrink restores the
+        interrupted epoch's start (the flushed checkpoint of the epoch
+        before, else the snapshot); grow runs at a boundary and restores
+        the same checkpoint the joiner's engine restores. Nothing of the
+        dead world's step survives: the graphs and the combine (its flat
+        gradient buffer) are dropped before the teardown, and the
+        parameters and momentum are overwritten from the restore source.
+        The event records each phase's seconds (``phase_s``) and the wall
+        clock at the resume (``resumed_unix``: a launcher that knows when
+        the peer died reads the recovery a user sees from it;
+        ``detect_to_resume_s`` starts at the first failed collective or
+        stale beacon, after the loss)."""
+        cfg = self.cfg
+        t0 = self._detect_t0 or time.perf_counter()
+        phase_s: Dict[str, float] = {}
+        with self._trace.span("recover_mh", cat="recover"):
+            # 1. the checkpoint durable
+            if cfg.ckpt_dir:
+                flush_checkpoints(cfg.ckpt_dir)
+                heartbeat()
+            # 2. the host-side source: the interrupted epoch's start, or
+            # (grow, at a boundary) the live state
+            snap = self._epoch_snap if not joining else None
+            if snap is not None:
+                host_state, prev_active = snap["state"], list(snap["active"])
+                src = {"shares": snap["shares"], "node_times": snap["node_times"],
+                       "cost": snap["per_example_cost"]}
+                self.total_wallclock = snap["total_wallclock"]
+                self.total_probe_s = snap["total_probe_s"]
+            else:
+                host_state, prev_active = self._state_to_host(), list(self.active_ranks)
+                src = {"shares": self.shares.copy(), "node_times": self.node_times.copy(),
+                       "cost": self.per_example_cost.copy()}
+            # 3. roster consensus
+            t = time.perf_counter()
+            try:
+                agreement = self._rdzv.agree(
+                    lambda: self._rdzv.alive_procs() - self._rdzv.claimed_losses(), epoch)
+            except rdzv.RendezvousError as e:
+                self._mh_rdzv_failed(e, epoch)
+            phase_s["agree"] = time.perf_counter() - t
+            roster = list(agreement.roster)
+            # the agreed roster is authoritative: drop the ranks of a process
+            # that died during the rendezvous, admit one that raced its join
+            active = [r for r in target_active if self._proc_of_rank(r) in set(roster)]
+            for p in roster:
+                if all(self._proc_of_rank(r) != p for r in active):
+                    active.extend(self._ranks_of_proc(p))
+            active = sorted(set(active))
+            # 4. nothing of the dying world survives the teardown: its step
+            # graphs, its combine (the flat gradient buffer a staged
+            # collective may have half-written), its snapshot
+            t = time.perf_counter()
+            self.supersteps.clear()
+            self._superstep_keys = set()
+            self._rank_combine = None
+            self._epoch_snap = None
+            rdzv.drain_collective_chain(self.device, logger=self.logger, tick=heartbeat)
+            try:
+                rdzv.retire_runtime(self.mesh)
+            except rdzv.RendezvousError as e:
+                self._mh_rdzv_failed(e, epoch)
+            phase_s["teardown"] = time.perf_counter() - t
+            # 5. the new world (the payload is for joiners; survivors are
+            # replicated-deterministic and ignore it)
+            t = time.perf_counter()
+            try:
+                self._rdzv.establish(
+                    agreement,
+                    payload=({"epoch": int(agreement.epoch), "active": active}
+                             if agreement.leader else None))
+            except rdzv.RendezvousError as e:
+                self._mh_rdzv_failed(e, epoch)
+            phase_s["establish"] = time.perf_counter() - t
+            self.n_proc = len(roster)
+            self.proc_id = agreement.rank
+            self._proc_roster = roster
+            if joining:
+                # the grow's probe exchange: this process's carried costs,
+                # published before the restore barrier
+                cost = np.asarray(src["cost"])
+                self._publish_probe_costs({
+                    r: float(cost[prev_active.index(r)])
+                    for r in self._ranks_of_proc(self._orig_proc_id) if r in prev_active})
+            # 6. rebuild over the new world and restore; with several
+            # survivors the round is voted, so all adopt it or all abort
+            t = time.perf_counter()
+            try:
+                rdzv.quarantine_runtime(self.device, logger=self.logger, tick=heartbeat)
+            except rdzv.RendezvousError as e:
+                self._mh_rdzv_failed(e, epoch)
+            restored_from, ctl, rebuild_err = "epoch snapshot", None, None
+            try:
+                self._reshard_world(active, new_world=True)
+                self._state_from_host(host_state)
+                if cfg.ckpt_dir:
+                    got = restore_checkpoint(cfg.ckpt_dir, self.model, self.optimizer)
+                    if got is not None and int(got[0]) == epoch - 1:
+                        ctl = got[2]
+                        restored_from = f"checkpoint[{int(got[0])}]"
+                        self.steps_done = int(got[1]["steps"])
+                        gens = self._own_rank_state(got[1], got[1]["generators"])
+                        for name, g in self._generators().items():
+                            if name in gens:
+                                g.set_state(gens[name])
+                    elif got is not None:
+                        self.logger.warning(
+                            f"elastic: latest checkpoint is epoch {got[0]}, not {epoch - 1} — "
+                            "resuming from the epoch-start snapshot instead")
+                        self._state_from_host(host_state)
+                self._fix_comm_residual()
+                rdzv.local_canary_launch(self.device)
+            except Exception as e:  # noqa: BLE001 — voted below, then degraded
+                rebuild_err = e
+            survivors = [p for p in roster if p not in set(joining)]
+            if len(survivors) > 1:
+                try:
+                    self._rdzv.rebuild_vote(0, ok=rebuild_err is None)
+                    if not self._rdzv.rebuild_settled(survivors, 0) and rebuild_err is None:
+                        rebuild_err = rdzv.RendezvousError("world rebuild", "voted down by a peer")
+                except rdzv.RendezvousError as e:
+                    self._mh_rdzv_failed(e, epoch)
+            if rebuild_err is not None:
+                self._mh_rdzv_failed(rdzv.RendezvousError(
+                    "world rebuild", f"never settled: {rebuild_err!r}"), epoch)
+            # 7. controller seeding: the sidecar's vectors where the
+            # checkpoint was the source (the same bytes on every process),
+            # else the replicated snapshot's; restricted to the survivors
+            # or mean-filled for joiners, the shares renormalized
+            if (ctl and "shares" in ctl and ctl.get("active_ranks") is not None
+                    and len(ctl["shares"]) == len(ctl["active_ranks"])):
+                self._adopt_controller_vectors(ctl["active_ranks"], ctl["shares"],
+                                               ctl.get("node_times", ctl["shares"]))
+            else:
+                self._adopt_controller_vectors(prev_active, src["shares"], src["node_times"],
+                                               src["cost"])
+            if joining:
+                barrier()  # the restore barrier the joiners' _maybe_restore meets
+                self._collect_probe_seed()
+            for p in joining:
+                for r in self._ranks_of_proc(p):
+                    self.health.readmit(r)
+            self._sync()
+            phase_s["restore"] = time.perf_counter() - t
+            heartbeat()  # the new world answered
+            if joining and self._peer_watch is not None:
+                self._peer_watch([f"proc{p}" for p in joining])
+            self._recoveries += 1
+            self._detect_t0 = None
+            dt = time.perf_counter() - t0
+            ev = {"epoch": int(epoch), "world_size": int(self.world_size),
+                  "rdzv_gen": int(agreement.gen), "roster": [int(p) for p in roster],
+                  "detect_to_resume_s": round(dt, 4), "restored_from": restored_from,
+                  "phase_s": {k: round(v, 4) for k, v in phase_s.items()},
+                  "resumed_unix": time.time()}
+            if lost:
+                ev["lost"] = [int(r) for r in lost]
+            if joining:
+                ev["readmitted"] = [int(r) for p in joining for r in self._ranks_of_proc(p)]
+            self._elastic_events.append(ev)
+            self.recorder.meta["elastic_events"] = self._elastic_events
+            self._trace.instant("mh_recovered", cat="elastic", args=dict(ev))
+            self.logger.info(
+                f"elastic: re-rendezvous g{agreement.gen} complete — {self.world_size} workers "
+                f"over {self.n_proc} process(es) {roster}, state from {restored_from}, "
+                f"{dt:.3f}s detection to resumed training")
+
     def _maybe_readmit(self, epoch: int) -> None:
         """Readmission at the epoch boundary: workers whose rejoin boundary
         is ``epoch`` (the injector's schedule) or that signal again (health
@@ -1234,16 +1896,26 @@ class Trainer:
         step (``_probe_readmitted``), or the others' mean; the shares seed
         at the solver's equilibrium of the costs (share ∝ 1 / cost) and the
         node times at cost × share, so the next rebalance starts at its
-        fixed point."""
+        fixed point. A fleet of several processes at generation 0 grows
+        by process instead, through the rendezvous
+        (``_maybe_regrow_multihost``), even once it shrank to one."""
         cfg = self.cfg
         if cfg.elastic != "on" or cfg.elastic_readmit != "epoch":
+            return
+        if self._rdzv is not None and self._n_proc0 > 1:
+            self._maybe_regrow_multihost(epoch)
             return
         rejoin = set(self.health.recovering())
         rejoining = getattr(self.injector, "rejoining", None)
         if rejoining is not None:
             rejoin |= set(rejoining(epoch))
+        if self._n_proc0 > 1:
+            # a dead PEER's ranks re-enter by a process rejoin, never as
+            # this process's local workers
+            rejoin = {r for r in rejoin if self._proc_of_rank(r) in set(self._proc_roster)}
         down_workers = getattr(self.injector, "down_workers", None)
         down_now = set(down_workers(float(epoch))) if down_workers is not None else set()
+        down_now |= self._scan_peer_heartbeats()
         cands = sorted(r for r in rejoin if r not in self.active_ranks and r not in down_now
                        and 0 <= r < cfg.world_size)
         if not cands:
@@ -1298,20 +1970,28 @@ class Trainer:
 
     def _probe_readmitted(self, compact_rank: int) -> Optional[float]:
         """A readmitted worker's seconds an example from one standalone
-        forward/backward on the card (a warm run, then the least of 2 timed
-        runs) of the equal split's batch, ``batch_size / world_size`` rows
-        (at least ``bucket``); the dropout generator's state is put back,
-        and nothing else of the training state is touched. None under a
-        timing model (the caller seeds from the others' mean). A probe that
-        fails raises: on the card it is a kernel's failure.
+        forward/backward on the card (``_probe_cost``), its latency fed to
+        the health verdicts. None under a timing model (the caller seeds
+        from the others' mean). A probe that fails raises: on the card it
+        is a kernel's failure."""
+        if self.timing_model is not None:
+            return None
+        dt, rows = self._probe_cost()
+        self.health.observe_latency(self.active_ranks[compact_rank], dt)
+        return max(dt, 1e-9) / rows  # an example: a column for the LM
+
+    def _probe_cost(self) -> "tuple[float, int]":
+        """One standalone forward/backward (a warm run, then the least of 2
+        timed runs) of the equal split's batch, ``batch_size /
+        world_size`` rows (at least ``bucket``): ``(seconds, rows)``. The
+        dropout generator's state is put back, and nothing else of the
+        training state is touched.
 
         The JAX package probes ``bucket`` rows. Every worker of this port
         shares one card, where a step of 16 rows is bound by its launches,
         not its rows: its cost an example read 5-8x the others' on an
         H100 and seeded a share of 0.05, which the inverse-time solver then
         held (the small batch kept its step slow; ``PERF.md`` §6)."""
-        if self.timing_model is not None:
-            return None
         batch = self._dummy_batch(max(self.cfg.bucket, self.cfg.batch_size // self.world_size, 1))
         state = self.dropout_gen.get_state()
         try:
@@ -1326,8 +2006,57 @@ class Trainer:
                 dt = min(dt, time.perf_counter() - t0)
         finally:
             self.dropout_gen.set_state(state)
-        self.health.observe_latency(self.active_ranks[compact_rank], dt)
-        return max(dt, 1e-9) / int(batch[0].shape[0])  # an example: a column for the LM
+        return dt, int(batch[0].shape[0])
+
+    def _probe_local_cost(self, r: int) -> Optional[float]:
+        """Seconds an example of this process's own original worker ``r``
+        (the JAX ``_probe_local_cost``): one probe on this process's device,
+        no collective. None under a timing model or for a rank this process
+        does not own: the exchange then publishes nothing for it."""
+        if self.timing_model is not None or self._proc_of_rank(r) != self._orig_proc_id:
+            return None
+        dt, rows = self._probe_cost()
+        return max(dt, 1e-9) / rows
+
+    def _publish_probe_costs(self, costs: Dict[int, float]) -> None:
+        """This process's finite positive per-rank costs into the grow
+        rendezvous's probe exchange (``RendezvousStateMachine
+        .publish_probe``); an empty publication is deliberate: peers must
+        not wait on a process that measured nothing."""
+        if self._rdzv is None:
+            return
+        self._rdzv.publish_probe({int(r): float(c) for r, c in costs.items()
+                                  if np.isfinite(c) and float(c) > 0.0})
+
+    def _collect_probe_seed(self) -> bool:
+        """The grow's share seeding (the JAX ``_collect_probe_seed``): every
+        roster member's publication read, the shares seeded at the
+        equilibrium of the union and the node times at cost × share; a pure
+        function of the files, so survivors and joiners derive the same
+        vectors. False (the sidecar's mean-fill seed stands, alike on every
+        process) when a member's file misses the bounded window or a
+        worker's cost stays unknown."""
+        if self._rdzv is None:
+            return False
+        merged = self._rdzv.collect_probes(self._proc_roster)
+        if merged is None:
+            self.logger.warning("elastic: probe exchange incomplete — keeping the "
+                                "survivor-mean seed for joined workers")
+            return False
+        cost = np.full(self.world_size, np.nan)
+        for i, r in enumerate(self.active_ranks):
+            c = merged.get(int(r))
+            if c is not None and np.isfinite(c) and c > 0.0:
+                cost[i] = c
+        if not np.isfinite(cost).all():
+            return False
+        self.per_example_cost = cost
+        self.shares = equilibrium_shares(cost)
+        self.node_times = np.maximum(cost * self.shares, 1e-9)
+        self.logger.info(f"elastic: probe exchange seeded equilibrium shares "
+                         f"{np.round(self.shares, 4).tolist()} over "
+                         f"{len(self._proc_roster)} process(es)")
+        return True
 
     # ----------------------------------------------------------------- epoch
 

@@ -7,11 +7,12 @@ to run as ``auto``, ``packed="bogus"`` as ``auto``, ``superstep_window=0``
 as 1). Pairs of bad values show that the checks run in the JAX package's
 order: the first failing check names the same flag on both sides.
 
-More than one process (``num_processes`` / ``process_id``) is accepted, and
-what the port does not run across processes (``--elastic``) raises
-``NotImplementedError`` naming its flag. The flags the slices ported (``trace``, ``trace_spool``,
-``ckpt_dir``, ``profile_dir``, ``fused_dbs``, ``coordinator``,
-``grad_comm``, ``remat``, ...) are accepted; the flags that stay refused still raise naming themselves.
+More than one process (``num_processes`` / ``process_id``) is accepted,
+``--elastic`` across processes too (it was refused until its tier was
+ported; those cases now hold the port to the JAX ``Config``). The flags the
+slices ported (``trace``, ``trace_spool``, ``ckpt_dir``, ``profile_dir``,
+``fused_dbs``, ``coordinator``, ``grad_comm``, ``remat``, ``elastic``, ...)
+are accepted; the flags that stay refused still raise naming themselves.
 """
 
 import pytest
@@ -107,8 +108,8 @@ def test_good_values_are_accepted_by_both(ok):
 def test_more_than_one_process_raises_naming_the_flag(flag, value):
     """Several processes run the vision loop and the language model, with
     checkpoints and ``--rebalance window`` (at epoch cadence, as the JAX
-    trainer runs it there); what stays one-process (``--elastic``) raises
-    naming its flag."""
+    trainer runs it there) and ``--elastic on`` (refused here until the
+    elastic tier across processes was ported; accepted by both now)."""
     procs = {"num_processes": value} if flag == "num_processes" else {
         "num_processes": 4, "process_id": value}
     Config(**dict(BASE, **procs))
@@ -117,10 +118,10 @@ def test_more_than_one_process_raises_naming_the_flag(flag, value):
                    {"rebalance": "window"}, {"ckpt_dir": "ck"}):
         JaxConfig(**dict(BASE, **procs, **lifted))
         Config(**dict(BASE, **procs, **lifted))
-    for refused in ({"elastic": "on"}, {"elastic": "on", "model": "transformer",
-                                        "dataset": "wikitext2"}):
-        with pytest.raises(NotImplementedError, match=f"--{next(iter(refused))}"):
-            Config(**dict(BASE, **procs, **refused))
+    for lifted in ({"elastic": "on"}, {"elastic": "on", "model": "transformer",
+                                       "dataset": "wikitext2"}):
+        JaxConfig(**dict(BASE, **procs, **lifted))
+        Config(**dict(BASE, **procs, **lifted))
 
 
 @pytest.mark.parametrize("override", [
@@ -134,6 +135,8 @@ def test_more_than_one_process_raises_naming_the_flag(flag, value):
     {"elastic": "on", "grad_comm": "hier", "dcn_bandwidth_probe": True, "num_processes": 4},
 ])
 def test_flags_that_stay_refused_raise_beside_the_ported_ones(override):
-    flag = next(iter(override))
-    with pytest.raises(NotImplementedError, match=f"--{flag}"):
-        Config(**dict(BASE, **override))
+    """``--elastic`` across processes beside the flags it combines with:
+    refused until its tier was ported, now accepted as the JAX ``Config``
+    accepts it."""
+    JaxConfig(**dict(BASE, **override))
+    Config(**dict(BASE, **override))

@@ -4,20 +4,20 @@ package's checks of them, on the port's ``Config`` beside the JAX one.
 - Each lifted flag (``fused_dbs``, ``shard_update``, ``compress_grads``,
   ``grad_accum``, ``coordinator``, ``num_processes``, ``process_id``;
   ``--rebalance window`` and ``--ckpt_dir`` across processes; ``--elastic``
-  in one process) is accepted where the JAX ``Config`` accepts it.
+  in one process and across processes) is accepted where the JAX
+  ``Config`` accepts it.
 - The JAX package's checks (``compress_grads`` and ``grad_accum`` ride a
   fused path) raise the JAX exception type and message.
 - The language model across processes and on its fused paths
   (``--fused_dbs``, ``--shard_update``, ``--grad_accum``,
   ``--compress_grads``, ``--grad_comm hier``) and ``--seq_parallel`` are
   accepted by both.
-- What stays refused raises ``NotImplementedError`` naming its flag (also
-  beside ``--grad_comm hier`` and ``--remat``, which run): ``--rebalance
-  window`` for the language model in one process, ``--elastic`` across
-  processes, a ``-gpu``
+- What stays refused raises ``NotImplementedError`` naming its flag:
+  ``--rebalance window`` for the language model in one process, a ``-gpu``
   slice naming several devices in one process (the message points to the
   multi-process flags) and ``--coordinator`` without the process count and
-  id.
+  id. ``--elastic`` across processes (also beside ``--seq_parallel`` and
+  ``--remat``) is accepted, as the JAX ``Config`` accepts it.
 - The engine's runtime gate (the JAX ``_dispatch_epoch``'s) raises the JAX
   message when ``--grad_accum`` or ``--compress_grads`` meets a plan that
   fell back to the elastic path; an asymmetric ``-gpu`` map across
@@ -92,6 +92,14 @@ def test_the_jax_fused_path_checks_raise_the_jax_message(bad):
     ({"elastic": "on", "remat": True, "num_processes": 2}, "--elastic"),
 ])
 def test_refusals_raise_naming_the_flag(override, flag):
+    """The ``--elastic`` cases were refusals until the elastic tier across
+    processes was ported (``runtime/rendezvous.py``); they now hold the
+    port to the JAX ``Config``, which accepts them (its sequence-parallel
+    trainer reads no ``--elastic``)."""
+    if flag == "--elastic":
+        JaxConfig(**dict(BASE, **override))
+        Config(**dict(BASE, **override))
+        return
     with pytest.raises(NotImplementedError, match=flag):
         Config(**dict(BASE, **override))
 

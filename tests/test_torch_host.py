@@ -81,7 +81,8 @@ def test_unported_settings_raise_naming_the_flag(override):
 @pytest.mark.parametrize("override", [
     # across processes the JAX trainer runs --rebalance window at epoch
     # cadence and checkpoints every rank's state; --elastic runs in one
-    # process, beside every flag the JAX trainers combine it with there
+    # process and across processes, beside every flag the JAX trainers
+    # combine it with
     {"num_processes": 2, **LM, "rebalance": "window"},
     {"ckpt_dir": "ck", **LM, "num_processes": 2},
     {"elastic": "on", "grad_comm": "hier"},

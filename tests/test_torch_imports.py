@@ -51,10 +51,12 @@ def test_importing_the_whole_port_loads_no_jax():
 
 def test_the_import_checks_cover_the_multi_rank_modules():
     """The two checks above walk every module; the data-parallel ones
-    (``parallel/``, ``train/combine.py``) are among them."""
+    (``parallel/``, ``train/combine.py``) and the elastic tier across
+    processes (``runtime/watchdog.py``, ``runtime/rendezvous.py``) are
+    among them."""
     mods = set(_modules())
     for name in ("parallel.mesh", "parallel.topology", "parallel.wire", "parallel.prng",
-                 "train.combine"):
+                 "train.combine", "runtime.watchdog", "runtime.rendezvous"):
         assert f"{port.__name__}.{name}" in mods, name
 
 

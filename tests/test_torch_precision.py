@@ -483,7 +483,8 @@ STILL_UNPORTED = [
     {"coordinator": "localhost:1"}, {"process_id": 1}, {"rebalance": "window", **_LM},
 ]
 # the language model's fused paths and ranks, sequence parallelism,
-# --elastic in one process and checkpoints across processes
+# --elastic in one process and across processes, and checkpoints across
+# processes
 LIFTED = [
     {"elastic": "on", "grad_comm": "hier", "hier_hosts": 2}, {"elastic": "on"},
     {"ckpt_dir": "ck", "num_processes": 2},
@@ -491,7 +492,7 @@ LIFTED = [
     {"compress_grads": "int8", **_LM, "dynamic_batch_size": False},
     {"grad_accum": 2, **_LM, "dynamic_batch_size": False}, {"num_processes": 2, **_LM},
     {"seq_parallel": "ring", **_LM}, {"seq_parallel": "ring", "remat": True, **_LM},
-    {"seq_parallel": "ulysses", **_LM},
+    {"seq_parallel": "ulysses", **_LM}, {"elastic": "on", "num_processes": 2},
 ]
 
 
