@@ -145,7 +145,7 @@ phase runs.
    straggler's compute-mode load, DenseNet-121 packed (b = 512), and the
    LM with dropout (the replays draw the eager masks). (iii) ``--superstep
    auto`` against ``off`` on [4b]'s, [5]'s and [4f]'s packed recipes cut to
-   1 epoch (the DenseNet-121 ones to 2,048 examples): each arm's epoch (walls, captures, dispatches against the windows, host
+   1 epoch (the DenseNet-121 ones to 1,024 examples): each arm's epoch (walls, captures, dispatches against the windows, host
    dispatch seconds, peak memory), then steady passes over one plan,
    one off and one auto, and one profiled pass each for the
    busy share.
@@ -189,7 +189,7 @@ phase runs.
    peak statistics) and run every arm in turn; each arm is the cli on
    ``<flags> --num_processes 2 --process_id <i>``. [7]: ``-m densenet -ds
    cifar10 -ws 2 -b 512 -gpu 0,0 --straggler 3,1 --fault_mode virtual -e 2
-   --n_train 4096`` (DenseNet-121 at its published width, B = 512 over two
+   --n_train 2048`` (DenseNet-121 at its published width, B = 512 over two
    ranks) in three arms: (a) the default DBS path (window-mode elastic
    epochs), (b) ``--fused_dbs true``, (c) ``-dbs false --grad_accum 2
    --compress_grads int8 --shard_update true`` (the fused path, ZeRO-1 on
@@ -232,7 +232,7 @@ phase runs.
    ``use_flash=False`` (atol 2e-5 forward, 5e-4 gradients).
 7b. ``--grad_comm hier`` across four ranks on ``cuda:0`` over gloo, started
    once for every arm (``-m densenet -ds cifar10 -ws 4 -b 512 -gpu 0,0,0,0
-   --straggler 3,1,1,1 -e 2 --n_train 4096 --grad_comm hier --hier_hosts
+   --straggler 3,1,1,1 -e 2 --n_train 2048 --grad_comm hier --hier_hosts
    2``: the tree (2, 2) on a synthetic two-host split), three arms: (a) the
    default wires (int8 on the outer hop, fp32 inside), DBS on; (b)
    ``--grad_comm_wires int4,fp32 --shard_update true`` (ZeRO-1 on the
@@ -277,8 +277,31 @@ phase runs.
    ``teardown``, ``establish``, ``restore``), the grow's seconds and the
    phase's walls. It runs after [7b].
 
-Every phase's seconds (each header to the next) and each rank phase's
-seconds inside its launch are printed before the JSON lines.
+9. The many-stream engine (``runtime/scheduler.py``), cuDNN deterministic.
+   (a) Two DenseNet-121 tenants at the published width on ``cuda:0``, 2 of
+   4 slots each: A ``-ws 2 -b 512 --straggler 3,1 --fault_mode virtual
+   --packed off --n_train 2048``, 2 epochs, DBS under a timing model (its
+   partitions fixed); B the same model with ``-dbs false --seed 77``
+   (packed), 3 epochs. Each alone through ``Trainer.run()``, then both
+   through one ``MultiStreamEngine(n_devices=4, device="cuda")``, each on
+   its own thread and stream. Checks: both done, no migration; each
+   tenant's losses, partitions and parameters (SHA-256) equal its run alone
+   bit for bit; B captures nothing from window 2 on; A moves share off
+   worker 0; K1 (tiled route only) and K2 launched on each tenant's
+   streams; A captures new keys in window 1 while B replays, and none of
+   those captures overlaps B's epoch (``train/supersteps.py``
+   ``CAPTURE_GATE``). Printed: both arms' walls and their ratio, each
+   tenant's epoch walls in both and its makespan, ``stats()`` (its
+   ``device_idle_fraction`` is the pool's slots' idle share), the peak
+   memory, the card. (b) The JAX ``tests/test_scheduler.py`` heavy/light
+   migration: MnistNet ``-ws 8 -b 64 -dbs false``, two tenants over 8
+   slots, epoch walls modeled as demand / slots (24 : 8), 3 epochs. Checks:
+   both done, each migrated, the last window 6:2, a fresh capture and a
+   finite loss after every re-shard. Printed: each re-shard's seconds.
+
+Every phase's seconds (each header to the next, a phase's sub-phases
+summed) and each rank phase's seconds inside its launch are printed before
+the JSON lines.
 
 The last two lines are the kernels' JSON record (launches summed over every
 path of this process; the ranks of [7]-[8] report their own) and the result line. Full tables go
@@ -306,6 +329,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.obs.kernel_timing import (
     cuda_ms,
     device_ms,
     gn_work,
+    kernel_us,
     timed,
     xent_inputs,
     xent_yardsticks,
@@ -371,9 +395,10 @@ LM_LONG_ARGV = LM_ARGV[:LM_ARGV.index("--bptt") + 1] + ["256"] + LM_ARGV[LM_ARGV
 LM_LONG_STEPS = 11
 
 
-# 2 epochs (3 until the tree's phase [7b] joined: the script's time)
+# 2 epochs (3 until the tree's phase [7b] joined) of 2,048 examples (4,096
+# until [9] joined): the script's time
 DIST_ARGV = ("-m densenet -ds cifar10 -ws 2 -b 512 -gpu 0,0 --straggler 3,1 "
-             "--fault_mode virtual -e 2 --n_train 4096").split()
+             "--fault_mode virtual -e 2 --n_train 2048").split()
 DIST_ARMS = (
     ("a", "the default DBS path (window-mode elastic epochs)", []),
     ("b", "--fused_dbs true", ["--fused_dbs", "true"]),
@@ -384,8 +409,9 @@ DIST_RANKS = 2
 DIST_SHARE_MAX = 0.40
 # [7b]: four ranks on cuda:0 over gloo, DenseNet-121 at its published width,
 # --grad_comm hier on a synthetic two-host split (the tree (2, 2)), 2 epochs
+# of 2,048 examples (4,096 until [9] joined: the script's time)
 HIER_ARGV = ("-m densenet -ds cifar10 -ws 4 -b 512 -gpu 0,0,0,0 --straggler 3,1,1,1 "
-             "--fault_mode virtual -e 2 --n_train 4096 --grad_comm hier --hier_hosts 2").split()
+             "--fault_mode virtual -e 2 --n_train 2048 --grad_comm hier --hier_hosts 2").split()
 HIER_ARMS = (
     ("a", "the default wires (int8 outer hop, fp32 inner), DBS on", []),
     ("b", "--grad_comm_wires int4,fp32 --shard_update true",
@@ -433,6 +459,23 @@ MH_ENV = {"DBS_MH_DEVICE": "cuda", "DBS_MH_MODEL": "densenet", "DBS_MH_DATASET":
           "DBS_MH_STEP_MARKER": "1:1:2",
           "DBS_PEER_HB_PERIOD_S": "0.2", "DBS_PEER_HB_STALE_S": "2.0", "DBS_RDZV_TIMEOUT_S": "120"}
 MH_TIMEOUT_S = 400
+# [9]: the many-stream engine (runtime/scheduler.py). (a) two DenseNet-121
+# tenants at the published width on cuda:0 over a 4-slot pool, 2 slots
+# each: A is [4]'s recipe halved (3:1 virtual straggler, DBS, the partitions
+# fixed by a timing model) on the elastic path, whose step keys follow the
+# workers' widths, so A captures new keys in epoch 1 while B, the same model
+# with DBS off and another seed on the packed path (the defaults), replays;
+# A 2 epochs, B 3 (window 2 then shows B's steady window; the script's time)
+MS_A_ARGV = ("-m densenet -ds cifar10 -d false -ws 2 -b 512 -gpu 0,0 --straggler 3,1 "
+             "--fault_mode virtual -e 2 --n_train 2048 --superstep auto --packed off").split()
+MS_B_ARGV = MS_A_ARGV[:MS_A_ARGV.index("--straggler")] + (
+    "-dbs false --seed 77 -e 3 --n_train 2048 --superstep auto").split()
+MS_SLOTS, MS_TENANT_SLOTS = 4, {"a": (0, 1), "b": (2, 3)}
+# (b) tests/test_scheduler.py's heavy/light migration: MnistNet, 8 ranks a
+# tenant over an 8-slot pool, modeled epoch walls demand / slots (24 : 8)
+MS_MIGRATE_ARGV = "-m mnistnet -ds mnist -d true -ws 8 -b 64 -dbs false -e 3 --n_train 1024".split()
+MS_DEMAND = {"heavy": 24.0, "light": 8.0}
+MS_MIGRATE_SEEDS = {"heavy": 11, "light": 22}
 
 
 def with_epochs(argv, epochs: int):
@@ -568,36 +611,43 @@ def log(*a):
     print(*a, flush=True)
 
 
+_GN_CALLS = {}  # (family, batch): its GroupNorm calls, read once
+
+
 def model_gn_shapes(torch, dev, name: str, b: int, with_relu: bool = False, dtype=None):
     """The ``(B, S, C, groups)`` of every GroupNorm call in one forward of
     ``-m name`` at batch ``b`` (``with_relu``: ``(B, S, C, groups, relu)``),
-    read off the model with forward hooks, and how many of them ``plan``
-    sends to the general route (forward and backward) on ``dtype``
-    activations (f32 unless given). DenseNet-121's are checked against
-    ``gn_shapes``."""
+    read off the model with forward hooks (once a family and batch), and how
+    many of them ``plan`` sends to the general route (forward and backward)
+    on ``dtype`` activations (f32 unless given). DenseNet-121's are checked
+    against ``gn_shapes``."""
     from dynamic_load_balance_distributeddnn_tpu_torch.models import build_model
     from dynamic_load_balance_distributeddnn_tpu_torch.models.common import GroupNorm
     from dynamic_load_balance_distributeddnn_tpu_torch.models.densenet import gn_shapes
     from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels.groupnorm import plan
 
-    model = build_model(name).to(dev, memory_format=torch.channels_last)
-    shapes = []
+    calls = _GN_CALLS.get((name, b))
+    if calls is None:
+        model = build_model(name).to(dev, memory_format=torch.channels_last)
+        calls = []
 
-    def hook(m, inp, out):
-        n, c, h, w = inp[0].shape
-        shapes.append((n, h * w, c, m.num_groups) + ((m.relu,) if with_relu else ()))
+        def hook(m, inp, out):
+            n, c, h, w = inp[0].shape
+            calls.append((n, h * w, c, m.num_groups, m.relu))
 
-    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, GroupNorm)]
-    with torch.no_grad():
-        model(torch.zeros(b, 32, 32, 3, device=dev))
-    for h in handles:
-        h.remove()
-    del model
-    torch.cuda.empty_cache()
-    if name == "densenet":
-        assert len(shapes) == GN_PER_FORWARD, len(shapes)
-        assert [sh[:3] for sh in shapes] == gn_shapes(b, (6, 12, 24, 16), 32), \
-            "models/densenet.py gn_shapes is off"
+        handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, GroupNorm)]
+        with torch.no_grad():
+            model(torch.zeros(b, 32, 32, 3, device=dev))
+        for h in handles:
+            h.remove()
+        del model
+        torch.cuda.empty_cache()
+        if name == "densenet":
+            assert len(calls) == GN_PER_FORWARD, len(calls)
+            assert [sh[:3] for sh in calls] == gn_shapes(b, (6, 12, 24, 16), 32), \
+                "models/densenet.py gn_shapes is off"
+        _GN_CALLS[(name, b)] = calls
+    shapes = list(calls) if with_relu else [sh[:4] for sh in calls]
     general = sum(plan(bb, ss, c, g, dtype or torch.float32, back).route == "general"
                   for bb, ss, c, g, *_ in shapes for back in (False, True))
     return shapes, general
@@ -1687,12 +1737,13 @@ def check_lm_against_cpu(torch, dev):
 # pass each
 SUPERSTEP_ELASTIC_WIDTHS, SUPERSTEP_LOAD_ITERS = (32, 160, 160, 160), 300
 SUPERSTEP_LM_COLS = 20
-# 1 epoch each, the DenseNet-121 recipes at 2,048 examples (2 epochs of
-# 4,096 until [4j] and [7b] joined: the script's time)
+# 1 epoch each, the DenseNet-121 recipes at 1,024 examples (2 epochs of
+# 4,096 until [4j] and [7b] joined, 2,048 until [9] joined: the script's
+# time)
 SUPERSTEP_ARMS = tuple((name, with_epochs(argv, 1)) for name, argv in (
-    ("densenet elastic, compute-mode straggler", with_n_train(COMPUTE_ARGV, 2048)),
+    ("densenet elastic, compute-mode straggler", with_n_train(COMPUTE_ARGV, 1024)),
     ("language model", LM_ARGV),
-    ("densenet packed, bf16", with_n_train(BF16_ARGV, 2048))))
+    ("densenet packed, bf16", with_n_train(BF16_ARGV, 1024))))
 # [4]'s and [4f]'s packed cli peaks with eager steps, before step graphs
 # (NVIDIA H100 80GB HBM3, 700 W), printed beside each arm's peak
 EAGER_PEAK_GIB = "19.17 GiB ([4], f32 packed) / 9.69 GiB ([4f], bf16 packed)"
@@ -2177,12 +2228,7 @@ def run_superstep_arms(torch, dev):
         for mode in ("auto", "off"):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 train_pass(mode)
-            dev_us = 0.0
-            for ev in prof.key_averages():
-                us = getattr(ev, "self_device_time_total", None)
-                us = us if us is not None else getattr(ev, "self_cuda_time_total", 0.0)
-                if us and ev.device_type == torch.autograd.DeviceType.CUDA:
-                    dev_us += us
+            dev_us = sum(us for us, _ in kernel_us(prof).values())
             res[mode]["device_s"] = dev_us / 1e6
             res[mode]["busy"] = dev_us / 1e6 / statistics.median(p["wall_s"] for p in res[mode]["passes"])
         for mode in ("auto", "off"):
@@ -2478,6 +2524,7 @@ def time_kernels(torch, dev):
             # bf16 needs C in whole 8-element vectors: every family's C is
             assert dtype == torch.float32 or general == 0, f"{what}: {general} general-route launches"
     shapes = model_gn_shapes(torch, dev, "densenet", GN_LINE_BATCH)[0]
+    t0 = time.perf_counter()
     gt = {b: time_groupnorm(torch, dev, [(b,) + sh[1:] for sh in shapes]) for b in GN_BATCHES}
     # one packed step's pass at b = 512: DenseNet-121's (ResNet-101's too
     # until [4j] and [7b] joined: the script's time)
@@ -2489,8 +2536,11 @@ def time_kernels(torch, dev):
                                  general=False, dtype=torch.bfloat16)
             for name in ("densenet",)}
     timing = dict(gt[GN_LINE_BATCH])
+    t1 = time.perf_counter()
     xt = time_xent(torch, dev)
+    t2 = time.perf_counter()
     at = time_flash(torch, dev)
+    log(f"  timing seconds: K1 {t1 - t0:.1f}, K2 {t2 - t1:.1f}, K3 {time.perf_counter() - t2:.1f}")
     # the JSON line's K2 and short-route K3 rows are at the language model's
     # shapes, the tiled K3 rows at the long-context shape they now serve
     timing.update(xt[XENT_LM_SHAPE])
@@ -3032,8 +3082,238 @@ def check_elastic_ranks():
     return {"survivor": r0, "joiner": rj, "parity": pr, "wall": wall, "parity_s": parity_s}
 
 
+def ms_linear_time(plan):
+    """[9] tenant A's timing model: a worker's seconds proportional to its
+    padded batch times its steps (the virtual straggler multiplies it)."""
+    import numpy as np
+
+    return np.array([w.padded_batch * w.steps * 1e-3 for w in plan.workers])
+
+
+def ms_config(argv, tag):
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
+
+    run_dir = os.path.join(OUT, "multistream", tag)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return config_from_args(argv + ["--log_dir", os.path.join(run_dir, "logs"),
+                                    "--stat_dir", os.path.join(run_dir, "statis"),
+                                    "--trace_dir", os.path.join(run_dir, "trace")])
+
+
+def param_sha(torch, tr) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in tr.params:
+        h.update(p.detach().to("cpu").contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tenant_series(tr):
+    return dict(tr.recorder.data, _meta=tr.recorder.meta)
+
+
+def ms_tenants(torch, paths):
+    """[9](a): tenants A and B each alone through ``Trainer.run()`` (the
+    sequential arm), then both through one ``MultiStreamEngine(n_devices=4,
+    device="cuda")``, each on its own thread and stream (the multiplexed
+    arm), cuDNN deterministic. Checks: both done with no migration; each
+    tenant's losses, partitions and parameters (SHA-256) equal its run alone
+    bit for bit; B captures no step graph from window 2 on; A moves share
+    off worker 0; K1 (tiled route only) and K2 launched on each tenant's
+    streams; A captures new keys in window 1 while B replays its one key,
+    and none of those captures overlaps B's epoch (the capture gate,
+    ``train/supersteps.py``). Logs both arms' walls and their
+    ratio, each tenant's makespan, ``stats()`` and the peak memory."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.obs.trace import configure, get_tracer
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+    from dynamic_load_balance_distributeddnn_tpu_torch.runtime.scheduler import (
+        JobSpec,
+        MultiStreamEngine,
+    )
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+
+    argv = {"a": MS_A_ARGV, "b": MS_B_ARGV}
+    timing = {"a": ms_linear_time, "b": None}
+    alone = {}
+    t_seq = 0.0
+    for name in ("a", "b"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        tr = Trainer(ms_config(argv[name], "alone_" + name), timing_model=timing[name],
+                     log_to_file=False)
+        tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t_seq += wall
+        counts = dict(runtime.LAUNCHES)
+        alone[name] = {"loss": tr.recorder.data["train_loss"],
+                       "partition": tr.recorder.data["partition"], "sha": param_sha(torch, tr)}
+        paths[f"multistream_alone_{name}"] = (counts, tenant_series(tr), wall,
+                                              torch.cuda.max_memory_allocated())
+        log(f"  ({name}) alone: {' '.join(argv[name])}: wall {wall:.1f}s, train loss "
+            f"{[round(x, 6) for x in alone[name]['loss']]}, partition {alone[name]['partition']}")
+        del tr
+        gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    configure("on")
+    try:
+        t0 = time.perf_counter()
+        eng = MultiStreamEngine(n_devices=MS_SLOTS, device="cuda")
+        states = {name: eng.submit(JobSpec(name, ms_config(argv[name], "ms_" + name),
+                                           timing_model=timing[name], max_devices=2,
+                                           slots=MS_TENANT_SLOTS[name]))
+                  for name in ("a", "b")}
+        eng.run()
+        torch.cuda.synchronize()
+        t_ms = time.perf_counter() - t0
+        events = get_tracer().events()
+    finally:
+        configure("off")
+    peak = torch.cuda.max_memory_allocated()
+    total = dict(runtime.LAUNCHES)
+    # a tenant's launches: its stream's (steps, replays, probes, validation,
+    # the backward's from autograd's thread) and its capture stream's (warm-ups)
+    per_tenant = {name: {k: sum(runtime.LAUNCHES.of(("stream", s.cuda_stream))[k]
+                                for s in (js.stream, js.trainer.supersteps.side_stream()))
+                         for k in runtime.KERNELS}
+                  for name, js in states.items()}
+    series = {name: tenant_series(js.trainer) for name, js in states.items()}
+    for name, js in states.items():
+        data, meta = js.recorder.data, js.recorder.meta
+        walls = [[round(w, 3) for w in epoch_walls(x)]
+                 for x in (paths[f"multistream_alone_{name}"][1], series[name])]
+        log(f"  ({name}) epoch walls alone {walls[0]} s, multiplexed {walls[1]} s (probes and "
+            "validation excluded)")
+        assert js.status == "done" and js.migrations == 0, (name, js.status, js.migrations)
+        assert data["train_loss"] == alone[name]["loss"], (name, data["train_loss"], alone[name])
+        assert data["partition"] == alone[name]["partition"], (name, data["partition"])
+        sha = param_sha(torch, js.trainer)
+        assert sha == alone[name]["sha"], f"tenant {name}: parameters differ from its run alone"
+        counts = per_tenant[name]
+        for k in CNN_KERNELS:
+            assert counts[k] > 0, f"tenant {name}: kernel {k} never launched"
+        for k in GN_GENERAL:
+            assert counts[k] == 0, f"tenant {name}: {k} launched {counts[k]} times"
+        assert all(math.isfinite(x) for x in data["train_loss"] + data["val_loss"]), data
+        log(f"  ({name}) multiplexed: train loss, partitions and parameters (SHA-256 "
+            f"{sha[:16]}) equal its run alone; its streams' launches "
+            f"{ {k: counts[k] for k in CNN_KERNELS} }; captures an epoch "
+            f"{[r['captures'] for r in meta['supersteps']]}, replays "
+            f"{[r['replays'] for r in meta['supersteps']]}")
+    assert all(r["captures"] == 0 for r in states["b"].recorder.meta["supersteps"][2:]), \
+        states["b"].recorder.meta["supersteps"]
+    part_a = states["a"].recorder.data["partition"]
+    assert part_a[-1][0] < 0.5, part_a
+    assert total == {k: sum(c[k] for c in per_tenant.values()) for k in total}, (total, per_tenant)
+
+    def spans(name, job, epoch):
+        return [(ts, ts + dur) for n, _, ph, ts, dur, _, args in events
+                if n == name and ph == "X" and (args or {}).get("job") == job
+                and (args or {}).get("epoch") == epoch]
+
+    # in window 1 A captures the keys of its new widths while B replays its
+    # one key: each capture holds the gate alone (train/supersteps.py
+    # CAPTURE_GATE), so none overlaps B's epoch, which captures nothing
+    rec_a, rec_b = (states[n].recorder.meta["supersteps"][1] for n in ("a", "b"))
+    assert rec_a["captures"] > 0 and rec_b["captures"] == 0 and rec_b["replays"] > 0, (rec_a, rec_b)
+    (b0, b1), = spans("epoch", "b", 1)
+    clash = [c for c in spans("capture", "a", 1) if b0 < c[1] and c[0] < b1]
+    assert not clash, f"a capture of tenant a overlapped tenant b's epoch 1 {(b0, b1)}: {clash}"
+    waits = {n: [round(r["capture_wait_s"], 3) for r in js.recorder.meta["supersteps"]]
+             for n, js in states.items()}
+    st = eng.stats()
+    log(f"  sequential arm {t_seq:.1f}s, multiplexed arm {t_ms:.1f}s: ratio multiplexed / "
+        f"sequential {t_ms / t_seq:.3f} (a finding, not a claim); makespans "
+        f"{ {n: round(js.makespan_s, 2) for n, js in states.items()} } s")
+    log(f"  A captured {rec_a['captures']} keys in window 1 while B replayed, none inside B's epoch; "
+        f"seconds the captures waited for the gate, by epoch {waits}; "
+        f"peak device memory {peak / 2**30:.2f} GiB (both tenants)")
+    log(f"  stats(): {st['windows']} windows, {st['window_wall_s']:.2f}s of windows; "
+        f"device_idle_fraction {st['device_idle_fraction']} (the idle share of the pool's "
+        f"{MS_SLOTS} SLOTS, which share one card: not the card's busy share); jobs {st['jobs']}")
+    log(f"  {card()}")
+    paths["multistream"] = (total, series, t_ms, peak)
+    out = {"sequential_s": t_seq, "multiplexed_s": t_ms, "ratio": t_ms / t_seq, "stats": st,
+           "peak_bytes": peak, "capture_wait_s": waits,
+           "per_tenant_launches": per_tenant}
+    del eng, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ms_migration(torch, paths):
+    """[9](b): tests/test_scheduler.py's heavy/light scenario on the card:
+    MnistNet ``-ws 8 -b 64 -dbs false``, two tenants over an 8-slot pool,
+    epoch walls modeled as demand / slots (24 : 8), 3 epochs each. Checks:
+    both done; each migrated at least once; the last window splits 6:2;
+    every re-shard of live CUDA state is followed by a fresh capture in the
+    tenant's next epoch, and finite losses. Logs each re-shard's seconds
+    (its ``pool_reshard`` span)."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.obs.trace import configure, get_tracer
+    from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+    from dynamic_load_balance_distributeddnn_tpu_torch.runtime.scheduler import (
+        JobSpec,
+        MultiStreamEngine,
+    )
+
+    reshards = []
+
+    class Engine(MultiStreamEngine):
+        def _apply_allotment(self, js, ordinals):
+            before = list(js.trainer.active_ranks)
+            super()._apply_allotment(js, ordinals)
+            if list(js.trainer.active_ranks) != before:
+                reshards.append((self._window, js.spec.job_id, len(before),
+                                 len(js.trainer.active_ranks)))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    configure("on")
+    try:
+        t0 = time.perf_counter()
+        eng = Engine(n_devices=8, device="cuda",
+                     wall_model=lambda js: MS_DEMAND[js.spec.job_id] / max(len(js.devices), 1))
+        states = {name: eng.submit(JobSpec(
+            name, ms_config(MS_MIGRATE_ARGV + ["--seed", str(seed)], "migrate_" + name),
+            epochs=3)) for name, seed in MS_MIGRATE_SEEDS.items()}
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = get_tracer().events()
+    finally:
+        configure("off")
+    assert {js.status for js in states.values()} == {"done"}, {n: js.status for n, js in states.items()}
+    assert all(js.migrations >= 1 for js in states.values()), {n: js.migrations for n, js in states.items()}
+    final = eng.windows[-1]["jobs"]
+    assert (final["heavy"]["devices"], final["light"]["devices"]) == (6, 2), final
+    for window, name, n0, n1 in reshards:
+        meta, data = states[name].recorder.meta, states[name].recorder.data
+        rec = meta["supersteps"][window]
+        assert rec["epoch"] == window and rec["captures"] > 0, (name, window, rec)
+        assert math.isfinite(data["train_loss"][window]), (name, data["train_loss"])
+    secs = [round(dur / 1e6, 4) for n, _, ph, _, dur, _, _ in events if n == "pool_reshard" and ph == "X"]
+    log(f"  re-shards (window, job, ranks before -> after): {reshards}")
+    log(f"  pool_reshard seconds {secs}; windows' slot counts "
+        f"{[{j: v['devices'] for j, v in w['jobs'].items()} for w in eng.windows]}; "
+        f"migrations {({n: js.migrations for n, js in states.items()})}; wall {wall:.1f}s")
+    paths["multistream_migration"] = (dict(runtime.LAUNCHES),
+                                      {n: tenant_series(js.trainer) for n, js in states.items()},
+                                      wall, torch.cuda.max_memory_allocated())
+    out = {"reshards": reshards, "reshard_s": secs, "wall": wall, "journal": eng.decision_journal()}
+    del eng, states
+    gc.collect()
+    return out
+
+
 PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4k", "4i", "4g", "4j",
-          "6", "6b", "7", "7b", "7c", "8", "7d")
+          "9", "6", "6b", "7", "7b", "7c", "8", "7d")
 
 
 def main(argv=None) -> int:
@@ -3070,9 +3350,13 @@ def main(argv=None) -> int:
         log(f"{title} (at {marks[-1][1]:.1f}s)")
 
     def phase_seconds():
-        """Each header's seconds to the next (the last to now), logged."""
+        """Each phase's seconds, header to next header (the last to now),
+        its sub-phases' headers (the same tag) summed, logged."""
         ends = [t for _, t in marks[1:]] + [time.perf_counter() - t_start]
-        out = {name: round(end - t, 1) for (name, t), end in zip(marks, ends)}
+        out = {}
+        for (name, t), end in zip(marks, ends):
+            out[name] = out.get(name, 0.0) + end - t
+        out = {name: round(secs, 1) for name, secs in out.items()}
         log(f"  seconds a phase: {out}; the rank phases' jobs: "
             f"{ {k: round(v, 1) for k, v in rank_phase_s.items()} }")
         return out
@@ -3104,8 +3388,10 @@ def main(argv=None) -> int:
     if want("3"):
         phase("[3] kernels against their plain versions")
         err.update(check_groupnorm(torch, dev, records))
+        phase("[3] K2 and K3 against their plain versions")
         err.update(check_xent(torch, dev, records))
         err.update(check_flash(torch, dev, records))
+        phase("[3] timing")
         timing, gt, gp, gp16, xt, at, shapes, gn_routes = time_kernels(torch, dev)
 
     if want("3b"):
@@ -3312,6 +3598,17 @@ def main(argv=None) -> int:
         phase("[4j] --remat: remat on and off, eager and graphed, bit for bit")
         remat = check_remat(torch, dev)
 
+    multistream = {}
+    if want("9"):
+        phase("[9] the many-stream engine: (a) two DenseNet-121 tenants, alone then multiplexed")
+        torch.backends.cudnn.deterministic = True
+        try:
+            multistream["tenants"] = ms_tenants(torch, paths)
+            phase("[9] (b) the outer solve's migration, heavy/light (24 : 8) over 8 slots")
+            multistream["migration"] = ms_migration(torch, paths)
+        finally:
+            torch.backends.cudnn.deterministic = False
+
     card_vs_cpu, bf16_vs_cpu = None, None
     if want("6"):
         phase("[6] end-to-end numerics")
@@ -3329,7 +3626,7 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "phases": chosen, "errors": err, "supersteps": supersteps,
                        "phase_seconds": seconds, "rank_phase_seconds": rank_phase_s,
                        "ranks": ranks, "remat": remat, "elastic": elastic,
-                       "resume": resume, "tracing": tracing,
+                       "resume": resume, "tracing": tracing, "multistream": multistream,
                        "launches": {tag: p[0] for tag, p in paths.items()},
                        "series": {tag: p[1] for tag, p in paths.items()},
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
@@ -3404,7 +3701,7 @@ def main(argv=None) -> int:
                    "series": {tag: p[1] for tag, p in paths.items()},
                    "groupnorm_shapes": shapes, "window_walls": window_walls,
                    "supersteps": supersteps, "resume": resume, "tracing": tracing,
-                   "elastic": elastic,
+                   "elastic": elastic, "multistream": multistream,
                    "ranks": ranks, "remat": remat, "phase_seconds": seconds,
                    "rank_phase_seconds": rank_phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

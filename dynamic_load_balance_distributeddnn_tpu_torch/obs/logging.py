@@ -12,6 +12,7 @@ import logging
 import os
 import socket
 import time
+from typing import Optional
 
 from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
 
@@ -21,14 +22,19 @@ _FORMAT = (
 )
 
 
-def init_logger(cfg: Config, rank: int = 0, to_file: bool = True) -> logging.LoggerAdapter:
+def init_logger(cfg: Config, rank: int = 0, to_file: bool = True,
+                job: Optional[str] = None) -> logging.LoggerAdapter:
+    """The run's logger; a tenant of the many-stream engine (``job``) gets
+    one of its own, so that admitting another tenant does not take over its
+    handlers."""
     extra = {
         "world_size": cfg.world_size,
         "lr": cfg.learning_rate,
         "dbs": "enabled" if cfg.dynamic_batch_size else "disabled",
         "ft": "enabled" if cfg.fault_tolerance else "disabled",
     }
-    logger = logging.getLogger(f"{socket.gethostname()}.dbs_torch")
+    name = f"{socket.gethostname()}.dbs_torch"
+    logger = logging.getLogger(name if job is None else f"{name}.job.{job}")
     for h in logger.handlers[:]:
         logger.removeHandler(h)
         h.close()

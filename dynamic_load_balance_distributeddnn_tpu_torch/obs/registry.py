@@ -3,8 +3,9 @@ surfaces (the JAX package's ``obs/registry.py``, copied).
 
 The registry binds the :class:`~.recorder.MetricsRecorder` (nine per-epoch
 series and extras), the :class:`~..balance.timing.HostOverheadMeter`
-(dispatch walls), the tracer, the window controller and the elastic
-runtime's per-worker health (``runtime/health.py``) behind one object the
+(dispatch walls), the tracer, the window controller, the elastic
+runtime's per-worker health (``runtime/health.py``) and the many-stream
+engine's outer journal (``runtime/scheduler.py``) behind one object the
 engine owns:
 
 * ``registry.last(name)`` / ``registry.series(name)`` — recorder access with
@@ -18,8 +19,7 @@ The JAX package also binds its compile guards' counters, a per-engine
 ``CompileTracker`` and its AOT compile service's stats. This port has no
 compile service and no compile guards yet (ROADMAP.md queue 1, the
 runtime), so those slots and the snapshot's ``compiles`` / ``aot`` keys are
-left out rather than filled with made-up numbers; so is the many-stream
-``scheduler``.
+left out rather than filled with made-up numbers.
 
 The registry holds *references*, not copies — it is a view, never a second
 source of truth.
@@ -78,13 +78,14 @@ class MetricsRegistry:
         self.host_meter = None  # balance.timing.HostOverheadMeter
         self.controller = None  # balance.controller.OnlineRebalanceController
         self.health = None  # runtime.health.WorkerHealth
+        self.scheduler = None  # runtime.scheduler.MultiStreamEngine
 
     def attach(self, **surfaces) -> "MetricsRegistry":
         """Register observability surfaces by their well-known slot name
-        (``host_meter``, ``controller``, ``health``). Unknown names raise — a typo'd
-        attach would silently hollow the snapshot."""
+        (``host_meter``, ``controller``, ``health``, ``scheduler``). Unknown
+        names raise — a typo'd attach would silently hollow the snapshot."""
         for name, obj in surfaces.items():
-            if name not in ("host_meter", "controller", "health"):
+            if name not in ("host_meter", "controller", "health", "scheduler"):
                 raise ValueError(f"unknown registry surface {name!r}")
             setattr(self, name, obj)
         return self
@@ -143,4 +144,9 @@ class MetricsRegistry:
             out["controller"] = self.controller.snapshot()
         if self.health is not None:
             out["health"] = self.health.snapshot()
+        if self.scheduler is not None:
+            # the outer loop's decision journal: the many-stream engine's
+            # per-window slot-allocation verdicts in the same journal shape
+            # as the inner controller's
+            out["scheduler"] = self.scheduler.snapshot()
         return out

@@ -69,5 +69,5 @@ def synthetic_load_cuda(n_iters: Union[int, torch.Tensor], seed_val: torch.Tenso
             ctypes.c_void_p(stream),
         )
     runtime.check(lib, err, "synthetic_load")
-    runtime.LAUNCHES["synthetic_load"] += 1
+    runtime.count("synthetic_load", device=dev)
     return out

@@ -275,7 +275,7 @@ def attn_fwd_short(q, k, v, causal: bool, launch=None) -> Tuple[torch.Tensor, to
             rows, threads, _stream(q),
         )
     runtime.check(lib, err, "attn_forward_short")
-    runtime.LAUNCHES["attn_fwd"] += 1
+    runtime.count("attn_fwd", device=q.device)
     return o, lse
 
 
@@ -295,7 +295,7 @@ def attn_bwd_short(q, k, v, do, o, lse, causal: bool, launch=None):
             b, h, t, d, int(causal), _scale(d), threads, parts, _stream(q),
         )
     runtime.check(lib, err, "attn_backward_short")
-    runtime.LAUNCHES["attn_bwd"] += 1
+    runtime.count("attn_bwd", device=q.device)
     return dq, dk, dv
 
 
@@ -308,7 +308,7 @@ def attn_fwd(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     with torch.cuda.device(q.device):
         err = lib.attn_forward(*_ptrs(q, k, v, o, lse), bh, t, d, int(causal), _scale(d), _stream(q))
     runtime.check(lib, err, "attn_forward")
-    runtime.LAUNCHES["attn_fwd_tiled"] += 1
+    runtime.count("attn_fwd_tiled", device=q.device)
     return o, lse
 
 
@@ -323,7 +323,7 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, t
             *_ptrs(q, k, v, do, lse, delta, dk, dv), bh, t, d, int(causal), _scale(d), _stream(q)
         )
     runtime.check(lib, err, "attn_backward_dkv")
-    runtime.LAUNCHES["attn_bwd_dkv"] += 1
+    runtime.count("attn_bwd_dkv", device=q.device)
     return dk, dv
 
 
@@ -338,7 +338,7 @@ def attn_bwd_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
             *_ptrs(q, k, v, do, lse, delta, dq), bh, t, d, int(causal), _scale(d), _stream(q)
         )
     runtime.check(lib, err, "attn_backward_dq")
-    runtime.LAUNCHES["attn_bwd_dq"] += 1
+    runtime.count("attn_bwd_dq", device=q.device)
     return dq
 
 

@@ -276,11 +276,11 @@ def _route(x: torch.Tensor, groups: int, backward: bool, launch: Optional[Plan],
 
 def _count(key: str, p: Plan, x: torch.Tensor) -> None:
     """One launch of ``key``, and of its general-route and bf16 shares."""
-    runtime.LAUNCHES[key] += 1
+    runtime.count(key, device=x.device)
     if p.route == "general":
-        runtime.LAUNCHES[key + "_general"] += 1
+        runtime.count(key + "_general", device=x.device)
     if x.dtype == torch.bfloat16:
-        runtime.LAUNCHES[key + "_bf16"] += 1
+        runtime.count(key + "_bf16", device=x.device)
 
 
 def _tiled_args(p: Plan):

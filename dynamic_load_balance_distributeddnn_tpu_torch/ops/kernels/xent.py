@@ -136,9 +136,9 @@ def xent_fwd(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, 
             _DTYPES[logits.dtype], threads, ctypes.c_void_p(stream),
         )
     runtime.check(lib, err, "xent_forward")
-    runtime.LAUNCHES["xent_fwd"] += 1
+    runtime.count("xent_fwd", device=logits.device)
     if logits.dtype == torch.bfloat16:
-        runtime.LAUNCHES["xent_fwd_bf16"] += 1
+        runtime.count("xent_fwd_bf16", device=logits.device)
     return loss, lse
 
 
@@ -158,9 +158,9 @@ def xent_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor,
             _DTYPES[logits.dtype], threads, ctypes.c_void_p(stream),
         )
     runtime.check(lib, err, "xent_backward")
-    runtime.LAUNCHES["xent_bwd"] += 1
+    runtime.count("xent_bwd", device=logits.device)
     if logits.dtype == torch.bfloat16:
-        runtime.LAUNCHES["xent_bwd_bf16"] += 1
+        runtime.count("xent_bwd_bf16", device=logits.device)
     return dx
 
 

@@ -1,9 +1,10 @@
 """Host runtime of the port: per-worker health for ``--elastic``
-(``runtime/health.py``), the stall watchdog (``runtime/watchdog.py``) and
-the re-rendezvous of the elastic tier across processes over
-``torch.distributed`` (``runtime/rendezvous.py``). The JAX package's
-scheduler, native host runtime and compile service are not ported yet
-(ROADMAP.md)."""
+(``runtime/health.py``), the stall watchdog (``runtime/watchdog.py``), the
+re-rendezvous of the elastic tier across processes over
+``torch.distributed`` (``runtime/rendezvous.py``) and the many-stream
+engine, several training jobs multiplexed over the slots of one card
+(``runtime/scheduler.py``). The JAX package's native host runtime and
+compile service are not ported yet (ROADMAP.md)."""
 
 from dynamic_load_balance_distributeddnn_tpu_torch.runtime.health import (
     ALIVE,

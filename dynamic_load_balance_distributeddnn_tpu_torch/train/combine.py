@@ -273,8 +273,10 @@ class RankCombine:
     # ---------------------------------------------------------------- step
 
     def _sync(self) -> None:
+        """Wait for the calling thread's stream, where the step's gradients
+        were written."""
         if self.grads.flat.is_cuda:
-            torch.cuda.synchronize(self.grads.flat.device)
+            torch.cuda.current_stream(self.grads.flat.device).synchronize()
 
     def step(self, lr: float, key: Key) -> None:
         """The combine and update of one step, in place; ``key`` is the

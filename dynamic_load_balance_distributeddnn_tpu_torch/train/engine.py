@@ -29,11 +29,12 @@ combine's math in one launch sequence. The language model stays elastic.
 
 Per-worker compute time on an asynchronous device is not a host clock
 around a launched call, so the engine times a *probe*: one standalone
-forward/backward of each worker's batch after ``torch.cuda.synchronize()``,
-min over 3 repetitions, scaled by the worker's step count. The combine +
-update is probed separately as ``sync_time`` and never enters the solver's
-vector (PARITY contract 4). A ``timing_model`` replaces the probes with a
-deterministic model, as in the JAX package.
+forward/backward of each worker's batch after a synchronize of the
+trainer's stream (``_sync``), min over 3 repetitions, scaled by the
+worker's step count. The combine + update is probed separately as
+``sync_time`` and never enters the solver's vector (PARITY contract 4). A
+``timing_model`` replaces the probes with a deterministic model, as in the
+JAX package.
 
 Adaptive probes (``--probe_mode adaptive``, the default): the probes of
 epochs 0-1 anchor a per-example cost per worker; later epochs skip them and
@@ -131,6 +132,11 @@ establish a smaller one, rebuild the data axis and the combine, restore
 the flushed checkpoint, re-run the epoch), and a respawned process grows
 the fleet back at an epoch boundary. A world of the cli's stock
 ``initialize_multihost`` detects the loss and aborts with the JAX message.
+
+Tenants (``job_id``): the many-stream engine (``runtime/scheduler.py``)
+runs several trainers in one process, each on its own thread and CUDA
+stream; a tenant leaves the process tracer to its caller and re-shards
+through ``_reshard_world`` when the engine moves its slots.
 
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
@@ -360,9 +366,20 @@ class Trainer:
         device="cuda",
         logger=None,
         log_to_file: bool = True,
+        job_id: Optional[str] = None,
     ):
         """``timing_model``: optional callable(plan) -> per-worker seconds,
-        replacing the wall-clock probes with a deterministic model (tests)."""
+        replacing the wall-clock probes with a deterministic model (tests).
+
+        ``job_id``: the tenant's tag when this trainer is one stream of a
+        ``runtime/scheduler.py`` ``MultiStreamEngine``. A tenant trainer
+        leaves the process tracer as its caller configured it and attaches
+        no spool (``configure`` would drop the other tenants' spans and
+        untag their threads), and logs through a logger of its own. The JAX
+        package also folds the tag into its compile keys, so that tenants
+        never share executables; here each trainer owns its ``StepGraphs``
+        and their graph pool, so no key is shared to begin with."""
+        self.job_id = job_id
         self._setup_topology(cfg, device)
         if self.device.type == "cuda" and not cfg.use_pallas:
             raise ValueError(
@@ -374,17 +391,21 @@ class Trainer:
         # weights under --precision bfloat16 (train/steps.py cast_compute)
         self.compute_dtype = torch.bfloat16 if cfg.precision == "bfloat16" else None
         self.timing_model = timing_model
-        self.logger = logger or init_logger(cfg, rank=self.proc_id, to_file=log_to_file)
+        self.logger = logger or init_logger(cfg, rank=self.proc_id, to_file=log_to_file,
+                                            job=job_id)
         self.world_size = cfg.world_size
-        # graftscope: the engine owns the process-wide tracer's config, set
-        # unconditionally so a trace="off" run never inherits an earlier
-        # traced run's state in the same process
-        self._trace = get_tracer().configure(
-            cfg.trace, ring_size=cfg.trace_ring, annotations=cfg.trace_annotations
-        )
+        # graftscope: a run's engine owns the process-wide tracer's config,
+        # set unconditionally so a trace="off" run never inherits an earlier
+        # traced run's state in the same process; a tenant's caller owns it
         self._spool_writer = None
-        if cfg.trace != "off" and cfg.trace_spool:
-            self._attach_spool()
+        if job_id is None:
+            self._trace = get_tracer().configure(
+                cfg.trace, ring_size=cfg.trace_ring, annotations=cfg.trace_annotations
+            )
+            if cfg.trace != "off" and cfg.trace_spool:
+                self._attach_spool()
+        else:
+            self._trace = get_tracer()
         self._setup_grad_comm()
 
         self._setup_data(bundle)
@@ -776,8 +797,20 @@ class Trainer:
         return NullInjector(cfg.world_size)
 
     def _sync(self) -> None:
+        """Wait for this thread's current stream: the default stream in one
+        run, a tenant's own stream under ``runtime/scheduler.py``, so that a
+        tenant's walls and probes never wait for another tenant's kernels."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _maybe_warm(self) -> None:
+        """The JAX ``_maybe_warm``, where ``--warm_start`` submits the
+        step shapes to its compile service before the first epoch (once a
+        fleet: ``_reshard_world`` clears its ``_warmed`` mark). This port
+        has no compile service: a step graph is warmed up and captured at
+        its key's first step (``train/supersteps.py``), so there is nothing
+        to do and no mark to keep. ``run`` and the many-stream engine call
+        it where the JAX package does."""
 
     def _elastic_mode(self) -> str:
         """How the training steps execute (``--superstep``), with the JAX
@@ -811,6 +844,7 @@ class Trainer:
             f"Starting: {cfg.model}/{cfg.dataset}, ws={cfg.world_size}, "
             f"B={cfg.batch_size}, device={self.device}, dbs={cfg.dynamic_batch_size}"
         )
+        self._maybe_warm()
         start_epoch = 0
         if cfg.ckpt_dir:
             start_epoch = self._maybe_restore()
@@ -2411,7 +2445,8 @@ class Trainer:
                "steps": int(plan.num_steps), "windows": windows,
                "batch_sizes": [int(b) for b in plan.batch_sizes],
                "injected": [int(n > 0) for n in faults.slow_iters_per_step]}
-        rec.update({k: now[k] - before[k] for k in ("captures", "capture_s", "replays", "eager_runs")})
+        rec.update({k: now[k] - before[k]
+                    for k in ("captures", "capture_s", "capture_wait_s", "replays", "eager_runs")})
         rec["keys"], rec["new_keys"] = now["keys"], now["keys"] - before["keys"]
         rec["dispatches"] = self._host_meter.dispatches
         rec["host_dispatch_s"] = self._host_meter.dispatch_s

@@ -53,7 +53,24 @@ window only because XLA needs that for bitwise parity.
 - **Launch counts**: the kernel wrappers count in Python, which a replay
   does not run. A capture's counts are taken back (a capture launches
   nothing) and kept a key; each replay adds them (``runtime.LAUNCHES``).
-  Warm-up launches are real launches and count as such.
+  Warm-up launches are real launches and count as such. The capture reads
+  the counts of its capture stream alone (``runtime.LAUNCHES.of``; on
+  the CPU, of its thread): the backward's launches, which autograd makes
+  from its device thread on that stream, are in them, and launches that
+  another tenant makes meanwhile, on its own streams, are neither charged
+  to the key nor taken back.
+- **Captures and other threads** (the tenants of ``runtime/scheduler.py``,
+  each a thread on its own stream): a capture holds ``CAPTURE_GATE``
+  exclusively, and a tenant's epoch holds it shared, so a capture runs
+  while no other tenant works and no two captures overlap. The gate is
+  what isolates a capture: the engine does its own device work (admission,
+  re-shards, the final save) between windows, when no epoch runs, so no
+  other thread calls into CUDA during a capture and the capture keeps
+  PyTorch's default ``global`` error mode. A capture beside another
+  tenant's eager work (``thread_local`` mode and a capture lock alone)
+  failed on an H100: the other tenant's cuDNN call raised
+  ``CUDNN_STATUS_INTERNAL_ERROR`` and the capture was invalidated. The wait for the gate is ``capture_wait_s``,
+  outside ``capture_s``.
 
 A capture or replay that fails raises with its key: nothing falls back to
 eager launches. On the CPU, as the tests run it, there are no graphs: the
@@ -63,12 +80,71 @@ eagerly from them, with each count as an int.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
 from dynamic_load_balance_distributeddnn_tpu_torch.ops.kernels import runtime
+
+
+class CaptureGate:
+    """Step-graph captures against the work of other threads on the card:
+    ``shared()`` around a tenant's work (any number at once), ``exclusive()``
+    around a capture (alone). A thread that holds it shared sets its hold
+    down while it waits for ``exclusive()`` and takes it back after, so
+    tenants that capture at once take turns instead of waiting on each
+    other; a waiting capture keeps new shared holds out."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = 0
+        self._writer = False
+        self._waiting = 0
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cv:
+            while self._writer or self._waiting:
+                self._cv.wait()
+            self._shared += 1
+        self._local.held = getattr(self._local, "held", 0) + 1
+        try:
+            yield
+        finally:
+            self._local.held -= 1
+            with self._cv:
+                self._shared -= 1
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        held = getattr(self._local, "held", 0)
+        with self._cv:
+            self._shared -= held
+            self._waiting += 1
+            self._cv.notify_all()
+            while self._writer or self._shared:
+                self._cv.wait()
+            self._waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._writer = False
+                self._cv.notify_all()
+                if held:  # back to the shared hold, after any waiting capture
+                    while self._writer or self._waiting:
+                        self._cv.wait()
+                    self._shared += held
+
+
+# one process, one card: every StepGraphs captures through this gate
+CAPTURE_GATE = CaptureGate()
 
 Inputs = Sequence[Optional[Tuple[torch.Tensor, ...]]]  # a worker's batch, or None
 Body = Callable[[List[Optional[Tuple[torch.Tensor, ...]]], list], None]
@@ -81,7 +157,9 @@ class CudaStepGraph:
     cache before the capture, so the graph's pool can take from the card
     the memory that the run's eager work left cached (without it, a capture
     after the other paths of ``chip_smoke.py`` ran out of memory on an 80 GB
-    card with 56 GiB cached and unused)."""
+    card with 56 GiB cached and unused). ``StepGraphs`` captures inside
+    ``CAPTURE_GATE``, which keeps the other tenants' work off the card
+    meanwhile."""
 
     def __init__(self, stream: torch.cuda.Stream, pool, generators: Sequence[torch.Generator]):
         self.graph = torch.cuda.CUDAGraph()
@@ -133,6 +211,7 @@ class StepGraphs:
         self._pool = None
         self.captures = 0
         self.capture_s = 0.0
+        self.capture_wait_s = 0.0  # waiting for CAPTURE_GATE (other tenants' work)
         self.replays = 0  # steps replayed from a graph
         self.eager_runs = 0  # steps run eagerly from the slots (no graphs: the CPU)
 
@@ -151,6 +230,7 @@ class StepGraphs:
 
     def stats(self) -> Dict[str, float]:
         return {"captures": self.captures, "capture_s": self.capture_s,
+                "capture_wait_s": self.capture_wait_s,
                 "replays": self.replays, "eager_runs": self.eager_runs,
                 "keys": len(self._entries)}
 
@@ -167,10 +247,7 @@ class StepGraphs:
             return
         if new:
             try:
-                if self.tracer is not None:
-                    with self.tracer.span("warm", cat="warm"):
-                        self._capture(key, entry, body, warmup)
-                else:
+                with self._span("warm"):
                     self._capture(key, entry, body, warmup)
             except Exception:
                 del self._entries[key]  # no half-made entry: the next run captures anew
@@ -180,7 +257,7 @@ class StepGraphs:
         except Exception as exc:
             raise RuntimeError(f"replaying the step graph of key {key} failed: {exc}") from exc
         for k, d in entry.launches.items():
-            runtime.LAUNCHES[k] += d
+            runtime.count(k, d, device=self.device)
         self.replays += 1
 
     # ---------------------------------------------------------------- slots
@@ -219,19 +296,40 @@ class StepGraphs:
         try:
             self._warm_up(warmup, entry.inputs, counts)
             self._set_states(states)
-            graph = self._factory(self)
-            before = dict(runtime.LAUNCHES)
-            graph.capture(lambda: body(entry.inputs, counts))
+            t_gate = time.perf_counter()
+            with CAPTURE_GATE.exclusive(), self._span("capture"):
+                waited = time.perf_counter() - t_gate
+                graph = self._factory(self)
+                ctx = self._count_context()
+                before = runtime.LAUNCHES.of(ctx)
+                graph.capture(lambda: body(entry.inputs, counts))
+                after = runtime.LAUNCHES.of(ctx)
         except Exception as exc:
             raise RuntimeError(f"capturing the step graph of key {key} failed: {exc}") from exc
         self._set_states(states)  # the replays draw from where the eager step would
         # a capture records launches and runs none: its counts move to the replays
-        entry.launches = {k: v - before[k] for k, v in runtime.LAUNCHES.items() if v != before[k]}
+        entry.launches = {k: v - before[k] for k, v in after.items() if v != before[k]}
         for k, d in entry.launches.items():
-            runtime.LAUNCHES[k] -= d
+            runtime.LAUNCHES.add(ctx, k, -d)
         entry.graph = graph
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        self.capture_s += time.perf_counter() - t0 - waited
+        self.capture_wait_s += waited
+
+    def _span(self, name: str):
+        """A graftscope span (cat ``warm``) when the executor has a tracer:
+        ``warm`` over a key's warm-up and capture, ``capture`` over the
+        capture alone, inside the gate."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, cat="warm")
+
+    def _count_context(self):
+        """Where a capture's launches are counted: its capture stream on a
+        card, the calling thread on the CPU (a graph factory in tests)."""
+        if self.device.type == "cuda":
+            return ("stream", self.side_stream().cuda_stream)
+        return runtime.context()
 
     def _warm_up(self, warmup: Body, inputs, counts) -> None:
         if self.device.type == "cuda":
