@@ -112,7 +112,8 @@ phase runs.
    test stream's 960 rows of 256 in chunks of 457, ``lm_engine.eval_rows``);
    share moved, finite losses; each (B*H, T, D) the tiled forward saw.
 4h. Stop and resume (``--ckpt_dir``): [4]'s packed DenseNet-121 and [4b]'s
-   elastic compute-mode run at 1,024 examples, and [5]'s LM, each 2 epochs
+   elastic compute-mode run at 1,024 examples (two steps an epoch), and
+   [5]'s LM at half its tokens (108,800), each 2 epochs
    with ``--probe_mode always`` under ``--superstep auto`` and ``off``,
    cuDNN deterministic: the whole run with ``--ckpt_dir``, then a fresh
    trainer resuming from its epoch-0 checkpoint for the last epoch. Its
@@ -172,6 +173,21 @@ phase runs.
    the two new fleets' graphs captured anew; K1 (tiled) and K2 launched
    after the recovery. Printed: detection to resumed training, each
    snapshot's wall and bytes, the captures each new fleet forced.
+4l. The host-fed path (``--device_cache off``): [4]'s DenseNet-121 cell
+   (4 workers, B = 512, 3:1 virtual straggler, 4,096 examples), 2 epochs in
+   windows of 2 steps (``--stream_chunk_steps 2``), in two arms, packed
+   (``--superstep auto``, the defaults) and ``--packed off`` (elastic
+   scan), each beside its resident twin (``--device_cache on``), the
+   partitions fixed by a timing model and cuDNN deterministic. The training
+   set stays on the host: each window's rows are packed by the C++ gather
+   (``runtime/native.py``, which must have loaded) into pinned memory and
+   staged one window ahead on a CUDA copy stream (``train/pipeline.py``).
+   Checks: each arm's parameters, momentum, losses and partitions equal its
+   twin's bit for bit; no training row resident on the card; ``host_put_s``
+   measured; K1 and K2 launched. Printed: the epoch walls of the arms and
+   their twins, ``host_put_s``, the busy share of one profiled training pass
+   a run, the training-set bytes on the card, and ``take_rows`` against
+   ``np.take`` in GB/s over one window's rows.
 6. DenseNet-121, ResNet-18, RegNetY-400MF and the Transformer LM on the
    card against the same models on the CPU (plain versions), same weights
    and inputs; the CNNs' first-conv gradient against the CPU's f64 run, at
@@ -256,7 +272,7 @@ phase runs.
    gloo, brought up through the port's ``rendezvous.elastic_initialize``
    by ``tests/_torch_mh_worker.py`` (no JAX): DenseNet-121 at its published
    width, ``-ws 4 -b 512 --straggler 3,1,1,1 --fault_mode virtual
-   --n_train 4096 --packed off``, ``--ckpt_dir`` under ``SCRATCH``, 4
+   --n_train 2048 --packed off``, ``--ckpt_dir`` under ``SCRATCH``, 4
    epochs, in a launch of its own. Process 1 is SIGKILLed inside epoch 1's
    gradient collectives (as soon as it writes its marker before its third
    combine of the epoch; it is not held, so the kill lands wherever that
@@ -409,7 +425,8 @@ DIST_RANKS = 2
 DIST_SHARE_MAX = 0.40
 # [7b]: four ranks on cuda:0 over gloo, DenseNet-121 at its published width,
 # --grad_comm hier on a synthetic two-host split (the tree (2, 2)), 2 epochs
-# of 2,048 examples (4,096 until [9] joined: the script's time)
+# of 2,048 examples (4,096 until [9] joined: the script's time; at 1,024 the
+# loss of arm (a) did not fall over the two epochs on an H100)
 HIER_ARGV = ("-m densenet -ds cifar10 -ws 4 -b 512 -gpu 0,0,0,0 --straggler 3,1,1,1 "
              "--fault_mode virtual -e 2 --n_train 2048 --grad_comm hier --hier_hosts 2").split()
 HIER_ARMS = (
@@ -448,13 +465,14 @@ RANKS4_TIMEOUT_S = 600
 # [7d]: --elastic on across processes, two processes on cuda:0 over gloo
 # brought up through rendezvous.elastic_initialize (tests/_torch_mh_worker.py
 # is the harness): DenseNet-121 at its published width, -ws 4 -b 512
-# --straggler 3,1,1,1 --fault_mode virtual --n_train 4096, 4 epochs; process
-# 1 killed when it writes its marker before its third combine of epoch 1
-# (8 steps an epoch), respawned as a joiner and readmitted at epoch 3. Its
-# checkpoints go under SCRATCH (too big for OUT)
+# --straggler 3,1,1,1 --fault_mode virtual --n_train 2048 (4,096 until [4l]
+# joined: the script's time), 4 epochs; process 1 killed when it writes its
+# marker before its third combine of epoch 1 (4 steps an epoch), respawned
+# as a joiner and readmitted at epoch 3. Its checkpoints go under SCRATCH
+# (too big for OUT)
 MH_WORKER = os.path.join(ROOT, "tests", "_torch_mh_worker.py")
 MH_ENV = {"DBS_MH_DEVICE": "cuda", "DBS_MH_MODEL": "densenet", "DBS_MH_DATASET": "cifar10",
-          "DBS_MH_BATCH": "512", "DBS_MH_NTRAIN": "4096", "DBS_MH_STRAGGLER": "3,1,1,1",
+          "DBS_MH_BATCH": "512", "DBS_MH_NTRAIN": "2048", "DBS_MH_STRAGGLER": "3,1,1,1",
           "DBS_MH_WS": "4", "DBS_MH_EPOCHS": "4", "DBS_MH_JOIN_AT": "3",
           "DBS_MH_STEP_MARKER": "1:1:2",
           "DBS_PEER_HB_PERIOD_S": "0.2", "DBS_PEER_HB_STALE_S": "2.0", "DBS_RDZV_TIMEOUT_S": "120"}
@@ -529,16 +547,28 @@ RESUME_EPOCHS = 2
 ELASTIC_ARGV = with_epochs(MAIN_ARGV, 6) + (
     "--elastic on --superstep auto --packed off --superstep_window 2").split()
 ELASTIC_EVENT = (3, 1.4, 3)  # worker, down_at, rejoin_epoch
+# [4l]: the host-fed path at [4]'s width, 2 epochs in windows of 2 steps
+# (8 steps an epoch: 4 windows), packed and elastic, each arm beside its
+# resident twin; DBS under a timing model (the walls of real probes would
+# move one twin's plans off the other's)
+HOST_FED_ARGV = with_epochs(MAIN_ARGV, 2) + ["--stream_chunk_steps", "2"]
+HOST_FED_ARMS = (("packed", []), ("elastic", ["--packed", "off"]))
 ELASTIC_ALIVE = [4.0, 3.0, 3.0, 4.0, 4.0, 4.0]
 # [7] (c) and [7b] (b): the whole run saves a checkpoint an epoch, and a
 # third job resumes from a copy of its epoch-0 checkpoint alone (the run as
 # if stopped there); 56 MB a checkpoint, so under SCRATCH
 RANK_CKPT = os.path.join(SCRATCH, "ranks_ckpt")
 RESUMED_ARMS = {"dist": "c", "hier": "b"}  # [7]'s and [7b]'s resumed arm
+# [4h]'s recipes: DenseNet-121 at 1,024 examples, two steps an epoch at
+# -b 512, so the resumed epoch checks a step after the first one following
+# the restore (the restored generators and step counter carried into a
+# second step); the LM at half its tokens since [4l] joined (the script's
+# time), still dozens of steps an epoch
 RESUME_RECIPES = (("densenet packed", with_epochs(with_n_train(MAIN_ARGV, 1024), RESUME_EPOCHS)),
                   ("densenet elastic compute",
                    with_epochs(with_n_train(COMPUTE_ARGV, 1024), RESUME_EPOCHS)),
-                  ("language model", with_epochs(LM_ARGV, RESUME_EPOCHS)))
+                  ("language model",
+                   with_epochs(LM_ARGV, RESUME_EPOCHS) + ["--n_train", "108800"]))
 # [4i]: [4f]'s packed bf16 recipe under the profiler, cut to 1 epoch of 2
 # steps, both replayed from its graph (2 epochs traced 1.7M events)
 PROFILE_ARGV = with_n_train(with_epochs(BF16_ARGV, 1), 1024)
@@ -2243,10 +2273,10 @@ def run_superstep_arms(torch, dev):
         torch.cuda.empty_cache()
     return results
 
-def run_trainer(torch, argv, tag, epochs=None, injector=None, setup=None):
+def run_trainer(torch, argv, tag, epochs=None, injector=None, setup=None, timing_model=None):
     """The port's trainer on one recipe, as ``cli.main`` builds and runs it
-    (``Trainer.run`` / ``LMTrainer.run``; ``injector`` given to the trainer,
-    ``setup(trainer)`` called before the run), launch counts zeroed just
+    (``Trainer.run`` / ``LMTrainer.run``; ``injector`` and ``timing_model``
+    given to the trainer, ``setup(trainer)`` called before the run), launch counts zeroed just
     before and read just after; returns (launch counts, series with their
     "_meta", wall, peak device memory in bytes, the trainer)."""
     from dynamic_load_balance_distributeddnn_tpu_torch.config import config_from_args
@@ -2262,8 +2292,8 @@ def run_trainer(torch, argv, tag, epochs=None, injector=None, setup=None):
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launches()
     t0 = time.perf_counter()
-    tr = (LMTrainer if cfg.model == "transformer" else Trainer)(cfg, injector=injector,
-                                                                 log_to_file=False)
+    tr = (LMTrainer if cfg.model == "transformer" else Trainer)(
+        cfg, injector=injector, timing_model=timing_model, log_to_file=False)
     if setup is not None:
         setup(tr)
     tr.run(epochs)
@@ -2407,6 +2437,139 @@ def check_elastic(torch, paths):
     del tr
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def train_bytes_on_card(tr) -> int:
+    """The training set's bytes on the trainer's card: its resident arrays,
+    or, for a path not yet fed from the host, its upload (``_train_dev``)."""
+    arrays = [t for t in (tr.train_x, tr.train_y) if t.device.type == "cuda"]
+    arrays += list(tr._train_dev or ())
+    return sum(t.numel() * t.element_size() for t in arrays)
+
+
+def profiled_pass(torch, tr):
+    """One training pass of the trainer's next plan, probes off, under the
+    profiler: (wall, device seconds, busy share). The device time sums
+    every device record (kernels and the copy stream's copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    epoch = tr.cfg.epoch_size
+    plan, faults = tr._plan_epoch(epoch)
+    tr._probe_this_epoch = False
+    train = tr._train_epoch_packed if tr._can_use_packed(plan) else tr._train_epoch_elastic
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(plan, faults, epoch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_s = sum(us for us, _ in kernel_us(prof).values()) / 1e6
+    return wall, dev_s, dev_s / wall
+
+
+def gather_rates(tr):
+    """``take_rows`` (the C++ gather) against ``np.take`` over one window's
+    rows of the training set (2 steps of B = 512, random rows): the median
+    of 5 calls each, in GB/s of rows written."""
+    import numpy as np
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.runtime.native import take_rows
+
+    data = tr.train_x.numpy()
+    sel = np.random.RandomState(0).randint(0, len(data), size=2 * tr.cfg.batch_size)
+    out = np.empty((len(sel),) + data.shape[1:], data.dtype)
+    rates = {}
+    for name, fn in (("take_rows", lambda: take_rows(data, sel, out=out)),
+                     ("np.take", lambda: np.take(data, sel, axis=0, out=out))):
+        fn()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        rates[name] = out.nbytes / statistics.median(walls) / 1e9
+    return rates, out.nbytes
+
+
+def check_host_fed(torch, paths):
+    """[4l]: ``HOST_FED_ARGV`` in each arm of ``HOST_FED_ARMS`` under
+    ``--device_cache on`` (the resident twin) and ``off`` (fed from the
+    host), cuDNN deterministic, the partitions fixed by ``ms_linear_time``:
+    each host-fed run's parameters, momentum buffers, train and validation
+    losses and partitions equal its twin's bit for bit; its training set
+    stays on the host (no byte of it on the card: the staged windows come
+    and go); ``host_put_s`` > 0 every epoch; every epoch in step graphs, one
+    dispatch a window; K1 and K2 launched. The C++ host runtime must have
+    loaded. Logs the epoch walls, ``host_put_s``, the busy share of one
+    profiled pass a run, the training-set bytes on the card, and the
+    gather's GB/s against ``np.take``; each run's launches join ``paths``."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.runtime.native import (
+        native_available,
+        native_impl,
+    )
+
+    assert native_available(), f"the C++ host runtime did not load ({native_impl()})"
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for arm, extra in HOST_FED_ARMS:
+            runs = {}
+            for cache in ("on", "off"):
+                argv = HOST_FED_ARGV + extra + ["--device_cache", cache]
+                log("  python -m dynamic_load_balance_distributeddnn_tpu_torch.cli " + " ".join(argv)
+                    + " (timing model: rows x steps)")
+                *run, tr = run_trainer(torch, argv, f"host_fed/{arm}_{cache}",
+                                       timing_model=ms_linear_time)
+                counts, series, wall, peak = run
+                paths[f"host_fed_{arm}_{cache}"] = tuple(run)
+                check_cnn_path(counts, series, f"[4l] {arm} --device_cache {cache}",
+                               path="packed" if arm == "packed" else "elastic", epochs=2,
+                               moved_off=0)
+                runs[cache] = (tr, series, wall, peak)
+            (on, s_on, wall_on, peak_on), (off, s_off, wall_off, peak_off) = runs["on"], runs["off"]
+            assert on._use_device_cache and not off._use_device_cache
+            for key in ("train_loss", "val_loss", "accuracy", "partition", "node_time"):
+                assert s_on[key] == s_off[key], f"[4l] {arm}: {key} {s_on[key]} != {s_off[key]}"
+            for (n, p), q in zip(on.model.named_parameters(), off.model.parameters()):
+                assert torch.equal(p, q), f"[4l] {arm}: parameter {n} differs from the resident run"
+                assert torch.equal(on.optimizer.state[p]["momentum_buffer"],
+                                   off.optimizer.state[q]["momentum_buffer"]), \
+                    f"[4l] {arm}: momentum of {n} differs from the resident run"
+            on_card = {c: train_bytes_on_card(runs[c][0]) for c in ("on", "off")}
+            assert on_card["off"] == 0 and on_card["on"] > 0, on_card
+            puts = s_off["host_put_s"]
+            assert all(v > 0 for v in puts) and all(v == 0 for v in s_on["host_put_s"]), puts
+            recs = s_off["_meta"]["supersteps"]
+            assert all(r["windows"] == 4 and r["dispatches"] == 4 for r in recs), recs
+            busy = {c: profiled_pass(torch, runs[c][0]) for c in ("on", "off")}
+            w_on, w_off = epoch_walls(s_on), epoch_walls(s_off)
+            log(f"  [{arm}] bit for bit with the resident twin: {len(list(on.params))} parameter "
+                f"tensors and their momentum, train loss {[round(x, 6) for x in s_off['train_loss']]}, "
+                f"partitions {s_off['partition']}")
+            log(f"  [{arm}] epoch walls: host-fed {[round(w, 3) for w in w_off]} s, resident "
+                f"{[round(w, 3) for w in w_on]} s; cli walls {wall_off:.1f} / {wall_on:.1f} s; "
+                f"host_put_s {[round(v, 4) for v in puts]}; peak device memory "
+                f"{peak_off / 2**30:.2f} / {peak_on / 2**30:.2f} GiB")
+            log(f"  [{arm}] one profiled pass: host-fed wall {busy['off'][0]:.3f}s, device "
+                f"{busy['off'][1]:.3f}s, busy {100 * busy['off'][2]:.1f}%; resident wall "
+                f"{busy['on'][0]:.3f}s, device {busy['on'][1]:.3f}s, busy {100 * busy['on'][2]:.1f}%")
+            log(f"  [{arm}] training-set bytes on the card: host-fed {on_card['off']:,}, resident "
+                f"{on_card['on']:,}")
+            out[arm] = {"epoch_walls": {"off": w_off, "on": w_on}, "host_put_s": puts,
+                        "busy": busy, "train_bytes_on_card": on_card,
+                        "cli_wall": {"off": wall_off, "on": wall_on}}
+            if arm == HOST_FED_ARMS[0][0]:
+                rates, nbytes = gather_rates(off)
+                log(f"  take_rows {rates['take_rows']:.2f} GB/s, np.take {rates['np.take']:.2f} GB/s "
+                    f"over one window's rows ({nbytes:,} bytes; host clock, warm)")
+                out["gather_gb_s"] = rates
+            del on, off, runs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
     return out
 
 
@@ -3312,7 +3475,8 @@ def ms_migration(torch, paths):
     return out
 
 
-PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4k", "4i", "4g", "4j",
+PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4k", "4l", "4i", "4g",
+          "4j",
           "9", "6", "6b", "7", "7b", "7c", "8", "7d")
 
 
@@ -3566,6 +3730,12 @@ def main(argv=None) -> int:
         phase("[4k] --elastic on: worker 3 of 4 lost mid-epoch 1, re-solve, readmitted at epoch 3")
         elastic = check_elastic(torch, paths)
 
+    host_fed = {}
+    if want("4l"):
+        phase("[4l] the host-fed path (--device_cache off): packed and elastic, each against "
+              "its resident twin")
+        host_fed = check_host_fed(torch, paths)
+
     tracing = {}
     if want("4i"):
         phase("[4i] tracing: graftscope attribution, the spools, the profiler, MFU")
@@ -3627,6 +3797,7 @@ def main(argv=None) -> int:
                        "phase_seconds": seconds, "rank_phase_seconds": rank_phase_s,
                        "ranks": ranks, "remat": remat, "elastic": elastic,
                        "resume": resume, "tracing": tracing, "multistream": multistream,
+                       "host_fed": host_fed,
                        "launches": {tag: p[0] for tag, p in paths.items()},
                        "series": {tag: p[1] for tag, p in paths.items()},
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
@@ -3701,7 +3872,7 @@ def main(argv=None) -> int:
                    "series": {tag: p[1] for tag, p in paths.items()},
                    "groupnorm_shapes": shapes, "window_walls": window_walls,
                    "supersteps": supersteps, "resume": resume, "tracing": tracing,
-                   "elastic": elastic, "multistream": multistream,
+                   "elastic": elastic, "multistream": multistream, "host_fed": host_fed,
                    "ranks": ranks, "remat": remat, "phase_seconds": seconds,
                    "rank_phase_seconds": rank_phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

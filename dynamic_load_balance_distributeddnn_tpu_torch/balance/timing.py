@@ -16,6 +16,7 @@ clip floor.
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 from typing import Callable, Optional
@@ -82,26 +83,32 @@ def _timing_event():
 
 class HostOverheadMeter:
     """Per-epoch accounting of the host's cost of driving the card: the
-    seconds spent in launch calls (``dispatch()``).
+    seconds spent in launch calls (``dispatch()``) and the seconds the
+    host-fed path's staging threads spend putting windows on the card
+    (``add_put_s``, from ``train/pipeline.py``'s threads, hence the lock).
 
     ``dispatch()`` wraps the calls that launch a step's work and nothing
     that synchronizes. On the CPU the window controller subtracts it from
     the measured window wall, as the JAX package does; on the card it times
-    the windows with :class:`DeviceWindowTimer`. The JAX package also counts its host-to-device
-    transfers here; this port's rows live on the card and are gathered
-    there by index, so nothing is transferred a step and ``put_s`` stays
-    0.0 (the recorder's ``host_put_s`` series keeps the JAX meaning)."""
-
-    put_s = 0.0
+    the windows with :class:`DeviceWindowTimer`. ``put_s`` is the wall of
+    each window's stage (its copies enqueued on the copy stream, the slot's
+    event recorded), measured on the staging thread while the main thread
+    dispatches, so it never enters the dispatch walls; it is 0.0 on an
+    epoch whose rows are resident on the card (``--device_cache on``, or
+    ``auto`` under the cap), which gathers them there by index."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
-        self.dispatch_s = 0.0
-        self.dispatches = 0
-        self._mark_dispatch_s = 0.0
-        self._mark_dispatches = 0
+        with self._lock:
+            self.dispatch_s = 0.0
+            self.put_s = 0.0
+            self.dispatches = 0
+            self._mark_dispatch_s = 0.0
+            self._mark_put_s = 0.0
+            self._mark_dispatches = 0
 
     @contextmanager
     def dispatch(self):
@@ -109,18 +116,27 @@ class HostOverheadMeter:
         try:
             yield
         finally:
-            self.dispatch_s += time.perf_counter() - t0
-            self.dispatches += 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.dispatch_s += dt
+                self.dispatches += 1
+
+    def add_put_s(self, seconds: float) -> None:
+        with self._lock:
+            self.put_s += float(seconds)
 
     def mark_window(self) -> "tuple[float, float, int]":
         """``(dispatch_s, put_s, dispatches)`` since the previous mark: the
         host's share of the window controller's wall signal. The epoch
         totals are untouched; a mark only moves the window baseline."""
-        d = self.dispatch_s - self._mark_dispatch_s
-        n = self.dispatches - self._mark_dispatches
-        self._mark_dispatch_s = self.dispatch_s
-        self._mark_dispatches = self.dispatches
-        return d, 0.0, n
+        with self._lock:
+            d = self.dispatch_s - self._mark_dispatch_s
+            p = self.put_s - self._mark_put_s
+            n = self.dispatches - self._mark_dispatches
+            self._mark_dispatch_s = self.dispatch_s
+            self._mark_put_s = self.put_s
+            self._mark_dispatches = self.dispatches
+            return d, p, n
 
     def per_step(self, num_steps: int) -> float:
         """Host overhead (dispatch + put walls) a plan step."""

@@ -37,10 +37,22 @@ trainer's does). ``--seq_parallel ring|ulysses`` trains the
 language model with its sequence sharded over the ranks
 (``train/sp_engine.py``). ``--remat`` recomputes the
 training forward in the backward (``train/steps.py`` ``forward``).
-Flags that tune only the JAX package's compile service or device cache
-(``aot_*``, ``speculate_scan``, ``warm_start``, ``device_cache*``) have no
-meaning for an eager PyTorch program; they are checked, accepted and have
-no effect. ``--ckpt_dir`` (``train/checkpoint.py``), ``--trace``,
+Flags that tune only the JAX package's compile service (``aot_*``,
+``speculate_scan``, ``warm_start``) have no meaning for an eager PyTorch
+program; they are checked, accepted and have no effect.
+
+``--device_cache`` has the JAX package's meaning (``Trainer.
+_decide_device_cache``): under ``on``, or ``auto`` while the training
+arrays fit ``device_cache_mb`` (512 MB), the training set lives on the
+device and epochs gather it there by index; under ``off``, or ``auto``
+over the cap, it stays on the host, and the packed and elastic epochs of
+one process are fed a window at a time (``stream_chunk_steps``, and
+``superstep_window`` in scan mode): each window's rows packed by the C++
+gather (``runtime/native.py``) into pinned memory and staged one window
+ahead on a CUDA copy stream (``train/pipeline.py``); validation then
+streams the test set from pinned host memory. The ranks' windows, the
+fused paths and the language model keep their data on the device under
+``off`` for now (the run says so once). ``--ckpt_dir`` (``train/checkpoint.py``), ``--trace``,
 ``--trace_spool`` and ``--trace_annotations`` (``obs/trace.py``,
 ``obs/spool.py``) and ``--profile_dir`` (``torch.profiler``) work as in the
 JAX package. ``--precision bfloat16`` is the JAX package's compute-dtype policy:

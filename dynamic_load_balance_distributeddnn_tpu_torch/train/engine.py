@@ -87,6 +87,20 @@ and host-overhead reference, on both paths. The probes and the in-step
 calibration stay eager. Each epoch's captures, replays, capture seconds,
 dispatches and host dispatch seconds go to ``_meta["supersteps"]``.
 
+The host-fed path (``--device_cache off``, or ``auto`` over
+``device_cache_mb``; ``_decide_device_cache``): the training set stays on
+the host and the packed and elastic epochs of one process are fed a window
+at a time through ``train/pipeline.py``'s ``WindowTransferPipeline``: each
+window's rows packed by the C++ ``take_rows`` (``runtime/native.py``) into
+a pinned slot, staged one window ahead on a CUDA copy stream, then
+augmented or normalised here, in step order (``_run_packed_windows``,
+``_run_elastic_windows``). A mid-epoch switch re-plans from the pipeline's
+``next_unlaunched`` window; a re-shard drains the live pipeline first
+(``_quiesce_pipeline``); the probes take the first window's rows and
+validation streams the test set from pinned memory (``_eval_chunk``). The
+stages' walls are ``host_put_s``. Resident (the default below the cap),
+each step gathers its rows on the device by index.
+
 Checkpoints (``--ckpt_dir``, ``train/checkpoint.py``): ``run`` restores the
 latest one before its first epoch (``_maybe_restore``: the parameters and
 momentum buffers copied in place, the step counter, the generators' states
@@ -261,6 +275,11 @@ from dynamic_load_balance_distributeddnn_tpu_torch.train.steps import (
     probe_grads,
     set_remat,
 )
+from dynamic_load_balance_distributeddnn_tpu_torch.runtime.native import native_impl, take_rows
+from dynamic_load_balance_distributeddnn_tpu_torch.train.pipeline import (
+    WindowStager,
+    WindowTransferPipeline,
+)
 from dynamic_load_balance_distributeddnn_tpu_torch.train.supersteps import StepGraphs
 
 _EVAL_CHUNK = 1024
@@ -408,6 +427,15 @@ class Trainer:
             self._trace = get_tracer()
         self._setup_grad_comm()
 
+        # --device_cache, decided in _setup_data: the host-fed path's pinned
+        # slots and copy stream, its live pipeline (drained before a
+        # re-shard), and the training set uploaded for a path not yet fed
+        # from the host
+        self._host_feed = False
+        self._stager = WindowStager(self.device)
+        self._live_pipeline: Optional[WindowTransferPipeline] = None
+        self._train_dev: Optional[tuple] = None
+        self._cache_off_logged = False
         self._setup_data(bundle)
         self._setup_model()
         set_remat(self.model, cfg.remat)  # --remat: train/steps.py forward
@@ -737,12 +765,80 @@ class Trainer:
             self.logger.info(
                 f"dataset {cfg.dataset}: files not found, using the synthetic stand-in"
             )
-        # the whole uint8 dataset lives on the device; epochs gather by index
+        # --device_cache: the uint8 dataset lives on the device and epochs
+        # gather by index, or (off, or auto over the cap) it stays on the
+        # host and the packed and elastic epochs are fed by window
+        # (train/pipeline.py). The host-fed training rows are packed into
+        # pinned slots, so their source stays pageable; the test set, copied
+        # straight from, is pinned on a card
+        self._use_device_cache = self._decide_device_cache()
+        self._host_feed = not self._use_device_cache
         dev = self.device
-        self.train_x = torch.from_numpy(np.ascontiguousarray(bundle.train_x)).to(dev)
-        self.train_y = torch.from_numpy(bundle.train_y.astype(np.int64)).to(dev)
-        self.test_x = torch.from_numpy(np.ascontiguousarray(bundle.test_x)).to(dev)
-        self.test_y = torch.from_numpy(bundle.test_y.astype(np.int64)).to(dev)
+        arrays = (np.ascontiguousarray(bundle.train_x), bundle.train_y.astype(np.int64),
+                  np.ascontiguousarray(bundle.test_x), bundle.test_y.astype(np.int64))
+        tx, ty, vx, vy = (torch.from_numpy(a) for a in arrays)
+        mb = (bundle.train_x.nbytes + bundle.train_y.nbytes) / 1e6
+        if self._use_device_cache:
+            self.logger.info(
+                f"device cache: train arrays HBM-resident ({mb:.1f} MB), epochs fed by index"
+            )
+            tx, ty, vx, vy = (t.to(dev) for t in (tx, ty, vx, vy))
+        else:
+            self.logger.info(
+                f"device cache off: train arrays host-resident ({mb:.1f} MB), epochs fed by "
+                f"window (rows packed by the {native_impl()} gather)"
+            )
+            if dev.type == "cuda":
+                vx, vy = vx.pin_memory(), vy.pin_memory()
+        self.train_x, self.train_y, self.test_x, self.test_y = tx, ty, vx, vy
+
+    def _decide_device_cache(self) -> bool:
+        """The JAX ``_decide_device_cache``: the training arrays stay on the
+        device under ``on``, or under ``auto`` while they fit
+        ``device_cache_mb``; a run without them (the language model's token
+        stream) warns under ``on`` and has none."""
+        cfg = self.cfg
+        if cfg.device_cache == "off":
+            return False
+        tx = getattr(self.bundle, "train_x", None) if self.bundle is not None else None
+        ty = getattr(self.bundle, "train_y", None) if self.bundle is not None else None
+        if tx is None or ty is None:
+            if cfg.device_cache == "on":
+                self.logger.warning("device_cache=on ignored: no cacheable train arrays")
+            return False
+        if cfg.device_cache == "on":
+            return True
+        return tx.nbytes + ty.nbytes <= cfg.device_cache_mb * 1_000_000
+
+    def _train_on_device(self) -> "tuple[torch.Tensor, torch.Tensor]":
+        """The training set on the device for a path that gathers it there
+        by index: the resident arrays, or, under cache off on a path not
+        yet fed from the host (the ranks, the fused paths), one upload made
+        at its first use."""
+        if self.train_x.device == self.device:
+            return self.train_x, self.train_y
+        if self._train_dev is None:
+            self._train_dev = (self.train_x.to(self.device), self.train_y.to(self.device))
+        return self._train_dev
+
+    def _feeds_from_host(self, path: str) -> bool:
+        """Whether this epoch's training rows come from the host: with the
+        cache off, on the packed and elastic paths of one process. The
+        ranks' windows, the fused paths and the language model keep their
+        rows on the device; the cache's setting reaches them later (logged
+        once)."""
+        fed = (self._host_feed and self.n_proc == 1
+               and (path == "packed" or (path == "elastic" and self._elastic_mode() != "window")))
+        if (not fed and (self._host_feed or self.cfg.device_cache == "off")
+                and not self._cache_off_logged):
+            self._cache_off_logged = True
+            what = ("the language model" if self.bundle is None
+                    else "the ranks' window mode" if path == "elastic" else f"the {path} path")
+            self.logger.info(
+                f"device_cache={self.cfg.device_cache}: {what} keeps its training data on the "
+                "device; host feeding there comes later (ROADMAP.md)"
+            )
+        return fed
 
     def _setup_model(self) -> None:
         cfg = self.cfg
@@ -1482,6 +1578,17 @@ class Trainer:
         for name, g in self._generators().items():
             g.set_state(snap["generators"][name])
 
+    def _quiesce_pipeline(self) -> None:
+        """Drain the host-fed path's transfer pipeline before a re-shard
+        (the JAX ``_quiesce_pipeline``): its gather and stage threads read
+        the segment plans, the stager and the device, and an epoch left by
+        an exception (a confirmed loss mid-epoch) may leave it published.
+        ``close`` joins its threads and is idempotent against the context
+        manager's own exit."""
+        pipe, self._live_pipeline = self._live_pipeline, None
+        if pipe is not None:
+            pipe.close()
+
     def _reshard_world(self, active: List[int], new_world: bool = False) -> None:
         """Point the engine at a new active fleet (the JAX ``_reshard_world``):
         the world size, the topology of this process's workers on its
@@ -1500,6 +1607,7 @@ class Trainer:
         has it. The device stays the process's own (its gen-0 ident's slice
         of the ``-gpu`` map), whatever rank the new world gives it. The
         caller restores the state (``_state_from_host``)."""
+        self._quiesce_pipeline()
         self.active_ranks = sorted(int(r) for r in active)
         self.world_size = len(self.active_ranks)
         if self.world_size < 1:
@@ -1998,9 +2106,10 @@ class Trainer:
     def _dummy_batch(self, b: int):
         """``b`` rows of the training set, normalised (no augmentation
         draw), weight ``1 / b`` each: a readmission probe's batch."""
-        x = normalize_images(self.train_x[:b], self.bundle.mean, self.bundle.std)
+        x = normalize_images(self.train_x[:b].to(self.device), self.bundle.mean, self.bundle.std)
         x = x if self.compute_dtype is None else x.to(self.compute_dtype)
-        return x, self.train_y[:b], torch.full((x.shape[0],), 1.0 / x.shape[0], device=self.device)
+        return (x, self.train_y[:b].to(self.device),
+                torch.full((x.shape[0],), 1.0 / x.shape[0], device=self.device))
 
     def _probe_readmitted(self, compact_rank: int) -> Optional[float]:
         """A readmitted worker's seconds an example from one standalone
@@ -2414,6 +2523,7 @@ class Trainer:
         path = ("fused" if fused else "fused_dbs" if fused_dbs else "packed" if packed
                 else "elastic")
         self._packed_epoch = packed
+        self._feeds_from_host(path)  # logs once where cache off does not reach yet
         before = self.supersteps.stats()
         if fused or fused_dbs:
             out = self._train_epoch_fused(plan, faults, epoch, dbs_probe=fused_dbs)
@@ -2436,7 +2546,8 @@ class Trainer:
         prepared variants exceed the keys dispatched."""
         now = self.supersteps.stats()
         if path == "packed":
-            windows = 1
+            # one dispatch an epoch, or a window when fed from the host
+            windows = len(self._chunk_ranges(plan.num_steps)) if self._feeds_from_host(path) else 1
         elif path == "elastic":
             windows = len(self._elastic_ranges(plan.num_steps))
         else:  # the fused paths: stream_chunk_steps windows
@@ -2515,10 +2626,11 @@ class Trainer:
 
         return warm
 
-    def _worker_rows(self, plan, rank: int):
-        """Worker ``rank``'s epoch on the host: example indices and weights
-        ``[steps, padded_batch]`` and the real rows a step (a prefix)."""
-        idx, mask = plan.epoch_indices(rank)
+    def _worker_rows(self, plan, rank: int, s0: int = 0, s1: Optional[int] = None):
+        """Worker ``rank``'s steps ``[s0, s1)`` (default: the epoch) on the
+        host: example indices and weights ``[steps, padded_batch]`` and the
+        real rows a step (a prefix)."""
+        idx, mask = plan.epoch_indices(rank, s0, s1)
         w = np.stack(
             [
                 example_weights(
@@ -2541,13 +2653,14 @@ class Trainer:
         idx, w, n_real = self._worker_rows(plan, rank)
         idx = torch.from_numpy(idx).to(self.device)
         w = torch.from_numpy(w).to(self.device)
+        tx, ty = self._train_on_device()
 
         def step(s: int):
             n = n_real[s]
             if n == 0:
                 return None, 0  # all-padding step: weight 0, skipped
             rows = idx[s, :n]
-            return (self._prep(self.train_x[rows]), self.train_y[rows], w[s, :n]), n
+            return (self._prep(tx[rows]), ty[rows], w[s, :n]), n
 
         return step
 
@@ -2632,14 +2745,22 @@ class Trainer:
         ``StepGraphs`` under one dispatch); the controller runs after every
         ``rebalance_every`` windows. Adds each step's loss sum and real-row
         count into ``acc``; returns the first step's batches (the probes
-        reuse them). Shared by the epoch and the switch-parity replay."""
+        reuse them). Shared by the epoch and the switch-parity replay.
+
+        Fed from the host (``_feeds_from_host``), the windows' rows come
+        through a ``WindowTransferPipeline``: each window's workers' real
+        rows, step by step, packed into a pinned slot from the segment's
+        plan and staged one window ahead; a switch re-plans from the
+        pipeline's ``next_unlaunched`` window on. Resident, each step
+        gathers its rows on the device by index."""
         cfg = self.cfg
         meter = self._host_meter
         slow = [int(v) for v in faults.slow_iters_per_step]
         time_varying = (
             getattr(self.injector, "faults_at", None) is not None and self._needs_iter_cost
         )
-        suppliers: Dict[int, list] = {}  # segment start -> the workers' batch suppliers
+        fed = self._feeds_from_host("elastic")
+        suppliers: Optional[Dict[int, list]] = None if fed else {}  # segment start -> suppliers
         eval_state = {"t": time.perf_counter(), "step": 0}
         first = None
         scan = self._elastic_mode() == "scan"
@@ -2648,62 +2769,113 @@ class Trainer:
             self.supersteps.loss.copy_(acc["loss"])
             body, warm = self._elastic_body(), self._warmup(self.grad_clip)
 
-        def gather(s: int):
+        def gather(step_batches, s: int):
             batches = []
-            for supply in suppliers[off]:
-                b, n = supply(s - off)
+            for b, n in step_batches(s):
                 batches.append(b)
                 acc["count"] += n
                 if b is not None:
                     acc["rows"] = acc.get("rows", 0) + int(b[0].shape[0])
             return batches
 
-        for i, (w0, w1) in enumerate(ranges):
-            # liveness at every window boundary: a loss mid-epoch is found
-            # within detect_misses windows and the epoch re-run over the
-            # survivors (_run_epoch_elastic_world)
-            self._check_health(epoch, w0 / max(plan.num_steps, 1))
+        def resident(w0: int):
             pl, off = self._seg_for_step(seg_plans, w0)
             if off not in suppliers:
                 suppliers[off] = [self._worker_epoch(pl, r) for r in range(self.world_size)]
-            if time_varying:
-                # the injected load follows the schedule at window
-                # granularity: its value in mid-window, at this segment's split
-                t_mid = float(epoch) + (w0 + w1) / (2.0 * max(plan.num_steps, 1))
-                wf = self._window_faults_at(t_mid, pl)
-                if wf is not None:
-                    slow = [int(v) for v in wf.slow_iters_per_step]
-            if self.augment:
-                self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
-            # one span a window (not a step), as the JAX package's
-            with self._trace.span("dispatch_window", cat="dispatch"):
-                if scan:
-                    with meter.dispatch():  # the window's steps: one dispatch
+            return lambda s: [supply(s - off) for supply in suppliers[off]]
+
+        def staged(i: int, w0: int):
+            win = pipe.get(i)[1][0]
+            x, y, wt = win.tensors
+            start, count = win.meta
+
+            def step(s: int):
+                out = []
+                for a, n in zip(start[s - w0].tolist(), count[s - w0].tolist()):
+                    b = (self._prep(x[a:a + n]), y[a:a + n], wt[a:a + n]) if n else None
+                    out.append((b, n))
+                return out
+
+            return step
+
+        pipe = (WindowTransferPipeline(ranges, self._elastic_gather(seg_plans, ranges),
+                                       self._stage_window, [0], meter=meter)
+                if fed else None)
+        with pipe if fed else contextlib.nullcontext():
+            self._live_pipeline = pipe
+            for i, (w0, w1) in enumerate(ranges):
+                # liveness at every window boundary: a loss mid-epoch is found
+                # within detect_misses windows and the epoch re-run over the
+                # survivors (_run_epoch_elastic_world)
+                self._check_health(epoch, w0 / max(plan.num_steps, 1))
+                pl, off = self._seg_for_step(seg_plans, w0)
+                step_batches = staged(i, w0) if fed else resident(w0)
+                if time_varying:
+                    # the injected load follows the schedule at window
+                    # granularity: its value in mid-window, at this segment's split
+                    t_mid = float(epoch) + (w0 + w1) / (2.0 * max(plan.num_steps, 1))
+                    wf = self._window_faults_at(t_mid, pl)
+                    if wf is not None:
+                        slow = [int(v) for v in wf.slow_iters_per_step]
+                if self.augment:
+                    self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
+                # one span a window (not a step), as the JAX package's
+                with self._trace.span("dispatch_window", cat="dispatch"):
+                    if scan:
+                        with meter.dispatch():  # the window's steps: one dispatch
+                            for s in range(w0, w1):
+                                batches = gather(step_batches, s)
+                                self._superstep("elastic", batches, slow, body, warm)
+                                if first is None:
+                                    first = batches
+                    else:
                         for s in range(w0, w1):
-                            batches = gather(s)
-                            self._superstep("elastic", batches, slow, body, warm)
+                            with meter.dispatch():
+                                batches = gather(step_batches, s)
+                                step_loss = elastic_step(
+                                    self.model, self.optimizer, batches, self.grad_clip,
+                                    self.load, slow, self.compute_dtype,
+                                )
+                                if step_loss is not None:
+                                    acc["loss"] += step_loss
                             if first is None:
                                 first = batches
-                else:
-                    for s in range(w0, w1):
-                        with meter.dispatch():
-                            batches = gather(s)
-                            step_loss = elastic_step(
-                                self.model, self.optimizer, batches, self.grad_clip, self.load,
-                                slow, self.compute_dtype,
-                            )
-                            if step_loss is not None:
-                                acc["loss"] += step_loss
-                        if first is None:
-                            first = batches
-            self.steps_done += w1 - w0
-            if controller is not None and (i + 1) % cfg.rebalance_every == 0:
-                self._maybe_window_rebalance(
-                    controller, plan, seg_plans, ranges, i, epoch, eval_state, suppliers
-                )
+                self.steps_done += w1 - w0
+                if controller is not None and (i + 1) % cfg.rebalance_every == 0:
+                    self._maybe_window_rebalance(
+                        controller, plan, seg_plans, ranges, i, epoch, eval_state, suppliers,
+                        pipe,
+                    )
+        # a normal exit drained the pipeline; an exception leaves it
+        # published, and the recovery's _reshard_world drains it again
+        self._live_pipeline = None
         if scan:
             acc["loss"].copy_(self.supersteps.loss)
         return first
+
+    def _elastic_gather(self, seg_plans, ranges):
+        """The host-fed elastic epoch's gather, ``gather(w0, w1)``: the
+        window's plan from ``seg_plans`` by its first step (a switch only
+        appends segments from the pipeline's next unlaunched window on, so
+        a gather never sees its window's plan change), each step's real rows
+        worker after worker packed into the stager's pinned slot, and the
+        table ``(start, count)`` ``[steps, workers]`` of where each worker's
+        rows of each step begin and how many there are."""
+        win = {r: i for i, r in enumerate(ranges)}
+        x_shape = tuple(self.train_x.shape[1:])
+
+        def gather(w0: int, w1: int):
+            pl, off = self._seg_for_step(seg_plans, w0)
+            parts = [self._worker_rows(pl, r, w0 - off, w1 - off) for r in range(self.world_size)]
+            count = np.array([p[2] for p in parts], dtype=np.int64).T  # [steps, workers]
+            sel = np.concatenate([idx[k, :count[k, r]] for k in range(w1 - w0)
+                                  for r, (idx, _, _) in enumerate(parts)])
+            w = np.concatenate([ww[k, :count[k, r]] for k in range(w1 - w0)
+                                for r, (_, ww, _) in enumerate(parts)])
+            start = (np.cumsum(count.ravel()) - count.ravel()).reshape(count.shape)
+            return self._pack_rows(win[(w0, w1)], sel, w, x_shape), (start, count)
+
+        return gather
 
     # ------------------------------------------------------- ranks (window)
 
@@ -2967,18 +3139,20 @@ class Trainer:
         return eff
 
     def _maybe_window_rebalance(self, ctl, plan, seg_plans, ranges, i: int, epoch: int,
-                                eval_state, suppliers) -> None:
+                                eval_state, suppliers, pipe=None) -> None:
         """One controller evaluation at the boundary after window ``i``:
         fold the signal, propose, and on a switch re-slice the windows from
-        ``i + 2`` on under the new plan. The JAX package's double-buffered
-        transfer pipeline has already staged window ``i + 1`` when its
-        controller runs (``next_unlaunched``); this loop is synchronous but
-        keeps that horizon, so its switches land on the same steps. The
-        measured switch cost covers the whole span from the evaluation's
-        start to the applied switch (the synchronize, the signal, the solve,
-        the re-slice and the new segment's rows), the host price a switch
-        pays."""
-        j = i + 2
+        the horizon on under the new plan. The horizon is the transfer
+        pipeline's ``next_unlaunched`` window, as in the JAX package: fed
+        from the host, window ``i + 1`` is already gathered and staged
+        under the old plan, so it is ``i + 2``; the resident loop keeps that
+        horizon, so its switches land on the same steps. ``suppliers``
+        (resident: the segments' batch suppliers) gains the new segment's.
+        The measured switch cost covers the whole span from the
+        evaluation's start to the applied switch (the synchronize, the
+        signal, the solve, the re-slice and the new segment's rows), the
+        host price a switch pays."""
+        j = pipe.next_unlaunched() if pipe is not None else i + 2
         if j >= len(ranges):
             return  # no window left to act on
         s_switch = ranges[j][0]
@@ -3021,8 +3195,15 @@ class Trainer:
             rplan = build_remainder_plan(
                 cur_pl, s_switch - cur_off, dec.candidate_batches, bucket=self.cfg.bucket
             )
+            # gathers read seg_plans from the staging threads: the append is
+            # safe only while the launch frontier still sits at j
+            assert pipe is None or pipe.next_unlaunched() == j, (
+                f"window rebalance raced the transfer pipeline: frontier moved {j} -> "
+                f"{pipe.next_unlaunched()} during the solve")
             seg_plans.append((s_switch, rplan))
-            suppliers[s_switch] = [self._worker_epoch(rplan, r) for r in range(self.world_size)]
+            if suppliers is not None:
+                suppliers[s_switch] = [self._worker_epoch(rplan, r)
+                                       for r in range(self.world_size)]
             self.shares = np.asarray(dec.candidate_shares, dtype=np.float64)
             ev = ctl.commit(
                 dec, time.perf_counter() - t_eval0,
@@ -3061,7 +3242,15 @@ class Trainer:
         """One step a plan step over the workers' concatenated real rows
         (worker order, each worker's weights as on the elastic path), the
         workers' injected load summed, then the same per-worker probes on
-        each worker's rows of the epoch's first step."""
+        each worker's rows of the epoch's first step.
+
+        Fed from the host (``_feeds_from_host``): the epoch runs as
+        ``_chunk_ranges`` windows through a ``WindowTransferPipeline``, each
+        window's concatenated rows packed by ``take_rows`` into a pinned
+        slot and staged one window ahead (span ``fused_put``: the wait for
+        it); ``_prep`` still runs on the device on this thread, in step
+        order, so the augmentation draws what it draws from resident rows,
+        and the probes take their rows from the first window."""
         cfg = self.cfg
         self.timekeeper.reset()
         self.model.train()
@@ -3072,40 +3261,116 @@ class Trainer:
         idx = np.concatenate([i[s, : n[s]] for s in steps for i, _, n in rows])
         w = np.concatenate([ww[s, : n[s]] for s in steps for _, ww, n in rows])
         offs = np.cumsum([0] + [sum(n[s] for _, _, n in rows) for s in steps]).tolist()
-        idx = torch.from_numpy(idx).to(self.device)
-        w = torch.from_numpy(w).to(self.device)
         slow = int(faults.slow_iters_per_step.sum())
         meter = self._host_meter
         meter.reset()
-
-        def batch(s: int):
-            sel = idx[offs[s] : offs[s + 1]]
-            return (self._prep(self.train_x[sel]), self.train_y[sel], w[offs[s] : offs[s + 1]])
-
-        if self._elastic_mode() == "scan":
-            # the epoch's steps through StepGraphs in one dispatch, as the
-            # JAX package's packed epoch is one scan
+        scan = self._elastic_mode() == "scan"
+        if scan:
             self.supersteps.loss.zero_()
             body, warm = self._packed_body(), self._warmup(0.0)
-            with meter.dispatch():
-                for s in steps:
-                    self._superstep("packed", [batch(s)], [slow], body, warm)
-            loss_sum = self.supersteps.loss.clone()
+            loss_sum = self.supersteps.loss
         else:
             loss_sum = torch.zeros((), device=self.device)
-            for s in steps:
+
+        def run(batch, s0: int, s1: int):
+            """Steps ``[s0, s1)``: through StepGraphs under one dispatch, as
+            the JAX package's packed epoch is one scan, or eager."""
+            nonlocal loss_sum
+            if scan:
+                with meter.dispatch():
+                    for s in range(s0, s1):
+                        self._superstep("packed", [batch(s)], [slow], body, warm)
+                return
+            for s in range(s0, s1):
                 with meter.dispatch():
                     loss_sum += packed_step(self.model, self.optimizer, batch(s), self.load, slow,
                                             self.compute_dtype)
+
+        if self._feeds_from_host("packed"):
+            first_rows = self._run_packed_windows(plan, run, idx, w, offs, rows)
+        else:
+            idx_t = torch.from_numpy(idx).to(self.device)
+            w_t = torch.from_numpy(w).to(self.device)
+
+            def batch(s: int):
+                sel = idx_t[offs[s] : offs[s + 1]]
+                return (self._prep(self.train_x[sel]), self.train_y[sel],
+                        w_t[offs[s] : offs[s + 1]])
+
+            run(batch, 0, plan.num_steps)
+            first_rows = None
+        if scan:
+            loss_sum = loss_sum.clone()
         self.steps_done += plan.num_steps
         self._sync()
 
         def first():
-            return [self._worker_epoch(plan, r)(0)[0] for r in range(self.world_size)]
+            if first_rows is None:
+                return [self._worker_epoch(plan, r)(0)[0] for r in range(self.world_size)]
+            return [None if b is None else (self._prep(b[0]), b[1], b[2]) for b in first_rows]
 
         out = self._finish_epoch(plan, faults, epoch, loss_sum, offs[-1], first, offs[-1])
         out["host_dispatch_s"] = meter.dispatch_s
+        out["host_put_s"] = meter.put_s
         return out
+
+    def _run_packed_windows(self, plan, run, idx: np.ndarray, w: np.ndarray, offs, rows):
+        """The host-fed packed epoch: each ``_chunk_ranges`` window's rows
+        ``idx[offs[s0]:offs[s1]]`` gathered into the stager's pinned slot
+        and staged through the pipeline, its steps run by ``run(batch, s0,
+        s1)``. Returns the first step's raw rows a worker, ``(x_u8, y, w)``
+        or None, copied out of the first window for the probes."""
+        ranges = self._chunk_ranges(plan.num_steps)
+        win = {r: i for i, r in enumerate(ranges)}
+        x_shape = tuple(self.train_x.shape[1:])
+
+        def gather(s0: int, s1: int):
+            i, sel = win[(s0, s1)], idx[offs[s0] : offs[s1]]
+            return self._pack_rows(i, sel, w[offs[s0] : offs[s1]], x_shape), None
+
+        first_rows = None
+        with WindowTransferPipeline(ranges, gather, self._stage_window, [0],
+                                    meter=self._host_meter) as pipe:
+            self._live_pipeline = pipe
+            for i, (s0, s1) in enumerate(ranges):
+                with self._trace.span("fused_put", cat="transfer"):
+                    x, y, wt = pipe.get(i)[1][0].tensors
+
+                def batch(s: int, base=offs[s0]):
+                    a, b = offs[s] - base, offs[s + 1] - base
+                    return self._prep(x[a:b]), y[a:b], wt[a:b]
+
+                if first_rows is None:
+                    first_rows, a = [], 0
+                    for _, _, n in rows:
+                        b = a + n[0]
+                        first_rows.append(None if n[0] == 0 else
+                                          (x[a:b].clone(), y[a:b].clone(), wt[a:b].clone()))
+                        a = b
+                with self._trace.span("fused_dispatch", cat="dispatch"):
+                    run(batch, s0, s1)
+        self._live_pipeline = None
+        return first_rows
+
+    def _pack_rows(self, i: int, sel: np.ndarray, w: np.ndarray, x_shape):
+        """Window ``i``'s rows ``sel`` of the training set and their weights
+        ``w``, packed into the stager's pinned slot by the C++ gather:
+        ``(x_u8, y, w)`` host tensors."""
+        st, n = self._stager, len(sel)
+        x = st.host(i, "x", (n,) + x_shape, self.train_x.dtype)
+        take_rows(self.train_x.numpy(), sel, out=x.numpy())
+        y = st.host(i, "y", (n,), torch.int64)
+        take_rows(self.train_y.numpy(), sel, out=y.numpy())
+        wt = st.host(i, "w", (n,), torch.from_numpy(w).dtype)
+        wt.numpy()[:] = w
+        return x, y, wt
+
+    def _stage_window(self, d: int, i: int, data):
+        """The pipeline's stage: window ``i``'s host tensors onto this
+        process's device, with the gather's metadata (the elastic path's
+        table of rows)."""
+        tensors, meta = data
+        return self._stager.stage(i, tensors, meta)
 
     def _train_epoch_fused(self, plan, faults: EpochFaults, epoch: int,
                            dbs_probe: bool = False) -> Dict[str, float]:
@@ -3179,9 +3444,10 @@ class Trainer:
             idx, w = np.pad(idx, pad), np.pad(w, pad)
         idx_t = torch.from_numpy(idx).to(self.device)
         w_t = torch.from_numpy(w).to(self.device)
+        tx, ty = self._train_on_device()
 
         def batch(s: int):
-            return self._prep(self.train_x[idx_t[s]]), self.train_y[idx_t[s]], w_t[s]
+            return self._prep(tx[idx_t[s]]), ty[idx_t[s]], w_t[s]
 
         return width, batch, n_real
 
@@ -3448,13 +3714,22 @@ class Trainer:
         correct = torch.zeros((), device=self.device, dtype=torch.int64)
         n = len(self.test_y)
         for lo in range(0, n, _EVAL_CHUNK):
-            x = normalize_images(self.test_x[lo : lo + _EVAL_CHUNK], self.bundle.mean, self.bundle.std)
-            y = self.test_y[lo : lo + _EVAL_CHUNK]
+            x, y = self._eval_chunk(lo)
             out = self.model(x).float()
             loss_sum += softmax_xent(out, y).sum()
             correct += (out.argmax(dim=-1) == y).sum()
         self.model.train()
         return float(loss_sum) / max(n, 1), 100.0 * float(correct) / max(n, 1)
+
+    def _eval_chunk(self, lo: int) -> "tuple[torch.Tensor, torch.Tensor]":
+        """The test set's ``_EVAL_CHUNK`` rows from ``lo``, normalised, on
+        the device: sliced there when resident, else copied from pinned
+        host memory (``non_blocking`` on the current stream, which then
+        reads them in order)."""
+        sl = slice(lo, lo + _EVAL_CHUNK)
+        x = self.test_x[sl].to(self.device, non_blocking=True)
+        y = self.test_y[sl].to(self.device, non_blocking=True)
+        return normalize_images(x, self.bundle.mean, self.bundle.std), y
 
     @torch.no_grad()
     def _validate_sharded(self) -> "tuple[float, float]":
@@ -3467,9 +3742,7 @@ class Trainer:
         starts = list(range(0, n, _EVAL_CHUNK))
         stats = np.zeros((len(starts), 2), dtype=np.float64)
         for i in range(self.proc_id, len(starts), self.n_proc):
-            lo = starts[i]
-            x = normalize_images(self.test_x[lo:lo + _EVAL_CHUNK], self.bundle.mean, self.bundle.std)
-            y = self.test_y[lo:lo + _EVAL_CHUNK]
+            x, y = self._eval_chunk(starts[i])
             out = self.model(x).float()
             stats[i] = (float(softmax_xent(out, y).sum()), int((out.argmax(dim=-1) == y).sum()))
         self.model.train()

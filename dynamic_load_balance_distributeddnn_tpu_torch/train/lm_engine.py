@@ -93,6 +93,10 @@ class LMTrainer(Trainer):
         self.train_stream = stream
         self.n_train = len(stream)
         self.bundle = None
+        # the token stream folds into windows on the host: nothing to cache
+        # (``on`` warns, as in the JAX package); the windows stay on the
+        # device under ``off`` (_feeds_from_host logs it)
+        self._use_device_cache = self._decide_device_cache()
         # the test windows, flattened to independent [rows, bptt] sequences
         # (each row one column's window), live on the device for every epoch
         test = self.corpus.test

@@ -106,9 +106,14 @@ class CaptureGate:
         self._local = threading.local()
 
     @contextlib.contextmanager
-    def shared(self):
+    def shared(self, queue: bool = True):
+        """``queue=False``: wait only while a capture runs, not while one
+        waits. A staging thread of ``train/pipeline.py`` takes it so: the
+        thread it stages for may hold the gate shared and wait on it, and a
+        waiting capture that kept it out would then wait on that hold
+        forever."""
         with self._cv:
-            while self._writer or self._waiting:
+            while self._writer or (queue and self._waiting):
                 self._cv.wait()
             self._shared += 1
         self._local.held = getattr(self._local, "held", 0) + 1

@@ -1012,3 +1012,91 @@ def test_graphed_training_equals_eager_on_the_card(cuda, tmp_path, case):
     assert sum(r["captures"] for r in ran) >= 1 and sum(r["replays"] for r in ran) >= 2
     key = "attn_fwd" if case == "lm" else "groupnorm_bwd"
     assert n_auto[key] >= n_off[key] > 0  # replays counted, warm-ups added
+
+
+@pytest.mark.cuda
+def test_staged_windows_survive_slot_reuse_on_the_card(cuda):
+    """The host-fed path's staging on the card (``train/pipeline.py``):
+    windows packed by ``take_rows`` into the two pinned slots, copied on the
+    copy stream while the default stream is kept busy, each consumed after
+    the next two windows reused its slot: every window's device rows equal
+    its host rows, the slots are pinned, and the copies ran on the copy
+    stream (the consumer waits on each window's event)."""
+    import numpy as np
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.runtime.native import take_rows
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.pipeline import (
+        WindowStager,
+        WindowTransferPipeline,
+    )
+
+    rng = np.random.RandomState(0)
+    data = rng.randint(0, 255, size=(4096, 32, 32, 3)).astype(np.uint8)
+    ranges = [(s, s + 1) for s in range(8)]
+    sels = [rng.randint(0, 4096, size=512 + 64 * i) for i in range(8)]
+    st = WindowStager(cuda)
+    pinned = []
+
+    def gather(s0, s1):
+        x = st.host(s0, "x", (len(sels[s0]), 32, 32, 3), torch.uint8)
+        pinned.append(x.is_pinned())
+        take_rows(data, sels[s0], out=x.numpy())
+        return (x,)
+
+    busy = torch.randn(4096, 4096, device=cuda)
+    got = []
+    with WindowTransferPipeline(ranges, gather, lambda d, i, t: st.stage(i, t), [0]) as pipe:
+        for i in range(len(ranges)):
+            for _ in range(4):
+                busy = busy @ busy / 64.0  # the consumer's stream stays behind
+            x = pipe.get(i)[1][0].tensors[0]
+            got.append((x.sum(dtype=torch.int64), x))  # read on the default stream
+    torch.cuda.synchronize()
+    assert all(pinned) and st._stream is not None
+    for (total, x), sel in zip(got, sels):
+        want = data[sel]
+        assert np.array_equal(x.cpu().numpy(), want)
+        assert int(total) == int(want.astype(np.int64).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", ["auto", "off"])
+def test_host_fed_training_equals_resident_on_the_card(cuda, tmp_path, packed):
+    """``--device_cache off`` against ``on`` on the card: DenseNet-121 (4
+    workers, B 64, 512 examples, a 3:1 straggler, windows of 2 steps),
+    packed or elastic, step graphs, cuDNN deterministic, a timing model
+    fixing the plans: the same losses, parameters and momentum, bit for
+    bit; nothing of the training set on the card under ``off``."""
+    import numpy as np
+
+    from dynamic_load_balance_distributeddnn_tpu_torch.config import Config
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.engine import Trainer
+
+    def timing(plan):
+        return np.array([3.0, 1.0, 1.0, 1.0]) * np.array(
+            [w.batch_size * w.steps for w in plan.workers])
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for cache in ("on", "off"):
+            cfg = Config(model="densenet", dataset="cifar10", batch_size=64, n_train=512,
+                         world_size=4, epoch_size=2, seed=0, straggler="3,1,1,1", packed=packed,
+                         stream_chunk_steps=2, device_cache=cache, debug=True, device=0,
+                         log_dir=str(tmp_path / cache / "logs"),
+                         stat_dir=str(tmp_path / cache / "statis"))
+            tr = Trainer(cfg, timing_model=timing, device=cuda, log_to_file=False)
+            tr.run()
+            runs[cache] = tr
+    finally:
+        torch.backends.cudnn.deterministic = det
+    on, off = runs["on"], runs["off"]
+    assert off.train_x.device.type == "cpu" and off._train_dev is None
+    assert on.recorder.data["train_loss"] == off.recorder.data["train_loss"]
+    assert on.recorder.data["partition"] == off.recorder.data["partition"]
+    assert all(v > 0 for v in off.recorder.data["host_put_s"])
+    for p, q in zip(on.model.parameters(), off.model.parameters()):
+        assert torch.equal(p, q)
+        assert torch.equal(on.optimizer.state[p]["momentum_buffer"],
+                           off.optimizer.state[q]["momentum_buffer"])

@@ -173,3 +173,16 @@ def test_the_import_checks_cover_sequence_parallelism():
     mods = set(_modules())
     for name in ("parallel.ring", "parallel.ulysses", "parallel.seq_parallel", "train.sp_engine"):
         assert f"{port.__name__}.{name}" in mods, name
+
+
+def test_the_import_checks_cover_the_host_fed_path():
+    """The host-fed path's modules are walked too: the C++ host runtime's
+    bridge keeps its own copy of the JAX package's (it builds the
+    repo-level ``native/src/dbs_native.cpp`` into ``build/native/`` and
+    imports nothing of that package), and the transfer pipeline."""
+    mods = set(_modules())
+    for name in ("runtime.native", "train.pipeline"):
+        assert f"{port.__name__}.{name}" in mods, name
+    text = (PORT_DIR / "runtime" / "native.py").read_text()
+    assert "dynamic_load_balance_distributeddnn_tpu." not in text
+    assert '"build" / "native"' in text
