@@ -88,7 +88,25 @@ phase runs.
    2`` cuts its windows, as ``--superstep_window 2`` does under ``auto``)
    with the same gates, and
    the per-epoch walls beside the same recipe at ``--rebalance epoch`` (for
-   information).
+   information). Both graphed runs take ``--warm_start true``: the warm
+   service's on arm of [4m].
+4m. The warm service (``runtime/compiler.py``: step graphs captured ahead,
+   before an epoch's wall and in its untimed tail). (a) [4e]'s epoch-cadence
+   twin on 2,048 examples, 7 epochs under ``-ocp true``, in virtual mode
+   under a timing model (the plans fixed), cuDNN deterministic, under
+   ``--aot_warm false`` against the default ``true`` with ``--warm_start
+   true``: parameters, momentum, losses and partitions bit for bit; the on
+   arm captures nothing in the foreground, and each decay epoch (a new
+   learning rate: a new key) replays the key its speculation captured with
+   no capture in its wall, where the off arm captures. (b) [4e]'s window recipe (real walls: the controller's
+   decisions follow them, so the arms are compared on their figures, not
+   bits) under ``--aot_warm false`` against [4e]'s run: under ``on`` no
+   foreground capture in an epoch whose every batch tuple the service
+   prepared before its wall; ``off`` takes its captures in the foreground.
+   Printed a line each: each arm's captures and capture seconds inside and
+   outside the walls, the speculation's hits and misses, each arm's epoch
+   walls, and ``measured_s / modeled_s`` at the first evaluation after
+   each switch.
 4f. ``--precision bfloat16`` (bf16 compute over f32 master weights): [4]'s
    recipe, 2 epochs packed, then ``--packed off`` for 2 epochs (the elastic
    step and the probes in bf16): share moved off worker 0, finite losses,
@@ -389,6 +407,8 @@ WINDOW_ARGV = (
 ).split()
 WINDOW_EPOCHS = 2
 EPOCH_CADENCE_ARGV = [("epoch" if a == "window" else a) for a in WINDOW_ARGV]
+# [4e]'s graphed runs are [4m]'s on arm: the warm service with its warm start
+WARM_ARGV = ["--warm_start", "true"]
 # [4e] under --superstep off: the JAX package cuts the eager elastic epoch's
 # windows at stream_chunk_steps alone (128 by default: one window, so no
 # evaluation), so the off arm cuts them there at superstep_window's 2 steps
@@ -506,6 +526,18 @@ def with_n_train(argv, n: int):
     """``argv`` with its ``--n_train`` value replaced."""
     i = argv.index("--n_train")
     return argv[:i + 1] + [str(n)] + argv[i + 2:]
+
+
+# [4m] (a): [4e]'s epoch-cadence twin on 2,048 examples (4 steps an epoch),
+# in virtual mode (under a timing model compute mode would inject nothing:
+# the load's iterations come from probed costs), the plans fixed by a timing
+# model so that the two arms can be held bit for bit; 7 epochs under the
+# one-cycle policy, whose decay epochs (5 and 6) each run a new learning
+# rate, so a new key: the trajectory predictor's velocity has decayed by
+# then (the plan converges at epoch 1) and it predicts their tuple
+WARM_BITS_ARGV = [("virtual" if a == "compute" else a)
+                  for a in with_epochs(with_n_train(EPOCH_CADENCE_ARGV, 2048), 7)] + ["-ocp", "true"]
+WARM_BITS_EPOCHS = 7
 
 
 # [4] and [4e] run traced; [4i] reads their traces and spools. What is too
@@ -1509,6 +1541,145 @@ def check_window_controller(counts, series, mode):
     assert report["replayed"]["switches"] == n, (report["replayed"], n)
     log(f"  journal: {len(corpus['journal'])} decisions replayed bit for bit, no invariant violated")
     return events
+
+
+def warm_figures(series, arm: str):
+    """[4m]: one arm's figures from its series. By epoch: the captures and
+    capture seconds inside the wall (``_meta.supersteps``: the captures of
+    the elastic epoch's staged keys and the foreground ones) and outside it
+    (``_meta.aot``: the pre-wall drain and the speculation's tail), the
+    foreground captures alone, the epoch walls; the speculation's hits and
+    misses (``_meta.aot_service``); ``measured_s / modeled_s`` at the first
+    evaluation after each switch (the wall feedback of the windows that ran
+    the new plan first). Logs them, a line each."""
+    meta = series["_meta"]
+    recs, aot = meta["supersteps"], meta.get("aot", [])
+    epochs = range(len(recs))
+    inside = [(r["captures"], round(r["capture_s"], 3)) for r in recs]
+    outside = [(sum(a["captures"] for a in aot if a["epoch"] == e and a["at"] != "stage"),
+                round(sum(a["capture_s"] for a in aot if a["epoch"] == e and a["at"] != "stage"), 3))
+               for e in epochs]
+    fg = [r["foreground_captures"] for r in recs]
+    stats = meta.get("aot_service") or {}
+    evals = meta.get("rebalance_evals", [])
+    after = []
+    for ev in meta.get("rebalance_events", []):
+        nxt = [e for e in evals if e["epoch"] == ev["epoch"] and e["window"] > ev["window"] + 1
+               and e["measured_s"]]
+        if nxt:
+            after.append((ev["epoch"], ev["window"], round(nxt[0]["measured_s"] / nxt[0]["modeled_s"], 4)))
+    walls = [round(w, 3) for w in epoch_walls(series)]
+    log(f"  ({arm}) captures (count, s) an epoch inside the wall {inside}; outside it "
+        f"(pre-wall drain, speculation) {outside}; foreground {fg}")
+    log(f"  ({arm}) speculation: {stats.get('speculative_captured', 0)} captured, hits "
+        f"{stats.get('speculative_hits', 0)}, misses {stats.get('speculative_misses', 0)}; "
+        f"service captures {stats.get('captured', 0)} in {stats.get('capture_s', 0.0):.2f}s")
+    log(f"  ({arm}) epoch walls {walls} s")
+    log(f"  ({arm}) measured_s / modeled_s at the first evaluation after each switch "
+        f"(epoch, switch window, ratio): {after}")
+    return {"inside": inside, "outside": outside, "foreground": fg, "stats": stats,
+            "walls": walls, "after_switch": after}
+
+
+def prepared_epochs(series):
+    """[4m]'s gate on an on arm: the epochs whose every batch tuple (the
+    boundary plan's and each switch's) was held before the epoch's wall
+    (captured by the warm service before it, in an earlier epoch's stage or
+    speculation or in this epoch's pre-wall drain, or run by an earlier
+    epoch) must take no foreground capture. Returns those epochs."""
+    meta = series["_meta"]
+    aot, events = meta.get("aot", []), meta.get("rebalance_events", [])
+    out, ran = [], set()
+    for rec in meta["supersteps"]:
+        e = rec["epoch"]
+        tuples = {tuple(rec["batch_sizes"])} | {tuple(ev["batches"]) for ev in events
+                                                 if ev["epoch"] == e}
+        ready = ran | {tuple(r) for a in aot
+                       if a["epoch"] < e or (a["epoch"] == e and a["at"] == "drain")
+                       for r in a["rows"]}
+        ran |= tuples
+        if tuples <= ready:
+            assert rec["foreground_captures"] == 0, (
+                f"[4m] epoch {e}: every tuple {sorted(tuples)} was prepared, yet "
+                f"{rec['foreground_captures']} foreground captures")
+            out.append(e)
+    return out
+
+
+def check_warm_service(torch, paths):
+    """[4m]: (a) ``WARM_BITS_ARGV`` under a timing model, cuDNN
+    deterministic, ``--aot_warm false`` against ``true --warm_start true``:
+    parameters, momentum, losses and partitions bit for bit; the on arm
+    takes no foreground capture, the off arm takes its captures in the
+    foreground; each decay epoch of the one-cycle policy replays a
+    speculated key under on and captures in its wall under off. (b) [4e]'s window recipe under ``--aot_warm false`` against
+    [4e]'s own run (``--warm_start true``; run here when [4e] is not in the
+    subset): the on arm's epochs whose tuples were all prepared take no
+    foreground capture (``prepared_epochs``); the off arm's captures are
+    all foreground. Each arm's figures logged (``warm_figures``) and saved
+    to ``warm_service.json``; each run's launches join ``paths``."""
+    from dynamic_load_balance_distributeddnn_tpu_torch.train.schedule import one_cycle_lr
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        runs = {}
+        for arm, extra in (("off", ["--aot_warm", "false"]), ("on", WARM_ARGV)):
+            argv = WARM_BITS_ARGV + extra
+            log("  python -m dynamic_load_balance_distributeddnn_tpu_torch.cli " + " ".join(argv)
+                + " (timing model: rows x steps)")
+            *run, tr = run_trainer(torch, argv, f"warm/bits_{arm}", timing_model=ms_linear_time)
+            paths[f"warm_bits_{arm}"] = tuple(run)
+            check_cnn_path(run[0], run[1], f"[4m] (a) --aot_warm {arm}", path="elastic",
+                           epochs=WARM_BITS_EPOCHS, moved_off=None, repeats=False)
+            runs[arm] = (tr, run[1])
+        (off, s_off), (on, s_on) = runs["off"], runs["on"]
+        for key in ("train_loss", "val_loss", "accuracy", "partition", "node_time"):
+            assert s_on[key] == s_off[key], f"[4m] (a): {key} {s_on[key]} != {s_off[key]}"
+        for (n, p), q in zip(on.model.named_parameters(), off.model.parameters()):
+            assert torch.equal(p, q), f"[4m] (a): parameter {n} differs between the arms"
+            assert torch.equal(on.optimizer.state[p]["momentum_buffer"],
+                               off.optimizer.state[q]["momentum_buffer"]), \
+                f"[4m] (a): momentum of {n} differs between the arms"
+        assert s_on["graph_captures"] == [0.0] * WARM_BITS_EPOCHS, s_on["graph_captures"]
+        assert sum(s_off["graph_captures"]) >= 1 and off._aot is None, s_off["graph_captures"]
+        cfg = on.cfg
+        decay = [e for e in range(WARM_BITS_EPOCHS)
+                 if one_cycle_lr(cfg.learning_rate, e, cfg.epoch_size) != cfg.learning_rate]
+        rec_on, rec_off = s_on["_meta"]["supersteps"], s_off["_meta"]["supersteps"]
+        assert decay, cfg
+        for e in decay:
+            assert rec_on[e]["captures"] == 0 and rec_on[e]["speculative_hits"] >= 1, rec_on[e]
+            assert rec_off[e]["foreground_captures"] >= 1, rec_off[e]
+        log(f"  (a) decay epochs {decay}: each replayed its speculated key (on), each captured "
+            "in its wall (off)")
+        log(f"  (a) bit for bit: {len(list(on.params))} parameter tensors and their momentum, "
+            f"train loss {[round(x, 6) for x in s_on['train_loss']]}, partitions {s_on['partition']}")
+        out["bits"] = {arm: warm_figures(runs[arm][1], f"a, {arm}") for arm in ("off", "on")}
+        del on, off, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if "vision_window" not in paths:
+        paths["vision_window"] = run_path(torch, WINDOW_ARGV + WARM_ARGV, "run_window")
+    paths["vision_window_aot_off"] = run_path(torch, WINDOW_ARGV + ["--aot_warm", "false"],
+                                              "run_window_aot_off")
+    s_on, s_off = paths["vision_window"][1], paths["vision_window_aot_off"][1]
+    check_cnn_path(*paths["vision_window_aot_off"][:2], "[4m] (b) --aot_warm false",
+                   path="elastic", epochs=WINDOW_EPOCHS, moved_off=None, repeats=False)
+    recs_off = s_off["_meta"]["supersteps"]
+    assert all(r["foreground_captures"] == r["captures"] for r in recs_off), recs_off
+    assert "aot" not in s_off["_meta"] and sum(r["captures"] for r in recs_off) >= 1
+    ready = prepared_epochs(s_on)
+    log(f"  (b) on: epochs whose every tuple was prepared before the wall {ready}, none with a "
+        "foreground capture")
+    out["window"] = {arm: warm_figures(s, f"b, {arm}") for arm, s in (("off", s_off), ("on", s_on))}
+    out["window"]["prepared_epochs"] = ready
+    with open(os.path.join(OUT, "warm_service.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
 def check_lm_path(counts, series, epochs=EPOCHS):
@@ -3475,7 +3646,7 @@ def ms_migration(torch, paths):
     return out
 
 
-PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4f", "5", "5b", "5c", "4h", "4k", "4l", "4i", "4g",
+PHASES = ("3", "3b", "4", "4b", "4c", "4d", "4e", "4m", "4f", "5", "5b", "5c", "4h", "4k", "4l", "4i", "4g",
           "4j",
           "9", "6", "6b", "7", "7b", "7c", "8", "7d")
 
@@ -3670,9 +3841,10 @@ def main(argv=None) -> int:
         phase("[4e] vision path, window-cadence rebalancing (compute-mode sin straggler)")
         err.setdefault("groupnorm_fwd", 0.0)
         err.setdefault("groupnorm_bwd", 0.0)
-        paths["vision_window"] = run_path(torch, WINDOW_ARGV + traced("window", "ring"),
+        paths["vision_window"] = run_path(torch, WINDOW_ARGV + WARM_ARGV + traced("window", "ring"),
                                           "run_window")
-        paths["vision_window_epoch"] = run_path(torch, EPOCH_CADENCE_ARGV, "run_window_epoch")
+        paths["vision_window_epoch"] = run_path(torch, EPOCH_CADENCE_ARGV + WARM_ARGV,
+                                                "run_window_epoch")
         check_cnn_path(*paths["vision_window_epoch"][:2], "epoch-cadence", path="elastic",
                        epochs=WINDOW_EPOCHS, moved_off=None, repeats=False)
         window_walls = check_window_path(torch, dev, *paths["vision_window"][:2],
@@ -3680,6 +3852,10 @@ def main(argv=None) -> int:
         phase("[4e] the same window recipe under --superstep off (eager steps)")
         paths["vision_window_off"] = run_path(torch, WINDOW_OFF_ARGV, "run_window_off")
         check_window_off(*paths["vision_window_off"][:2])
+
+    if want("4m"):
+        phase("[4m] the warm service: --aot_warm off against on (--warm_start true)")
+        check_warm_service(torch, paths)
 
     if want("4f"):
         phase("[4f] vision path under --precision bfloat16: packed (the defaults), then elastic")

@@ -3,6 +3,7 @@ and the window-cadence online controller (``balance/controller.py``) with
 its replay lab (``balance/replaylab.py``)."""
 
 from dynamic_load_balance_distributeddnn_tpu_torch.balance.solver import (
+    ShareTrajectoryPredictor,
     equilibrium_shares,
     initial_partition,
     integer_batch_split,
@@ -17,6 +18,7 @@ from dynamic_load_balance_distributeddnn_tpu_torch.balance.timing import (
 
 __all__ = [
     "HostOverheadMeter",
+    "ShareTrajectoryPredictor",
     "TimeKeeper",
     "equilibrium_shares",
     "exchange_times",

@@ -13,6 +13,11 @@ shares are renormalized over that split.
 Copied, not imported, so the port loads nothing of the JAX package; the
 tests hold the copy to the original bit for bit (``rebalance`` here is the
 JAX package's ``rebalance_py``: there is no native C++ dispatch).
+
+:class:`ShareTrajectoryPredictor` predicts the next epoch's share vector,
+and through the plan builder's own cap, split and quantization its batch
+sizes: the step keys that the warm service (``runtime/compiler.py``)
+captures ahead of the epoch that will replay them.
 """
 
 from __future__ import annotations
@@ -126,3 +131,82 @@ def equilibrium_shares(rates: np.ndarray) -> np.ndarray:
         raise ValueError("rates must be positive and finite")
     inv = 1.0 / c
     return inv / inv.sum()
+
+
+class ShareTrajectoryPredictor:
+    """One-step-ahead prediction of the solver's share vector (the JAX
+    package's ``balance/solver.py`` class, copied).
+
+    The DBS update is a fixed-point iteration (r_i ∝ 1/c_i): after
+    convergence consecutive share vectors are identical, and during the
+    transient they move along a smooth trajectory. A step graph's key holds
+    every worker's batch shape, and the tuple the next epoch dispatches is a
+    deterministic function of the next share vector, so predicting the
+    shares predicts the keys.
+
+    ``observe`` feeds each epoch's realized shares; ``predict`` returns the
+    last shares plus an EMA of the per-worker share deltas (``alpha``
+    weights the newest delta). A change of world size restarts the track.
+    A converged run predicts the tuple it already dispatches, and the
+    speculation is then one lookup. Pure host-side numpy."""
+
+    def __init__(self, alpha: float = 0.5):
+        if not 0.0 < alpha <= 1.0:
+            raise ValueError("alpha must be in (0, 1]")
+        self.alpha = float(alpha)
+        self._last: Optional[np.ndarray] = None
+        self._velocity: Optional[np.ndarray] = None
+
+    def observe(self, shares: np.ndarray) -> None:
+        s = np.asarray(shares, dtype=np.float64).copy()
+        if self._last is not None and s.shape == self._last.shape:
+            delta = s - self._last
+            if self._velocity is None:
+                self._velocity = delta
+            else:
+                self._velocity = self.alpha * delta + (1.0 - self.alpha) * self._velocity
+        elif self._last is not None:
+            self._velocity = None  # world size changed: restart the track
+        self._last = s
+
+    def predict(self) -> Optional[np.ndarray]:
+        """Next epoch's expected share vector (normalized, floor-clamped),
+        or None before the first observation."""
+        if self._last is None:
+            return None
+        p = self._last if self._velocity is None else self._last + self._velocity
+        p = np.clip(p, 1e-9, None)
+        return p / p.sum()
+
+    def predict_batches(
+        self,
+        global_batch: int,
+        bucket: int = 0,
+        max_share: Optional[float] = None,
+    ) -> Optional[np.ndarray]:
+        """Predicted integer per-worker batch sizes through the plan
+        builder's pipeline (share cap, integer split, bucket quantization),
+        so a right share prediction gives the exact batch tuple of the next
+        plan. An infeasible cap (``max_share * workers < 1``) raises."""
+        p = self.predict()
+        if p is None:
+            return None
+        if max_share is not None:
+            cap = float(max_share)
+            if cap * len(p) < 1.0:
+                raise ValueError(
+                    f"max_share={cap} is infeasible for {len(p)} workers "
+                    "(cap * n_workers must be >= 1)"
+                )
+            for _ in range(len(p)):
+                over = p > cap
+                if not over.any():
+                    break
+                excess = (p[over] - cap).sum()
+                p[over] = cap
+                free = ~over
+                p[free] += excess * p[free] / p[free].sum()
+        batches = integer_batch_split(p, global_batch)
+        if bucket > 0:
+            batches = quantize_batches(batches, bucket, global_batch)
+        return batches

@@ -37,9 +37,39 @@ trainer's does). ``--seq_parallel ring|ulysses`` trains the
 language model with its sequence sharded over the ranks
 (``train/sp_engine.py``). ``--remat`` recomputes the
 training forward in the backward (``train/steps.py`` ``forward``).
-Flags that tune only the JAX package's compile service (``aot_*``,
-``speculate_scan``, ``warm_start``) have no meaning for an eager PyTorch
-program; they are checked, accepted and have no effect.
+The JAX package's compile-service flags drive the port's warm service
+(``runtime/compiler.py``), whose "compile" is a step graph's capture
+(``train/supersteps.py``; none under ``--superstep off``):
+
+- ``--aot_warm`` (default on) makes the service: each elastic epoch
+  captures its plan's missing keys before its first window, pending
+  captures run before each epoch's wall (span ``aot_drain``), and the
+  speculation runs after it. ``off`` captures every key lazily at its
+  first step inside the wall, as before: the A/B reference.
+- ``--warm_start`` submits the first epoch's keys (after a re-shard, the
+  new fleet's) and, in the ranks' window mode, every ladder rung of each
+  worker; they are captured before that epoch's wall.
+- ``--aot_speculate`` (default on) captures, after each elastic or packed
+  epoch with the balancer on, the keys the next epoch will likely
+  dispatch: with ``--speculate_scan`` (default on) in one process the
+  predicted batch tuple (``balance/solver.py``
+  ``ShareTrajectoryPredictor``; under ``--rebalance window`` the
+  controller's last candidate) at the next epoch's learning rate; across
+  ranks each worker's ±bucket rungs (span ``speculate``).
+- ``--aot_pool``, ``--aot_backend`` and ``--aot_workers`` are checked,
+  accepted and have no effect: a capture cannot run beside other work on
+  the card (``CAPTURE_GATE``), so there is no background pool, and a CUDA
+  graph belongs to its process and context, so no capture can run in a
+  subprocess (``nvcc``, the compile that can, already runs as concurrent
+  subprocesses).
+
+A run's counts are in the series' ``_meta.supersteps`` (per epoch:
+``captures`` inside the wall, ``foreground_captures``,
+``service_captures``, ``speculative_hits``), ``_meta.aot`` (each batch of
+service captures: epoch, ``at`` drain, stage or speculate, count,
+seconds), ``_meta.aot_service`` (the service's ``stats()``), the
+``graph_captures`` series (foreground captures an epoch) and the registry
+snapshot's ``compiles`` and ``aot`` (``Trainer.obs.snapshot()``).
 
 ``--device_cache`` has the JAX package's meaning (``Trainer.
 _decide_device_cache``): under ``on``, or ``auto`` while the training

@@ -15,11 +15,14 @@ engine owns:
   tracer state, the controller's ledgers;
 * surfaces registered once (``attach(...)``).
 
-The JAX package also binds its compile guards' counters, a per-engine
-``CompileTracker`` and its AOT compile service's stats. This port has no
-compile service and no compile guards yet (ROADMAP.md queue 1, the
-runtime), so those slots and the snapshot's ``compiles`` / ``aot`` keys are
-left out rather than filled with made-up numbers.
+The JAX package also binds its compile counters, a per-engine
+``CompileTracker`` and its AOT compile service. This port's counterpart of
+a compile is a step graph's capture (``train/supersteps.py``): the
+snapshot's ``compiles`` are the process's captures (``total``,
+``background``: the warm service's, ``foreground``: those a step made on a
+key nobody prepared), the ``compile_tracker`` slot takes the engine's
+``runtime/compiler.py`` ``CaptureTracker`` and the ``aot_service`` slot its
+``AOTCompileService``, whose ``stats()`` are the snapshot's ``aot``.
 
 The registry holds *references*, not copies — it is a view, never a second
 source of truth.
@@ -76,16 +79,20 @@ class MetricsRegistry:
         self.recorder = recorder if recorder is not None else MetricsRecorder()
         self.tracer = tracer if tracer is not None else get_tracer()
         self.host_meter = None  # balance.timing.HostOverheadMeter
+        self.compile_tracker = None  # runtime.compiler.CaptureTracker
+        self.aot_service = None  # runtime.compiler.AOTCompileService
         self.controller = None  # balance.controller.OnlineRebalanceController
         self.health = None  # runtime.health.WorkerHealth
         self.scheduler = None  # runtime.scheduler.MultiStreamEngine
 
     def attach(self, **surfaces) -> "MetricsRegistry":
         """Register observability surfaces by their well-known slot name
-        (``host_meter``, ``controller``, ``health``, ``scheduler``). Unknown
-        names raise — a typo'd attach would silently hollow the snapshot."""
+        (``host_meter``, ``compile_tracker``, ``aot_service``, ``health``,
+        ``controller``, ``scheduler``). Unknown names raise — a typo'd
+        attach would silently hollow the snapshot."""
         for name, obj in surfaces.items():
-            if name not in ("host_meter", "controller", "health", "scheduler"):
+            if name not in ("host_meter", "compile_tracker", "aot_service", "health",
+                            "controller", "scheduler"):
                 raise ValueError(f"unknown registry surface {name!r}")
             setattr(self, name, obj)
         return self
@@ -136,6 +143,15 @@ class MetricsRegistry:
                 "dispatch_s": round(m.dispatch_s, 6),
                 "put_s": round(m.put_s, 6),
                 "dispatches": m.dispatches,
+            }
+        # the process's step-graph captures are always available
+        from dynamic_load_balance_distributeddnn_tpu_torch.train.supersteps import capture_counts
+
+        out["compiles"] = capture_counts()
+        if self.aot_service is not None:
+            out["aot"] = {
+                k: (round(v, 3) if isinstance(v, float) else v)
+                for k, v in self.aot_service.stats().items()
             }
         if self.controller is not None:
             # the online-DBS decision journal's live surface:

@@ -459,8 +459,10 @@ class MultiStreamEngine:
                 job_id=spec.job_id,
             )
         # warm happens in _apply_allotment, AFTER the initial allotment is
-        # known, as in the JAX package (there a warm compiles the fleet's
-        # shapes; here there is nothing to warm: Trainer._maybe_warm)
+        # known, as in the JAX package (Trainer._maybe_warm: the warm
+        # service's captures hold CAPTURE_GATE exclusively, as every
+        # capture does); no speculation after the job's last epoch
+        tr._epochs_planned = spec.total_epochs()
         thread = None
         if spec.total_epochs() > 0:
             thread = threading.Thread(

@@ -87,6 +87,20 @@ and host-overhead reference, on both paths. The probes and the in-step
 calibration stay eager. Each epoch's captures, replays, capture seconds,
 dispatches and host dispatch seconds go to ``_meta["supersteps"]``.
 
+The warm service (``--aot_warm``, ``runtime/compiler.py``, the JAX
+package's compile service): step graphs captured ahead from dummy slots
+(``StepGraphs.prepare``), at the JAX package's places. ``--warm_start``
+submits the first epoch's keys (``_maybe_warm``, ``_submit_warm_aot``,
+after ``_plan_epoch``: a key holds the epoch's load pattern); pending
+captures run before the wall (span ``aot_drain``); an elastic epoch's
+missing keys are captured at its top (``_aot_stage_plan``, inside the wall
+as in JAX); after the wall the keys the next epoch will likely dispatch
+(``_maybe_speculate``, span ``speculate``: the predicted batch tuple at
+the next epoch's learning rate, or across ranks each worker's ±bucket
+rungs). The epoch's foreground captures (``run`` capturing a key nobody
+prepared) are the ``graph_captures`` series and feed the recapture
+sentinel in ``_record_epoch``.
+
 The host-fed path (``--device_cache off``, or ``auto`` over
 ``device_cache_mb``; ``_decide_device_cache``): the training set stays on
 the host and the packed and elastic epochs of one process are fed a window
@@ -109,7 +123,8 @@ every epoch (``_save_checkpoint``) and makes the last durable at the end.
 
 Observability (``--trace``, ``--trace_spool``, ``--profile_dir``): each
 epoch is a graftscope ``epoch`` span tiled by the phases ``plan_solve``,
-``train``, ``validate`` and ``record``, with ``dispatch_window``,
+``aot_drain`` (when captures are pending), ``train``, ``speculate``,
+``validate`` and ``record``, with ``dispatch_window``,
 ``probe``, ``sync_probe``, ``warm`` (a step graph's warm-up and capture)
 and ``checkpoint`` spans inside or beside them, as the JAX package names
 them (``obs/trace.py``; ``save_trace`` writes the Chrome trace,
@@ -154,7 +169,7 @@ through ``_reshard_world`` when the engine moves its slots.
 
 The language-model trainer (``train/lm_engine.py``) subclasses this one and
 overrides the data plane: ``SNAP_BATCHES``, ``_setup_data``,
-``_setup_model``, ``_build_plan``, ``_worker_epoch``, ``_fused_epoch`` and
+``_setup_model``, ``_plan_from``, ``_worker_epoch``, ``_fused_epoch`` and
 ``validate``; every path above but the packed one runs it, across ranks too.
 """
 
@@ -170,6 +185,7 @@ import torch
 
 from dynamic_load_balance_distributeddnn_tpu_torch.balance import (
     HostOverheadMeter,
+    ShareTrajectoryPredictor,
     TimeKeeper,
     equilibrium_shares,
     exchange_times,
@@ -241,6 +257,10 @@ from dynamic_load_balance_distributeddnn_tpu_torch.parallel.wire import (
     wire_payload_bytes,
 )
 from dynamic_load_balance_distributeddnn_tpu_torch.runtime import rendezvous as rdzv
+from dynamic_load_balance_distributeddnn_tpu_torch.runtime.compiler import (
+    AOTCompileService,
+    CaptureTracker,
+)
 from dynamic_load_balance_distributeddnn_tpu_torch.runtime.health import (
     ProcessHeartbeat,
     WorkerHealth,
@@ -444,6 +464,21 @@ class Trainer:
         self.supersteps = StepGraphs(self.device, generators=[self.dropout_gen],
                                      tracer=self._trace)
         self._superstep_keys: set = set()
+        # the warm service (runtime/compiler.py, --aot_warm): step graphs
+        # captured ahead, at the epoch's untimed points; the foreground
+        # captures' tracker (the recapture sentinel's count), the share
+        # predictor behind the speculation, the plan layouts already run,
+        # and the (path, load flags) of the keys this epoch dispatched
+        self._build_aot_service()
+        self._compile_tracker = CaptureTracker(self.supersteps)
+        self._warmed = False
+        self._warm_due = False
+        self._share_predictor = ShareTrajectoryPredictor()
+        self._seen_plan_layouts: set = set()
+        self._epoch_flags: set = set()
+        self._epoch_path = "elastic"
+        self._epochs_planned = cfg.epoch_size  # run() sets its own count
+        self._slot_tmpl: Optional[list] = None
 
         self.injector = injector if injector is not None else self._make_injector()
         self._needs_iter_cost = cfg.fault_mode == "compute" and not isinstance(
@@ -539,7 +574,8 @@ class Trainer:
         if cfg.elastic == "on" and self.n_proc > 1:
             self._arm_peer_heartbeats()
         self.obs = MetricsRegistry(recorder=self.recorder, tracer=self._trace)
-        self.obs.attach(host_meter=self._host_meter, health=self.health)
+        self.obs.attach(host_meter=self._host_meter, health=self.health,
+                        compile_tracker=self._compile_tracker, aot_service=self._aot)
         self._can_use_packed(None)  # --packed on fails here where it cannot engage
         # the combine across ranks (train/combine.py): made here when the
         # run has several ranks, else on the first fused epoch
@@ -599,8 +635,7 @@ class Trainer:
                                              shard_update=cfg.shard_update,
                                              compress=cfg.compress_grads, tree=tree,
                                              wires=self._grad_comm_wires)
-            if self.supersteps.superstep_cache_size():
-                self.supersteps.clear()
+            self._drop_step_graphs()
             self.recorder.meta["combine"] = self._rank_combine.describe()
         return self._rank_combine
 
@@ -899,14 +934,36 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
+    def _build_aot_service(self) -> None:
+        """The warm service (``runtime/compiler.py``, the JAX
+        ``_build_aot_service``) over this trainer's step graphs; none under
+        ``--aot_warm off`` (every key captured lazily at its first step, the
+        A/B reference, which also takes the place of the JAX package's
+        legacy ``_warm_shapes``) or ``--superstep off`` (no step graphs)."""
+        self._aot: Optional[AOTCompileService] = None
+        if self.cfg.aot_warm and self.cfg.superstep != "off":
+            self._aot = AOTCompileService(self.supersteps, tick=heartbeat)
+
+    def _drop_step_graphs(self) -> None:
+        """Drop every captured step graph (a restore or a re-shard rewrote
+        the state they read, or a new combine moved ``.grad``), and with
+        them the warm service's entries and pending keys."""
+        self.supersteps.clear()
+        if self._aot is not None:
+            self._aot.clear()
+
     def _maybe_warm(self) -> None:
-        """The JAX ``_maybe_warm``, where ``--warm_start`` submits the
-        step shapes to its compile service before the first epoch (once a
-        fleet: ``_reshard_world`` clears its ``_warmed`` mark). This port
-        has no compile service: a step graph is warmed up and captured at
-        its key's first step (``train/supersteps.py``), so there is nothing
-        to do and no mark to keep. ``run`` and the many-stream engine call
-        it where the JAX package does."""
+        """The JAX ``_maybe_warm``: under ``--warm_start``, once a fleet
+        (``_reshard_world`` clears the mark), the warm service gets the
+        run's keys before the next epoch's wall. Here the keys are submitted
+        after that epoch's ``_plan_epoch`` (``_submit_warm_aot``): a step
+        key holds which workers carry an injected load, which the JAX
+        package passes as a runtime argument and this port reads from the
+        epoch's faults. ``run``, ``_run_epoch`` and the many-stream engine
+        call it where the JAX package does."""
+        if self.cfg.warm_start and not self._warmed:
+            self._warmed = True
+            self._warm_due = self._aot is not None
 
     def _elastic_mode(self) -> str:
         """How the training steps execute (``--superstep``), with the JAX
@@ -940,6 +997,7 @@ class Trainer:
             f"Starting: {cfg.model}/{cfg.dataset}, ws={cfg.world_size}, "
             f"B={cfg.batch_size}, device={self.device}, dbs={cfg.dynamic_batch_size}"
         )
+        self._epochs_planned = epochs
         self._maybe_warm()
         start_epoch = 0
         if cfg.ckpt_dir:
@@ -980,14 +1038,26 @@ class Trainer:
             tr.set_epoch(None)
 
     def _run_epoch(self, epoch: int) -> Dict[str, float]:
-        # the phases tile the epoch span: plan_solve -> train -> validate -> record
+        # the phases tile the epoch span: plan_solve -> (warm) -> aot_drain
+        # -> train -> speculate -> validate -> record
         tr = self._trace
+        self._maybe_warm()  # callers driving epochs directly still warm first
         with tr.span("plan_solve"):
             plan, faults = self._plan_epoch(epoch)
         # the epoch-boundary liveness round: a loss outside the elastic
         # epoch's window checks (the packed and fused paths) is caught
         # before any of this epoch's work
         self._check_health(epoch, 0.0)
+        if self._warm_due:
+            self._warm_due = False
+            with tr.span("warm", cat="warm"):
+                self._submit_warm_aot(plan, faults, epoch)
+        # pending captures (the warm's) run before the wall, as the JAX
+        # package drains its pending compiles there; in steady state
+        # nothing is pending
+        if self._aot is not None and self._aot.pending():
+            with tr.span("aot_drain"):
+                self._aot_wait_needed(None, epoch)
         t_epoch = time.perf_counter()
         with tr.span("train"):
             train_metrics = self._dispatch_epoch(plan, faults, epoch)
@@ -997,6 +1067,10 @@ class Trainer:
         epoch_wall = time.perf_counter() - t_epoch - probe_s
         self.total_wallclock += epoch_wall
         self.total_probe_s += probe_s
+        # the next epoch's likely keys, captured in the untimed tail
+        if self._epoch_path in ("elastic", "packed"):
+            with tr.span("speculate"):
+                self._maybe_speculate(plan, epoch)
         with tr.span("validate"):
             val_loss, accuracy = self.validate()
         with tr.span("record"):
@@ -1188,8 +1262,7 @@ class Trainer:
             if restored is None:
                 return 0
             epoch, state, controller = restored
-            if self.supersteps.superstep_cache_size():
-                self.supersteps.clear()
+            self._drop_step_graphs()
             self.steps_done = state["steps"]
             gens = state["generators"]
             if elastic_mh:
@@ -1621,7 +1694,7 @@ class Trainer:
             self.ws_local, self.rank_lo = self.world_size, 0
         self.topology = WorkerTopology.build(self.ws_local, [self.device], [0] * self.ws_local)
         self._worker_loss = torch.zeros(self.ws_local, device=self.device)
-        self.supersteps.clear()
+        self._drop_step_graphs()
         self._superstep_keys = set()
         self._sync_per_step = 0.0
         self._fused_sync_per_step = None
@@ -1633,6 +1706,10 @@ class Trainer:
         self._rebalance_ctl = None
         self.obs.controller = None
         self._switches_last = 0
+        # the share track restarts, and a warm-started run re-warms the new
+        # fleet's keys before its next epoch's wall (the JAX _reshard_world)
+        self._share_predictor = ShareTrajectoryPredictor()
+        self._warmed = False
         if new_world:
             self.mesh = data_mesh(self.device)  # a collective of the new world
             self.n_dev = axis_size(self.mesh)
@@ -1916,7 +1993,7 @@ class Trainer:
             # graphs, its combine (the flat gradient buffer a staged
             # collective may have half-written), its snapshot
             t = time.perf_counter()
-            self.supersteps.clear()
+            self._drop_step_graphs()
             self._superstep_keys = set()
             self._rank_combine = None
             self._epoch_snap = None
@@ -2227,6 +2304,8 @@ class Trainer:
             if cfg.snap_to_bucket and self.SNAP_BATCHES:
                 batch_sizes = quantize_batches(batch_sizes, cfg.bucket, cfg.batch_size)
                 self.shares = batch_sizes.astype(np.float64) / batch_sizes.sum()
+            # the realized shares feed the speculation's predictor
+            self._share_predictor.observe(self.shares)
             self.logger.info(
                 f"Epoch {epoch}: adjusted shares to {np.round(self.shares, 4).tolist()}"
             )
@@ -2279,10 +2358,16 @@ class Trainer:
         )
 
     def _build_plan(self, epoch: int, batch_sizes: np.ndarray):
+        return self._plan_from(epoch, batch_sizes, self.shares)
+
+    def _plan_from(self, epoch: int, batch_sizes: np.ndarray, shares: np.ndarray):
+        """The plan of ``batch_sizes`` with ``shares`` splitting the
+        examples among the workers: the trainer's (``_build_plan``), or a
+        speculation's predicted ones."""
         cfg = self.cfg
         return build_epoch_plan(
             self.n_train,
-            self.shares,
+            shares,
             batch_sizes,
             cfg.batch_size,
             epoch,
@@ -2500,18 +2585,27 @@ class Trainer:
         max_share = min(1.0, cfg.capacity_factor / self.world_size)
         return -(-int(np.ceil(max_share * cfg.batch_size)) // cfg.bucket) * cfg.bucket
 
+    def _select_path(self, plan) -> str:
+        """The epoch's path for ``plan`` (the JAX order: fused, fused-DBS,
+        packed, elastic)."""
+        if self._can_use_fused(plan):
+            return "fused"
+        if self._can_use_fused_dbs(plan):
+            return "fused_dbs"
+        return "packed" if self._can_use_packed(plan) else "elastic"
+
     def _dispatch_epoch(self, plan, faults: EpochFaults, epoch: int) -> Dict[str, float]:
-        """Path selection (the JAX order: fused, fused-DBS, packed, elastic)
-        and the epoch's training (probes included)."""
+        """Path selection (``_select_path``) and the epoch's training
+        (probes included)."""
         cfg = self.cfg
-        fused, fused_dbs = self._can_use_fused(plan), self._can_use_fused_dbs(plan)
+        path = self._select_path(plan)
+        fused, fused_dbs, packed = path == "fused", path == "fused_dbs", path == "packed"
         if (cfg.grad_accum > 1 or (cfg.compress_grads and not cfg.shard_update)) and not (
                 fused or fused_dbs):
             raise RuntimeError(
                 "grad_accum/compress_grads require a fused path (one worker per device); "
                 "this plan fell back to the elastic path"
             )
-        packed = not (fused or fused_dbs) and self._can_use_packed(plan)
         if (fused or fused_dbs or packed) and cfg.rebalance == "window" \
                 and not self._window_rebalance_logged:
             self._window_rebalance_logged = True
@@ -2520,9 +2614,9 @@ class Trainer:
                 "packed epochs — running at epoch cadence (pass --packed off to "
                 "force the elastic path)"
             )
-        path = ("fused" if fused else "fused_dbs" if fused_dbs else "packed" if packed
-                else "elastic")
         self._packed_epoch = packed
+        self._epoch_path = path
+        self._epoch_flags = set()
         self._feeds_from_host(path)  # logs once where cache off does not reach yet
         before = self.supersteps.stats()
         if fused or fused_dbs:
@@ -2557,12 +2651,15 @@ class Trainer:
                "batch_sizes": [int(b) for b in plan.batch_sizes],
                "injected": [int(n > 0) for n in faults.slow_iters_per_step]}
         rec.update({k: now[k] - before[k]
-                    for k in ("captures", "capture_s", "capture_wait_s", "replays", "eager_runs")})
+                    for k in ("captures", "capture_s", "capture_wait_s", "replays", "eager_runs",
+                              "foreground_captures", "service_captures", "speculative_hits")})
         rec["keys"], rec["new_keys"] = now["keys"], now["keys"] - before["keys"]
         rec["dispatches"] = self._host_meter.dispatches
         rec["host_dispatch_s"] = self._host_meter.dispatch_s
         self.recorder.meta.setdefault("supersteps", []).append(rec)
-        if now["keys"] > len(self._superstep_keys):
+        # the warm service's keys prepared ahead and not run yet are no
+        # variants of a dispatched key
+        if now["keys"] - now["unused_keys"] > len(self._superstep_keys):
             self.logger.warning(
                 f"Epoch {epoch}: {now['keys']} prepared step variants exceed "
                 f"the {len(self._superstep_keys)} dispatched keys"
@@ -2574,14 +2671,25 @@ class Trainer:
         """A step graph's key (``train/supersteps.py``): the path, each
         batch's shape (None: no real rows), the compute dtype, the clip,
         which batches carry an injected load, and the learning rate."""
-        return (
+        return self._key_of(path, [None if b is None else tuple(b[0].shape) for b in batches],
+                            [int(n) > 0 for n in counts])
+
+    def _key_of(self, path: str, shapes, loaded, lr: Optional[float] = None,
+                rank: bool = False) -> tuple:
+        """``_step_key`` from the batches' first shapes alone (the warm
+        service's keys); ``lr`` defaults to the optimizer's. ``rank``: the
+        key of a rank's forward/backward (``_rank_step_graphs``: no learning
+        rate, the ``--grad_accum`` instead)."""
+        key = (
             path,
-            tuple(None if b is None else tuple(b[0].shape) for b in batches),
+            tuple(None if x is None else tuple(int(d) for d in x) for x in shapes),
             str(self.compute_dtype),
             float(self.grad_clip),
-            tuple(int(n) > 0 for n in counts),
-            learning_rate(self.optimizer),
+            tuple(bool(f) for f in loaded),
         )
+        if rank:
+            return key + (self.cfg.grad_accum,)
+        return key + (learning_rate(self.optimizer) if lr is None else float(lr),)
 
     def _superstep(self, path: str, batches, counts, body, warmup) -> None:
         """One training step through ``StepGraphs``; a worker without a
@@ -2589,6 +2697,7 @@ class Trainer:
         counts = [0 if b is None else int(n) for b, n in zip(batches, counts)]
         key = self._step_key(path, batches, counts)
         self._superstep_keys.add(key)
+        self._epoch_flags.add((path, key[4]))
         self.supersteps.run(key, batches, counts, body, warmup)
 
     def _elastic_body(self):
@@ -2625,6 +2734,234 @@ class Trainer:
                     probe_grads(self.model, self.params, b, clip, self.load, n, self.compute_dtype)
 
         return warm
+
+    # ------------------------------------------------------- warm service
+
+    def _time_varying(self) -> bool:
+        """Compute-mode load that follows a schedule window by window."""
+        return getattr(self.injector, "faults_at", None) is not None and self._needs_iter_cost
+
+    def _step_rows(self, plan, rank: int) -> List[int]:
+        """Worker ``rank``'s real rows a step of ``plan`` (0: no batch that
+        step), from the host-side plan alone."""
+        return self._worker_rows(plan, rank)[2]
+
+    def _slot_template(self) -> list:
+        """A step batch's tensors as ``(shape after the first dimension,
+        dtype)``: ``_dummy_batch(1)``'s, made once."""
+        if self._slot_tmpl is None:
+            self._slot_tmpl = [(tuple(t.shape[1:]), t.dtype) for t in self._dummy_batch(1)]
+        return self._slot_tmpl
+
+    def _dummy_inputs(self, rows: int):
+        """A dummy batch of ``rows`` in a step's layout, filled as the JAX
+        ``_dummy_batch`` fills one: zero inputs, label 0, weight ``1 / (rows
+        * world_size)``."""
+        (xs, xd), (ys, yd), (ws, wd) = self._slot_template()
+        dev = self.device
+        return (torch.zeros((rows,) + xs, dtype=xd, device=dev),
+                torch.zeros((rows,) + ys, dtype=yd, device=dev),
+                torch.full((rows,) + ws, 1.0 / max(rows * self.world_size, 1), dtype=wd,
+                           device=dev))
+
+    def _graph_kind(self, path: str):
+        """``(key path, rank key?, body, warm-up)`` of an epoch path's step
+        graphs, as its epoch runs them."""
+        if path in ("fused", "fused_dbs"):
+            return "fused", True, self._fused_body(), self._warmup(self.grad_clip)
+        if path == "packed":
+            return "packed", False, self._packed_body(), self._warmup(0.0)
+        if self.n_proc > 1 or self._elastic_mode() == "window":
+            return "elastic", True, self._rank_body(), self._warmup(self.grad_clip)
+        return "elastic", False, self._elastic_body(), self._warmup(self.grad_clip)
+
+    def _plan_pairs(self, path: str, plan, faults: EpochFaults, epoch: int) -> list:
+        """Each step of ``plan`` on ``path`` as ``(rows, loads)``: its
+        batches' rows (0: no batch) and load iterations, as the epoch will
+        dispatch them (the elastic loop's windows and, under a time-varying
+        schedule, their loads)."""
+        slow = [int(v) for v in faults.slow_iters_per_step]
+        if path in ("fused", "fused_dbs"):
+            r = self.rank_lo
+            width = self._cap_b if path == "fused_dbs" else plan.workers[r].padded_batch
+            return [((width,), (slow[r],))] * plan.num_steps
+        rows = [self._step_rows(plan, r) for r in range(self.world_size)]
+        if path == "packed":
+            return [((sum(x[s] for x in rows),), (sum(slow),)) for s in range(plan.num_steps)]
+        if self._graph_kind(path)[1]:  # the ranks' windows: this rank's workers
+            local = list(self._local_workers())
+            return [(tuple(rows[r][s] for r in local), tuple(slow[r] for r in local))
+                    for s in range(plan.num_steps)]
+        pairs = []
+        for w0, w1 in self._elastic_ranges(plan.num_steps):
+            if self._time_varying():
+                slow = self._window_slow(epoch, plan, plan, w0, w1, slow)
+            pairs += [(tuple(x[s] for x in rows), tuple(slow)) for s in range(w0, w1)]
+        return pairs
+
+    def _aot_submit(self, path: str, pairs, lr: Optional[float] = None,
+                    speculative: bool = False) -> list:
+        """Submit the step keys of ``pairs`` (``_plan_pairs``'s) on
+        ``path`` to the warm service, each once, with dummy slots; returns
+        the keys (queued or already known). ``lr``: the keys' learning rate
+        (default: the optimizer's), which their captures bake into the
+        update's launches (``_at_lr``)."""
+        gpath, rank, body, warm = self._graph_kind(path)
+        if lr is not None and not rank:
+            body = self._at_lr(body, lr)
+        keys = []
+        for rows, loads in dict.fromkeys((tuple(r), tuple(int(n) > 0 for n in ld))
+                                         for r, ld in pairs):
+            loaded = [f and n > 0 for f, n in zip(loads, rows)]
+            shapes = [None if n == 0 else (n,) + self._slot_template()[0][0] for n in rows]
+            key = self._key_of(gpath, shapes, loaded, lr, rank=rank)
+            if key not in keys:
+                keys.append(key)
+                inputs = (None if self._aot.has(key)
+                          else [None if n == 0 else self._dummy_inputs(n) for n in rows])
+                self._aot.submit(key, inputs, loaded, body, warm, speculative=speculative)
+        return keys
+
+    def _at_lr(self, body, lr: float):
+        """``body`` run at learning rate ``lr``, the optimizer's put back
+        after: a capture bakes the rate it reads into the update's launches
+        (``train/supersteps.py``), so a key captured ahead for another
+        epoch's rate must be captured at that rate."""
+
+        def run(inputs, counts):
+            now = learning_rate(self.optimizer)
+            set_learning_rate(self.optimizer, lr)
+            try:
+                body(inputs, counts)
+            finally:
+                set_learning_rate(self.optimizer, now)
+
+        return run
+
+    def _warm_ladder(self) -> "tuple[list, int]":
+        """(ladder rungs, capacity width): every bucketed batch the balancer
+        can give a worker, bucket multiples up to ``_cap_b``."""
+        max_b = self._cap_b
+        return list(range(self.cfg.bucket, max_b + 1, self.cfg.bucket)), max_b
+
+    def _submit_warm_aot(self, plan, faults: EpochFaults, epoch: int) -> None:
+        """``--warm_start``: submit the keys of this epoch's plan on its
+        path (the elastic epoch's every window of ``_elastic_ranges``; the
+        packed and fused keys, the JAX ``_submit_warm_fused``'s) and, in the
+        ranks' window mode, every ladder rung of each of this rank's workers
+        (``_warm_ladder``; its other workers at the plan's widths). The
+        captures run in the pre-wall drain."""
+        path = self._select_path(plan)
+        rank = self._graph_kind(path)[1]
+        if rank:
+            self._make_rank_combine()  # a new combine would drop the captures
+        pairs = self._plan_pairs(path, plan, faults, epoch)
+        n = len(self._aot_submit(path, pairs))
+        if path == "elastic" and rank and self.SNAP_BATCHES:
+            ladder, _ = self._warm_ladder()
+            local = list(self._local_workers())
+            base = [plan.workers[r].batch_size for r in local]
+            loads = {ld for _, ld in pairs}
+            rungs = [(tuple(b if j == i else base[j] for j in range(len(local))), ld)
+                     for i in range(len(local)) for b in ladder for ld in loads]
+            n += len(self._aot_submit(path, rungs))
+        self.logger.info(f"warm service: submitted {n} step graphs for epoch {epoch}'s {path} "
+                         "path; captured before its wall")
+
+    def _aot_stage_plan(self, plan, faults: EpochFaults, epoch: int) -> list:
+        """The elastic epoch's keys (the JAX ``_aot_stage_plan``): submitted
+        at the top of the epoch, so that a plan the service does not hold
+        is captured at once, before its first window, rather than step by
+        step; returns the keys the epoch waits on."""
+        if self._aot is None:
+            return []
+        return self._aot_submit("elastic", self._plan_pairs("elastic", plan, faults, epoch))
+
+    def _aot_wait_needed(self, keys, epoch: int, at: str = "drain") -> None:
+        """Capture the pending ``keys`` (None: every pending key) now, and
+        log where (``at``: the pre-wall ``drain``, the elastic epoch's
+        ``stage``, the ``speculate`` tail) in ``_meta["aot"]``. A failed
+        capture raises with its key."""
+        if self._aot is None:
+            return
+        t0, s0 = time.perf_counter(), self._aot.stats()["capture_s"]
+        done = self._aot.wait(keys)
+        if done:
+            dt = self._aot.stats()["capture_s"] - s0
+            self.recorder.meta.setdefault("aot", []).append(
+                {"epoch": int(epoch), "at": at, "captures": len(done), "capture_s": dt,
+                 "wall_s": time.perf_counter() - t0,
+                 "rows": [[0 if x is None else x[0] for x in k[1]] for k in done]})
+            self.logger.info(f"warm service: epoch {epoch} {at}: {len(done)} step graphs "
+                             f"captured ({dt:.2f}s)")
+
+    def _maybe_speculate(self, plan, epoch: int) -> None:
+        """Capture the keys the next epoch will likely dispatch, after the
+        wall (the JAX ``_maybe_speculate``). One process (scan mode): the
+        next batch tuple (``_speculate_scan_tuple``, ``--speculate_scan``).
+        The ranks' window mode: each worker's ±bucket rungs
+        (``_aot_speculate``). Skipped after the run's last epoch, which no
+        step follows. A miss costs a capture in this untimed tail."""
+        cfg = self.cfg
+        if self._aot is None or not cfg.aot_speculate or not cfg.dynamic_batch_size:
+            return
+        if epoch + 1 >= self._epochs_planned:
+            return
+        if self._graph_kind(self._epoch_path)[1]:
+            self._aot_speculate(plan)
+        elif cfg.speculate_scan:
+            self._speculate_scan_tuple(epoch)
+        self._aot_wait_needed(None, epoch, at="speculate")
+
+    def _speculate_scan_tuple(self, epoch: int) -> None:
+        """The predicted next batch tuple (the trajectory predictor's; under
+        ``--rebalance window`` the controller's last candidate, the plan a
+        switch or the next boundary solve will dispatch), its plan built as
+        ``_plan_epoch`` builds one, and that plan's keys on this epoch's
+        path under each load pattern this epoch dispatched. A step key holds
+        the learning rate, which the JAX state leaf does not: the
+        speculated keys carry the next epoch's (``one_cycle_lr``), so under
+        ``-ocp true`` a decay epoch replays them."""
+        cfg = self.cfg
+        bucket = cfg.bucket if (cfg.snap_to_bucket and self.SNAP_BATCHES) else 0
+        cap = min(1.0, cfg.capacity_factor / self.world_size)
+        if cap * self.world_size < 1.0:
+            return  # infeasible cap: nothing to match
+        ctl = self._rebalance_ctl
+        if ctl is not None and ctl.last_candidate_batches is not None:
+            batches = np.asarray(ctl.last_candidate_batches, dtype=np.int64)
+        else:
+            batches = self._share_predictor.predict_batches(cfg.batch_size, bucket=bucket,
+                                                            max_share=cap)
+        if batches is None:
+            return
+        pred = self._plan_from(epoch + 1, batches, batches.astype(np.float64) / batches.sum())
+        lr = one_cycle_lr(cfg.learning_rate, epoch + 1, cfg.epoch_size,
+                          enabled=cfg.one_cycle_policy,
+                          disable_enhancements=cfg.disable_enhancements)
+        path = self._epoch_path
+        gpath = self._graph_kind(path)[0]
+        loads = {ld for p, ld in self._epoch_flags if p == gpath}
+        rows = {rw for rw, _ in self._plan_pairs(path, pred, EpochFaults.none(self.world_size),
+                                                  epoch + 1)}
+        self._aot_submit(path, [(rw, ld) for rw in rows for ld in loads], lr=lr,
+                         speculative=True)
+
+    def _aot_speculate(self, plan) -> None:
+        """The ranks' window mode: each of this rank's workers one bucket
+        below and above its width (within ``[bucket, _cap_b]``), the others
+        at theirs, under each load pattern this epoch dispatched."""
+        cfg = self.cfg
+        if not (cfg.snap_to_bucket and self.SNAP_BATCHES):
+            return
+        max_b = self._cap_b
+        local = list(self._local_workers())
+        base = [plan.workers[r].batch_size for r in local]
+        loads = {ld for p, ld in self._epoch_flags if p == "elastic"}
+        pairs = [(tuple(nb if j == i else base[j] for j in range(len(local))), ld)
+                 for i, b in enumerate(base) for nb in (b - cfg.bucket, b + cfg.bucket)
+                 if cfg.bucket <= nb <= max_b for ld in loads]
+        self._aot_submit(self._epoch_path, pairs, speculative=True)
 
     def _worker_rows(self, plan, rank: int, s0: int = 0, s1: Optional[int] = None):
         """Worker ``rank``'s steps ``[s0, s1)`` (default: the epoch) on the
@@ -2713,7 +3050,13 @@ class Trainer:
         self.model.train()
         meter = self._host_meter
         meter.reset()
-        if self.n_proc > 1 or self._elastic_mode() == "window":
+        ranks = self.n_proc > 1 or self._elastic_mode() == "window"
+        if ranks:
+            self._make_rank_combine()  # before the staged captures: a new one drops them
+        # the plan's keys the warm service does not hold, captured before the
+        # first window (inside the wall, where the JAX package waits for them)
+        self._aot_wait_needed(self._aot_stage_plan(plan, faults, epoch), epoch, at="stage")
+        if ranks:
             first, loss_sum, count, rows = self._run_rank_windows(plan, faults, epoch)
             out = self._finish_epoch(plan, faults, epoch, loss_sum, count, lambda: first, rows)
             out["host_dispatch_s"] = meter.dispatch_s
@@ -2756,9 +3099,7 @@ class Trainer:
         cfg = self.cfg
         meter = self._host_meter
         slow = [int(v) for v in faults.slow_iters_per_step]
-        time_varying = (
-            getattr(self.injector, "faults_at", None) is not None and self._needs_iter_cost
-        )
+        time_varying = self._time_varying()
         fed = self._feeds_from_host("elastic")
         suppliers: Optional[Dict[int, list]] = None if fed else {}  # segment start -> suppliers
         eval_state = {"t": time.perf_counter(), "step": 0}
@@ -2811,12 +3152,7 @@ class Trainer:
                 pl, off = self._seg_for_step(seg_plans, w0)
                 step_batches = staged(i, w0) if fed else resident(w0)
                 if time_varying:
-                    # the injected load follows the schedule at window
-                    # granularity: its value in mid-window, at this segment's split
-                    t_mid = float(epoch) + (w0 + w1) / (2.0 * max(plan.num_steps, 1))
-                    wf = self._window_faults_at(t_mid, pl)
-                    if wf is not None:
-                        slow = [int(v) for v in wf.slow_iters_per_step]
+                    slow = self._window_slow(epoch, plan, pl, w0, w1, slow)
                 if self.augment:
                     self.aug_gen.manual_seed(self._aug_seed(epoch, w0))
                 # one span a window (not a step), as the JAX package's
@@ -2852,6 +3188,15 @@ class Trainer:
         if scan:
             acc["loss"].copy_(self.supersteps.loss)
         return first
+
+    def _window_slow(self, epoch: int, plan, pl, w0: int, w1: int, slow):
+        """Under a time-varying schedule in compute mode, the injected load
+        follows the schedule at window granularity: its value in mid-window
+        ``[w0, w1)`` of ``plan``, at the split of the segment plan ``pl``
+        (``slow`` unchanged for an injector with no time-varying view)."""
+        t_mid = float(epoch) + (w0 + w1) / (2.0 * max(plan.num_steps, 1))
+        wf = self._window_faults_at(t_mid, pl)
+        return slow if wf is None else [int(v) for v in wf.slow_iters_per_step]
 
     def _elastic_gather(self, seg_plans, ranges):
         """The host-fed elastic epoch's gather, ``gather(w0, w1)``: the
@@ -2891,8 +3236,10 @@ class Trainer:
             body(batches, [int(n) for n in counts])
             return
         counts = [0 if b is None else int(n) for b, n in zip(batches, counts)]
-        key = self._step_key(path, batches, counts)[:-1] + (self.cfg.grad_accum,)
+        key = self._key_of(path, [None if b is None else tuple(b[0].shape) for b in batches],
+                           [n > 0 for n in counts], rank=True)
         self._superstep_keys.add(key)
+        self._epoch_flags.add((path, key[4]))
         self.supersteps.run(key, batches, counts, body, warm)
 
     def _rank_body(self):
@@ -3813,6 +4160,31 @@ class Trainer:
             f"accuracy {accuracy:.2f}, wall {epoch_wall:.3f}s"
         )
         extras = {"probe_time": probe_s}
+        # the recapture sentinel (the JAX package's, on its xla_compiles):
+        # the epoch's foreground captures, and a warning when a plan layout
+        # that already ran captured again. The layout holds what a key
+        # holds: the path, the widths and step counts, the windows, the
+        # mid-epoch switches, the learning rate and the load patterns
+        plan_layout = (
+            (self._epoch_path, int(plan.num_steps), learning_rate(self.optimizer))
+            + tuple((int(w.padded_batch), int(w.steps)) for w in plan.workers)
+            + tuple(s1 - s0 for s0, s1 in self._elastic_ranges(plan.num_steps))
+            + tuple((int(ev["step"]),) + tuple(ev["batches"])
+                    for ev in self._rebalance_events if ev.get("epoch") == epoch)
+            + tuple(sorted(self._epoch_flags))
+        )
+        layout_seen = plan_layout in self._seen_plan_layouts
+        self._seen_plan_layouts.add(plan_layout)
+        epoch_captures = self._compile_tracker.take()
+        extras["graph_captures"] = float(epoch_captures)
+        if epoch_captures and layout_seen and epoch >= 1:
+            self.logger.warning(
+                f"Epoch {epoch}: {epoch_captures} step graph capture(s) on an already-run "
+                f"plan layout {list(plan_layout)} — a key fell off the prepared set or the "
+                "step graphs were dropped"
+            )
+        if self._aot is not None:
+            self.recorder.meta["aot_service"] = self._aot.stats()
         if cfg.elastic == "on":
             # the fleet: workers_alive steps down on a loss and back up on a
             # readmission; recoveries counts completed recoveries
@@ -3848,6 +4220,7 @@ class Trainer:
                 u = mfu(epoch_flops / epoch_wall, 1, self.device)
                 if u is not None:
                     extras["mfu_bf16_peak"] = u
+        heartbeat()  # the epoch is complete: the device answered end to end
         self.recorder.record_epoch(
             epoch=epoch,
             train_loss=train_metrics["loss"],

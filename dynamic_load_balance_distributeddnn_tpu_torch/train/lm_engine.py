@@ -132,11 +132,12 @@ class LMTrainer(Trainer):
 
     # ------------------------------------------------------------- planning
 
-    def _build_plan(self, epoch: int, batch_sizes: np.ndarray) -> EpochPlan:
+    def _plan_from(self, epoch: int, batch_sizes: np.ndarray, shares: np.ndarray) -> EpochPlan:
         """Contiguous stream slices; a worker's "batch size" is its column
         count, and its steps are the bptt windows of its folded slice."""
         cfg = self.cfg
-        parts = partition_indices(self.n_train, self.shares, shuffle=False)
+        shares = np.asarray(shares, dtype=np.float64)
+        parts = partition_indices(self.n_train, shares, shuffle=False)
         workers = []
         num_steps = 0
         for rank, (token_range, cols) in enumerate(zip(parts, batch_sizes)):
@@ -151,7 +152,7 @@ class LMTrainer(Trainer):
             num_steps = max(num_steps, steps)
         return EpochPlan(
             epoch=epoch,
-            shares=self.shares.copy(),
+            shares=shares.copy(),
             batch_sizes=np.asarray(batch_sizes, dtype=np.int64),
             workers=tuple(workers),
             num_steps=num_steps,
@@ -190,6 +191,13 @@ class LMTrainer(Trainer):
         buf = np.zeros((steps, -(-n // 4) * 4), dtype=a.dtype)
         buf[:, :n] = a.reshape(steps, n)
         return torch.from_numpy(buf).to(self.device)[:, :n].view(a.shape)
+
+    def _step_rows(self, plan: EpochPlan, rank: int):
+        """Worker ``rank``'s columns a step (0 where its window holds no
+        token: no batch), from the windows ``_worker_epoch`` builds."""
+        _, _, w = self._build_windows(plan, rank)
+        counts = (w > 0).reshape(plan.num_steps, -1).sum(axis=1)
+        return [int(w.shape[1]) if c else 0 for c in counts]
 
     def _worker_epoch(self, plan: EpochPlan, rank: int):
         x, y, w = self._build_windows(plan, rank)

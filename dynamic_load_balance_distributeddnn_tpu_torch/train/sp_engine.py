@@ -103,7 +103,10 @@ class TimedAxis:
 
 
 class SeqParallelLMTrainer:
-    """The epoch loop of sequence-parallel LM training (module docstring)."""
+    """The epoch loop of sequence-parallel LM training (module docstring).
+    Its steps run eagerly, so the warm service (``runtime/compiler.py``)
+    has nothing to capture here, as the JAX trainer runs one ``jit`` a
+    step outside its compile service."""
 
     # the reference LM's dimensions (dbs.py:337-343), LMTrainer's
     EMSIZE = 200

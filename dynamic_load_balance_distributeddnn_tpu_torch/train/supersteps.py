@@ -72,6 +72,24 @@ window only because XLA needs that for bitwise parity.
   ``CUDNN_STATUS_INTERNAL_ERROR`` and the capture was invalidated. The wait for the gate is ``capture_wait_s``,
   outside ``capture_s``.
 
+- **Captures ahead** (``prepare``; the warm service of
+  ``runtime/compiler.py`` calls it at the engine's untimed points): a key
+  is made from its shapes alone. The engine hands over the slots filled as
+  the JAX package's ``_dummy_batch`` fills a warm-up batch (zero inputs,
+  label 0, weight ``1 / (b * world_size)``), never ``torch.empty_like``
+  memory, whose stray labels would send K2 outside its row; the warm-up and
+  the capture are then those of a lazy capture. ``run`` later fills the
+  same slots with the real batch before the first replay. Such a capture
+  changes no training state: a capture launches nothing, the warm-up
+  writes neither the parameters nor ``.grad`` nor the momentum buffers nor
+  :attr:`loss` (``prepare_step_state`` only makes a zero ``.grad`` or
+  buffer where there is none yet, as a lazy capture's does), and the
+  generators' states are put back. ``stats`` keeps
+  the captures that ``run`` made on a key it did not hold
+  (``foreground_captures``, the ones inside an epoch's wall) apart from the
+  service's (``service_captures``), and counts the speculative entries
+  that a step later replayed (``speculative_hits``).
+
 A capture or replay that fails raises with its key: nothing falls back to
 eager launches. On the CPU, as the tests run it, there are no graphs: the
 same executor copies the inputs into the same slots and runs the body
@@ -180,14 +198,30 @@ class CudaStepGraph:
         self.graph.replay()
 
 
-class _Entry:
-    __slots__ = ("inputs", "slots", "graph", "launches")
+# process-wide captures, as the JAX package's compile counters are (the
+# registry's ``compiles``): every capture, and those the warm service made
+_CAPTURES = {"total": 0, "background": 0}
+_CAPTURES_LOCK = threading.Lock()
 
-    def __init__(self, inputs, slots):
+
+def capture_counts() -> Dict[str, int]:
+    """The process's step-graph captures: ``total``, ``background`` (the
+    warm service's, ``prepare``) and ``foreground`` (``run``'s)."""
+    with _CAPTURES_LOCK:
+        total, bg = _CAPTURES["total"], _CAPTURES["background"]
+    return {"total": total, "background": bg, "foreground": total - bg}
+
+
+class _Entry:
+    __slots__ = ("inputs", "slots", "graph", "launches", "origin", "used")
+
+    def __init__(self, inputs, slots, origin: str = "run"):
         self.inputs = inputs  # the static input tensors (None for a missing batch)
         self.slots = slots  # per count: its device int32 scalar, or None (no load)
         self.graph = None
         self.launches: Dict[str, int] = {}
+        self.origin = origin  # "run", "service" or "speculative"
+        self.used = False  # run at least once by ``run``
 
 
 class StepGraphs:
@@ -219,6 +253,9 @@ class StepGraphs:
         self.capture_wait_s = 0.0  # waiting for CAPTURE_GATE (other tenants' work)
         self.replays = 0  # steps replayed from a graph
         self.eager_runs = 0  # steps run eagerly from the slots (no graphs: the CPU)
+        self.foreground_captures = 0  # captured by ``run`` on a key it did not hold
+        self.service_captures = 0  # captured ahead by ``prepare``
+        self.speculative_hits = 0  # speculative entries a step later ran
 
     def clear(self) -> None:
         """Drop every captured step (a restore that rewrote the state the
@@ -233,11 +270,46 @@ class StepGraphs:
         compiled superstep variants."""
         return len(self._entries)
 
+    def has(self, key: Hashable) -> bool:
+        return key in self._entries
+
     def stats(self) -> Dict[str, float]:
         return {"captures": self.captures, "capture_s": self.capture_s,
                 "capture_wait_s": self.capture_wait_s,
                 "replays": self.replays, "eager_runs": self.eager_runs,
-                "keys": len(self._entries)}
+                "keys": len(self._entries),
+                "foreground_captures": self.foreground_captures,
+                "service_captures": self.service_captures,
+                "speculative_hits": self.speculative_hits,
+                "unused_keys": sum(1 for e in self._entries.values() if not e.used)}
+
+    def prepare(self, key: Hashable, inputs: Inputs, loaded: Sequence[bool], body: Body,
+                warmup: Body, speculative: bool = False) -> bool:
+        """Capture ``key`` ahead of its first step: ``inputs`` become the
+        key's slots as they are (the caller's dummy batches, filled as the
+        module docstring says), ``loaded`` says which workers get a count
+        slot. On the CPU, without graphs, the slots alone are made. False
+        when the key is held already; a failed capture raises with its key
+        and leaves no entry."""
+        if key in self._entries:
+            return False
+        slots = [None if b is None else tuple(b) for b in inputs]
+        cslots = [torch.zeros((), dtype=torch.int32, device=self.device) if f else None
+                  for f in loaded]
+        entry = _Entry(slots, cslots, "speculative" if speculative else "service")
+        self._entries[key] = entry
+        if self._factory is None:
+            return True
+        try:
+            with self._span("warm"):
+                self._capture(key, entry, body, warmup)
+        except Exception:
+            del self._entries[key]
+            raise
+        self.service_captures += 1
+        with _CAPTURES_LOCK:
+            _CAPTURES["background"] += 1
+        return True
 
     def run(self, key: Hashable, inputs: Inputs, counts: Sequence[int], body: Body,
             warmup: Body) -> None:
@@ -245,6 +317,9 @@ class StepGraphs:
         new = entry is None
         if new:
             entry = self._entries[key] = self._new_entry(inputs, counts)
+        elif not entry.used and entry.origin == "speculative":
+            self.speculative_hits += 1
+        entry.used = True
         self._fill(entry, inputs, counts)
         if self._factory is None:
             body(entry.inputs, [int(n) for n in counts])
@@ -257,6 +332,7 @@ class StepGraphs:
             except Exception:
                 del self._entries[key]  # no half-made entry: the next run captures anew
                 raise
+            self.foreground_captures += 1
         try:
             entry.graph.replay()
         except Exception as exc:
@@ -318,6 +394,8 @@ class StepGraphs:
             runtime.LAUNCHES.add(ctx, k, -d)
         entry.graph = graph
         self.captures += 1
+        with _CAPTURES_LOCK:
+            _CAPTURES["total"] += 1
         self.capture_s += time.perf_counter() - t0 - waited
         self.capture_wait_s += waited
 

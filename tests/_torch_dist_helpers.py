@@ -11,8 +11,8 @@ epochs when given (a run stopped there, for a resume from its
 ``launch(world, jobs, tmp)`` starts ``world`` ranks, each with one torch
 thread, that rendezvous through ``file://`` under ``tmp`` and run the same
 ``jobs`` in order in one process group (a job is a dict with a ``kind``:
-``train``, ``lm_train``, ``collectives``, ``combine``, ``tree``, ``sp_attn``,
-``sp_grad``, ``sp_train`` or ``sp_contracts``); ``scripts/rank_launch.py``
+``train``, ``warm_train``, ``lm_train``, ``collectives``, ``combine``,
+``tree``, ``sp_attn``, ``sp_grad``, ``sp_train`` or ``sp_contracts``); ``scripts/rank_launch.py``
 ``launch_ranks`` joins them with a timeout, kills them all when it expires
 or a rank fails, and raises with their logs, so a hang fails the test
 instead of the tier. It returns each rank's results.
@@ -404,6 +404,37 @@ def _sp_contracts(job: dict, rank: int, world: int) -> dict:
     return out
 
 
+class _ReplayGraph:
+    """A CUDA graph's contract on the CPU: the capture records the step and
+    runs nothing, each replay runs it."""
+
+    def __init__(self, executor):
+        self.fn = None
+
+    def capture(self, fn):
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+
+def _warm_train(job: dict, rank: int, world: int) -> dict:
+    """A train job whose step graphs are ``_ReplayGraph``s; adds the warm
+    service's stats, the batch widths of the keys it speculated and of every
+    key it knows, and each epoch's batch sizes."""
+    tr = trainer(job, rank, world)
+    tr.supersteps._factory = _ReplayGraph
+    warnings = _run(tr, job)
+    svc = tr._aot
+
+    def widths(keys):
+        return sorted({tuple(x[0] for x in k[1]) for k in keys})
+
+    return dict(train_outputs(tr), warnings=warnings, aot=svc.stats(),
+                speculated=widths(svc._speculative), known=widths(svc.keys()),
+                graph_captures=tr.recorder.data["graph_captures"])
+
+
 _JOBS = {"train": _train, "lm_train": _lm_train, "collectives": _collectives,
          "combine": _combine, "tree": _tree, "sp_attn": _sp_attn, "sp_grad": _sp_grad,
-         "sp_train": _sp_train, "sp_contracts": _sp_contracts}
+         "sp_train": _sp_train, "sp_contracts": _sp_contracts, "warm_train": _warm_train}

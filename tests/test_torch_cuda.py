@@ -942,7 +942,7 @@ def test_replayed_dropout_draws_the_eager_masks(cuda):
         assert torch.equal(out, want)
 
 
-def _card_trainer(case, superstep, out, device):
+def _card_trainer(case, superstep, out, device, **extra):
     """A small run of each path for ``test_graphed_training_equals_eager``:
     DenseNet-121 (4 workers, B 64, 256 examples, a 3:1 straggler), elastic
     (virtual or compute mode, its load's costs pinned), packed, bf16; the
@@ -951,7 +951,8 @@ def _card_trainer(case, superstep, out, device):
     model fixes the plans, so the two runs see the same widths. One window
     an epoch (the default ``superstep_window`` over 4-8 steps): the
     augmentation is seeded at each window start, and ``off`` runs the
-    epoch in one stream chunk, so equal windows draw equal crops."""
+    epoch in one stream chunk, so equal windows draw equal crops.
+    ``extra``: more config fields."""
     import os
 
     import numpy as np
@@ -965,7 +966,7 @@ def _card_trainer(case, superstep, out, device):
 
     common = dict(world_size=4, epoch_size=2, seed=0, straggler="3,1,1,1", superstep=superstep,
                   debug=True, device=0, log_dir=str(out / "logs"),
-                  stat_dir=str(out / superstep))
+                  stat_dir=str(out / superstep), **extra)
     if case == "lm":
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         cfg = Config(model="transformer", dataset="wikitext2", batch_size=16, n_train=4000,
@@ -1012,6 +1013,44 @@ def test_graphed_training_equals_eager_on_the_card(cuda, tmp_path, case):
     assert sum(r["captures"] for r in ran) >= 1 and sum(r["replays"] for r in ran) >= 2
     key = "attn_fwd" if case == "lm" else "groupnorm_bwd"
     assert n_auto[key] >= n_off[key] > 0  # replays counted, warm-ups added
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["elastic", "packed", "lm"])
+def test_keys_captured_ahead_equal_lazy_captures_and_eager_steps(cuda, tmp_path, case):
+    """A key the warm service captured ahead from its dummy slots (zero
+    inputs, label 0, weight 1 / (b * world_size); ``--warm_start``: epoch
+    0's keys in the pre-wall drain), then replayed with the real batches,
+    against the same key captured lazily at its first step (``--aot_warm
+    false``) and the eager steps (``--superstep off``), two epochs, cuDNN
+    deterministic: the same train losses, parameters and momentum buffers,
+    bit for bit."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for name, superstep, extra in (("eager", "off", {}),
+                                       ("lazy", "auto", dict(aot_warm=False)),
+                                       ("ahead", "auto", dict(warm_start=True))):
+            tr = _card_trainer(case, superstep, tmp_path / name, cuda, **extra)
+            tr.run()
+            runs[name] = tr
+    finally:
+        torch.backends.cudnn.deterministic = det
+    ahead, lazy = runs["ahead"], runs["lazy"]
+    drained = [a for a in ahead.recorder.meta["aot"] if a["epoch"] == 0 and a["at"] == "drain"]
+    assert drained and drained[0]["captures"] >= 1
+    assert ahead.recorder.meta["supersteps"][0]["foreground_captures"] == 0
+    assert lazy.recorder.meta["supersteps"][0]["foreground_captures"] >= 1
+    for other in ("lazy", "eager"):
+        tr = runs[other]
+        assert tr.recorder.data["train_loss"] == ahead.recorder.data["train_loss"], other
+        for p, q in zip(tr.model.parameters(), ahead.model.parameters()):
+            assert torch.equal(p, q), other
+            assert torch.equal(tr.optimizer.state[p]["momentum_buffer"],
+                               ahead.optimizer.state[q]["momentum_buffer"]), other
 
 
 @pytest.mark.cuda
